@@ -1,0 +1,412 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, one line or block of output each; any failure exits non-zero:
+
+1. device — the card's name, count, and ``nvidia-smi`` name / power limit;
+2. build  — both CUDA kernels from ``src/repro_torch/csrc``, in parallel,
+   with ``nvcc -Xptxas -v``'s registers / shared memory / spills;
+3. kernels — each kernel against its plain PyTorch version on the card at
+   the serving path's shapes, bf16 and float32, with the stated tolerance;
+   then times (CUDA events, L2 flushed before each launch): kernel, plain
+   version, ``scaled_dot_product_attention`` as a yardstick for flash, and
+   the least time the card could take (bytes and operations against the
+   published H100 SXM peaks);
+4. layer parity — full-width qwen3-0.6b cut to 2 layers, float32: prefill
+   and 4 decode steps on the CPU (plain versions) and on the card (kernels)
+   from the same weights, logits held within a stated tolerance;
+5. serve — full-width qwen3-0.6b, all 28 layers, random weights from the
+   seed, through ``ServeEngine`` (paged KV, prefix cache, bucketed and
+   chunked prefill, greedy and sampled decode), with both kernels' launch
+   counters read around the run.
+
+The last three lines: ``nvidia-smi``'s name and power limit, one JSON
+object with a row per kernel, and ``{"ok": true, "device": {...}}``.
+The script imports neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit
+TERA = 1e12
+PEAK_BYTES_S = 3.35 * TERA
+PEAK_FLOPS = {"bfloat16": 989.4 * TERA, "float32": 67.0 * TERA}
+
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+PAGED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# float32 logits of a 2-layer full-width model: the kernels and cuBLAS sum
+# in other orders than the CPU, over d_model 1024 and vocab 151,936
+LOGIT_TOL = 2e-3
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# --------------------------------------------------------------- 1. device
+def phase_device():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a card")
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    say(f"[device] {name}, {count} device(s); nvidia-smi: {smi}; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return name, count, smi
+
+
+# ---------------------------------------------------------------- 2. build
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build(["flash_attention", "paged_attention"])
+    say(f"[build] both kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(sm_90a, into {build.BUILD_DIR})")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "Compiling entry" in line or "Used" in line \
+                    or "spill" in line:
+                say(f"[build] {name}: {line.strip()}")
+
+
+# -------------------------------------------------------------- 3. kernels
+def time_ms(fn, iters: int, flush) -> float:
+    """Mean ms per call over ``iters`` calls, CUDA events around each call,
+    the L2 cache flushed before each one; after 3 warm calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_case(b, s, h, kvh, hd, window, dtype, gen):
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_raw,
+                                                     flash_attention_ref)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(dt)
+    out = flash_attention_raw(q, k, v, causal=True, window=window)
+    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    return (q, k, v), err
+
+
+def phase_kernels(seed: int, card: str):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_raw,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_ref, paged_decode_attention, paged_decode_attention_raw)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    rows = {}
+
+    # ---- flash: B=4, H=16, KVH=8, hd=128, causal; a window and a ragged S
+    b, h, kvh, hd = 4, 16, 8, 128
+    for dtype in ("bfloat16", "float32"):
+        for s, window in ((16, 0), (256, 0), (1024, 0), (256, 64), (100, 0)):
+            _, err = flash_case(b, s, h, kvh, hd, window, dtype, gen)
+            tol = FLASH_TOL[dtype]
+            say(f"[kernel] flash {dtype} B={b} S={s} H={h} KVH={kvh} "
+                f"hd={hd} window={window}: max|kernel-plain|={err:.3e} "
+                f"(tol {tol})")
+            if not err <= tol:
+                fail(f"flash kernel disagrees with its plain version "
+                     f"({err} > {tol})")
+            if dtype == "bfloat16" and window == 0 and s == 256:
+                rows["flash"] = {"max_abs_err": err}
+    for s in (256, 1024):
+        (q, k, v), _ = flash_case(b, s, h, kvh, hd, 0, "bfloat16", gen)
+        pairs = s * (s + 1) // 2
+        flops = 4.0 * b * h * hd * pairs
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        ms = time_ms(lambda: flash_attention_raw(q, k, v, causal=True), 20,
+                     flush)
+        plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                        10, flush)
+        # the yardstick gets K/V already repeated to H heads (not timed)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20, flush)
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        say(f"[kernel] on {card}: flash bf16 B={b} S={s} causal: kernel "
+            f"{ms:.4f} ms, "
+            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+        if s == 256:
+            rows["flash"].update(ms=ms, plain_ms=plain, library_ms=lib,
+                                 bound_ms=bnd, bound_by=by)
+
+    # ---- paged: 8 slots, bs=16, lengths over 0..1023, sentinel entries
+    slots, bs, nb = 8, 16, 1024 // 16
+    n_blocks = slots * nb
+    lengths = torch.linspace(0, 1023, slots, device="cuda").round().int()
+    lengths[1] = 15                     # a write at the end of a block
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda")
+    table = torch.full((slots, nb), n_blocks, dtype=torch.int32,
+                       device="cuda")
+    used = 0
+    for i, ln in enumerate(lengths.tolist()):
+        own = ln // bs + 1
+        table[i, :own] = perm[used:used + own].int()
+        used += own
+    write = torch.ones(slots, dtype=torch.bool, device="cuda")
+    write[3] = False                    # a dropped write: sentinel row entry
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q = torch.randn((slots, 1, h, hd), generator=gen,
+                        device="cuda").to(dt)
+        nk = torch.randn((slots, 1, kvh, hd), generator=gen,
+                         device="cuda").to(dt)
+        nv = torch.randn((slots, 1, kvh, hd), generator=gen,
+                         device="cuda").to(dt)
+        kp = torch.randn((n_blocks, bs, kvh, hd), generator=gen,
+                         device="cuda").to(dt)
+        vp = torch.randn((n_blocks, bs, kvh, hd), generator=gen,
+                         device="cuda").to(dt)
+        wtable = torch.where(write[:, None], table,
+                             torch.full_like(table, n_blocks))
+        kp_cpu, vp_cpu = kp.cpu(), vp.cpu()
+        out, kp, vp = paged_decode_attention(q, nk, nv, kp, vp, wtable,
+                                             lengths)
+        out_c, kp_cpu, vp_cpu = paged_decode_attention(
+            q.cpu(), nk.cpu(), nv.cpu(), kp_cpu, vp_cpu, wtable.cpu(),
+            lengths.cpu())
+        if not (torch.equal(kp.cpu(), kp_cpu)
+                and torch.equal(vp.cpu(), vp_cpu)):
+            fail("paged scatter on the card differs from the CPU's")
+        clamped = table.clamp(max=n_blocks - 1)
+        q0 = q[:, 0].contiguous()
+        got = paged_decode_attention_raw(q0, kp, vp, clamped, lengths)
+        ref = paged_attention_ref(q0, kp, vp, clamped, lengths)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        err_cpu = (out.cpu().float() - out_c.float()).abs().max().item()
+        tol = PAGED_TOL[dtype]
+        say(f"[kernel] paged {dtype} slots={slots} bs={bs} H={h} KVH={kvh} "
+            f"hd={hd} lengths={lengths.tolist()}: max|kernel-plain|="
+            f"{err:.3e}, vs CPU plain {err_cpu:.3e} (tol {tol})")
+        if not (err <= tol and err_cpu <= tol):
+            fail(f"paged kernel disagrees with its plain version "
+                 f"({err}, {err_cpu} > {tol})")
+        if dtype == "bfloat16":
+            live = int((lengths.long() + 1).sum())
+            item = 2
+            nbytes = (2.0 * live * kvh * hd * item + 2 * q0.numel() * item
+                      + 4 * (table.numel() + slots))
+            flops = 4.0 * h * hd * live
+            ms = time_ms(lambda: paged_decode_attention_raw(
+                q0, kp, vp, clamped, lengths), 50, flush)
+            plain = time_ms(lambda: paged_attention_ref(
+                q0, kp, vp, clamped, lengths), 20, flush)
+            bnd, by = bound_ms(nbytes, flops, "bfloat16")
+            say(f"[kernel] on {card}: paged bf16 ({live} live tokens): kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+                f"({by})")
+            rows["paged"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 library_ms=None, bound_ms=bnd, bound_by=by)
+    return rows
+
+
+# --------------------------------------------------------- 4. layer parity
+def phase_parity(seed: int):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Model
+    cfg = get_config("qwen3-0.6b").replace(num_layers=2,
+                                           compute_dtype="float32")
+    cpu = build_model(cfg, device="cpu", seed=seed)
+    gpu = Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    max_len, bs = 512, 16
+    lens = [37, 200]
+    rng = torch.Generator().manual_seed(seed)
+    toks = torch.randint(1, cfg.vocab_size, (2, 256), generator=rng)
+    table = torch.arange(2 * max_len // bs, dtype=torch.int32).reshape(2, -1)
+    length = torch.tensor(lens, dtype=torch.int32)
+    states, logits = {}, {}
+    for model in (cpu, gpu):
+        dev = model.device.type
+        st = model.init_states(2, max_len, kv_block_size=bs)
+        lg, states[dev] = model.prefill(toks.to(dev), st,
+                                        length=length.to(dev),
+                                        block_table=table.to(dev))
+        logits[dev] = [lg.cpu()]
+    pos = length.clone()
+    for _ in range(4):
+        # both sides decode the CPU's greedy token, so they never diverge
+        nxt = logits["cpu"][-1][:, 0].argmax(-1)[:, None]
+        for model in (cpu, gpu):
+            dev = model.device.type
+            lg, states[dev] = model.decode_step(
+                nxt.to(dev), states[dev], pos.to(dev),
+                block_table=table.to(dev))
+            logits[dev].append(lg.cpu())
+        pos = pos + 1
+    if not all(torch.isfinite(lg).all() for lg in logits["cuda"]):
+        fail("non-finite logits on the card")
+    worst = max((a - b).abs().max().item()
+                for a, b in zip(logits["cpu"], logits["cuda"]))
+    say(f"[parity] qwen3-0.6b full width, 2 layers, float32, prefill "
+        f"lengths {lens} + 4 decode steps: max|cuda-cpu| logits "
+        f"{worst:.3e} (tol {LOGIT_TOL})")
+    if not worst <= LOGIT_TOL:
+        fail(f"layer parity {worst} > {LOGIT_TOL}")
+
+
+# ---------------------------------------------------------------- 5. serve
+def phase_serve(seed: int, card: str):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, paged_attention
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine, prefill_buckets
+    cfg = get_config("qwen3-0.6b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=seed)
+    engine = ServeEngine(model, slots=4, max_len=1024, kv_block_size=16,
+                         buckets=prefill_buckets(256), prefill_chunk=256)
+    engine.warmup()
+    torch.cuda.synchronize()
+    say(f"[serve] qwen3-0.6b full width ({cfg.num_layers} layers, "
+        f"{cfg.param_count() / 1e6:.0f} M parameters, bf16 compute), "
+        f"model + warmup {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed)
+    prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
+    shared = prompt(70)
+    reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=16)
+            for i, n in enumerate((5, 17, 40, 90, 180))]
+    reqs.append(Request(rid=5, prompt=prompt(600), max_new_tokens=16))
+    reqs.append(Request(rid=6, prompt=shared + prompt(10), max_new_tokens=16,
+                        temperature=0.8, top_k=50, top_p=0.9, seed=seed))
+    late = Request(rid=7, prompt=shared + prompt(12), max_new_tokens=16)
+
+    flash_attention.launches.reset()
+    paged_attention.launches.reset()
+    for r in reqs:
+        engine.submit(r)
+    while not reqs[6].generated:        # the shared prefix is published at
+        engine.step()                   # the first request's prefill
+    engine.submit(late)
+    engine.run([])
+    counts = {"flash": flash_attention.launches.n,
+              "paged": paged_attention.launches.n}
+
+    s = engine.stats.summary()
+    reqs.append(late)
+    say(f"[serve] {len(reqs)} requests: completed "
+        f"{s['requests_completed']}, tokens {s['tokens_generated']}, "
+        f"prefill calls {s['prefill_calls']}, chunks {s['prefill_chunks']}, "
+        f"prefix hits {s['kv']['prefix_hits']} "
+        f"({s['kv']['prefix_tokens_reused']} tokens, "
+        f"{s['kv']['blocks_copied']} COW), blocks peak "
+        f"{s['kv']['blocks_peak']}, decode stalls "
+        f"{s['kv']['decode_stalls']}, non-finite logit rows "
+        f"{s['nonfinite_logits']}, launches {counts}")
+    say(f"[serve] on {card}: {s['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{s['ttft_ms']['p50']:.2f} ms (mean {s['ttft_ms']['mean']:.2f}, "
+        f"max {s['ttft_ms']['max']:.2f}), decode step "
+        f"{s['decode_step_ms']:.2f} ms over {s['decode_steps']} steps")
+    checks = {
+        "every request finished": all(r.done and len(r.generated) == 16
+                                      for r in reqs),
+        "prefill_chunks >= 3": s["prefill_chunks"] >= 3,
+        "prefix_hits >= 1": s["kv"]["prefix_hits"] >= 1,
+        "decode_stalls == 0": s["kv"]["decode_stalls"] == 0,
+        "flash kernel launched": counts["flash"] > 0,
+        "paged kernel launched": counts["paged"] > 0,
+        "all logits finite": s["nonfinite_logits"] == 0,
+        "tokens in vocab": all(0 <= t < cfg.vocab_size
+                               for r in reqs for t in r.generated),
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"serve: {what} does not hold")
+    return counts
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    name, count, smi = phase_device()
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "csrc").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             f"a checkout of the repository")
+    sys.path.insert(0, str(src))
+    phase_build()
+    rows = phase_kernels(args.seed, smi)
+    phase_parity(args.seed)
+    counts = phase_serve(args.seed, smi)
+    kernels = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:22",
+         "launches": counts["flash"], **rows["flash"]},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:31",
+         "launches": counts["paged"], **rows["paged"]},
+    ]
+    for row in kernels:
+        for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
+            if not math.isfinite(row[key]):
+                fail(f"{row['name']}: {key} is not finite")
+    say(smi)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                           "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

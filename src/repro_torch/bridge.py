@@ -1,0 +1,72 @@
+"""Weight bridge: the JAX package's parameter pytree, handed over as numpy
+arrays, into the port's ``Model``.
+
+The tree (``repro.models.transformer.Model.init``) holds ``embed``,
+``final_norm``, ``groups[str(j)]`` — the blocks at pattern position ``j``,
+stacked on axis 0 over the scanned groups — and ``tail``, the blocks past the
+last whole group.  Layer ``g * len(pattern) + j`` is ``groups[str(j)][g]``.
+Each leaf is copied into the port's tensor, which casts matmul weights to
+the compute dtype once (the JAX package casts them per call).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.model_config import ArchConfig
+from .models.transformer import Model
+
+
+def _layer_trees(tree: dict, cfg: ArchConfig) -> list[dict]:
+    pattern = cfg.block_pattern
+    n_groups = cfg.num_layers // len(pattern)
+    for j in range(len(pattern) if n_groups else 0):
+        depth = np.shape(tree["groups"][str(j)]["ln1"]["scale"])[0]
+        if depth != n_groups:
+            raise ValueError(f"tree stacks {depth} groups at pattern "
+                             f"position {j}, config {cfg.name} has "
+                             f"{n_groups}")
+    layers = []
+    for g in range(n_groups):
+        for j in range(len(pattern)):
+            layers.append(_index(tree["groups"][str(j)], g))
+    layers.extend(tree["tail"])
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} blocks, config "
+                         f"{cfg.name} has {cfg.num_layers}")
+    return layers
+
+
+def _index(node, g: int):
+    if isinstance(node, dict):
+        return {k: _index(v, g) for k, v in node.items()}
+    return node[g]
+
+
+@torch.no_grad()
+def _copy(dst: torch.Tensor, src, name: str) -> None:
+    src = np.asarray(src)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: JAX leaf {src.shape} vs port "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(np.array(src, np.float32)))
+
+
+def from_jax_params(tree: dict, cfg: ArchConfig,
+                    device: str | torch.device = "cuda") -> Model:
+    """A ``Model`` on ``device`` holding the weights of ``tree``."""
+    model = Model(cfg, device)
+    _copy(model.embed, tree["embed"], "embed")
+    _copy(model.final_norm, tree["final_norm"]["scale"], "final_norm")
+    for i, (blk, lt) in enumerate(zip(model.layers, _layer_trees(tree, cfg))):
+        _copy(blk.ln1, lt["ln1"]["scale"], f"layer {i} ln1")
+        _copy(blk.ln2, lt["ln2"]["scale"], f"layer {i} ln2")
+        for part in ("attn", "ffn"):
+            mod = getattr(blk, part)
+            if set(mod.keys()) != set(lt[part]):
+                raise ValueError(f"layer {i} {part}: JAX leaves "
+                                 f"{sorted(lt[part])} vs port "
+                                 f"{sorted(mod.keys())}")
+            for name, p in mod.items():
+                _copy(p, lt[part][name], f"layer {i} {part}.{name}")
+    return model

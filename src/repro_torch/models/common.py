@@ -1,0 +1,88 @@
+"""Shared model building blocks: norms, rotary embeddings, embeddings.
+
+The PyTorch counterpart of ``repro.models.common``.  Parameters live in the
+model's ``nn.Module``s; these are plain functions on tensors.  Compute dtype
+follows the config (bf16 by default), accumulation and normalization run in
+float32 exactly where the JAX package's do.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype for a config dtype name ("bfloat16", ...)."""
+    return _DTYPES[name]
+
+
+# ------------------------------------------------------------------------ norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32 with the ``(1 + scale)`` gain of
+    ``repro.models.common.rms_norm`` (scales initialize at zero)."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+# ------------------------------------------------------------------------- RoPE
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integer.
+    Split-halves rotation (not interleaved pairs), in float32."""
+    head_dim = x.shape[-1]
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=x.device) / head_dim))
+    freqs = positions[..., :, None].float() * inv       # (..., seq, hd/2)
+    cos = torch.cos(freqs)[..., :, None, :]
+    sin = torch.sin(freqs)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------- embeds
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return table[tokens].to(compute_dtype)
+
+
+def embed_scaled(table: torch.Tensor, tokens: torch.Tensor,
+                 compute_dtype: torch.dtype, d_model: int) -> torch.Tensor:
+    """Embedding times ``sqrt(d_model)``, the scale taken and applied in the
+    compute dtype (``repro.models.transformer.Model._embed_inputs``)."""
+    scale = torch.sqrt(torch.tensor(float(d_model), dtype=compute_dtype,
+                                    device=table.device))
+    return embed(table, tokens, compute_dtype) * scale
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Logits in float32: float32 activations times the float32 table."""
+    return torch.matmul(x.float(), table.float().t())
+
+
+# --------------------------------------------------------------------- activation
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS: dict[str, Callable] = {
+    "gelu": gelu,
+    "silu": F.silu,
+    "relu": F.relu,
+    "tanh": torch.tanh,
+}
+
+
+def fan_in_std(shape: tuple[int, ...]) -> float:
+    """Std of the JAX package's fan-in initializer for a weight of
+    ``shape``."""
+    return 1.0 / math.sqrt(max(shape[0] if shape else 1, 1))

@@ -21,3 +21,9 @@ if _SRC not in sys.path:
 
 # keep CPU test runs deterministic and quiet
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's hand-written kernels); "
+        "skips, with its reason, where there is none")

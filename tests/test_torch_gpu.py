@@ -1,0 +1,85 @@
+"""Marked ``gpu``: each CUDA kernel of the port against its plain version
+on the card.  They skip, with the reason, where there is no card.  This
+file imports no JAX, so it runs on a machine that has only PyTorch:
+
+    python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+
+
+def _randn(rng, *shape, dtype=np.float32):
+    return rng.standard_normal(shape).astype(dtype)
+
+
+def _paged_case(rng, B, h, kvh, hd, n, bs, nb):
+    """Scattered pools, ragged lengths, sentinel (= n) table entries, and a
+    slot whose write block is the sentinel (its write must drop)."""
+    perm = rng.permutation(n)
+    table = np.full((B, nb), n, np.int32)
+    lengths = np.zeros((B,), np.int32)
+    off = 0
+    for b in range(B):
+        owned = min(rng.randint(1, nb + 1), n - off)
+        table[b, :owned] = perm[off:off + owned]
+        off += owned
+        lengths[b] = rng.randint(0, owned * bs)
+    # the last slot writes one block past what it owns: a sentinel entry
+    owned_last = int((table[-1] < n).sum())
+    if owned_last < nb:
+        lengths[-1] = owned_last * bs
+    return dict(q=_randn(rng, B, 1, h, hd), nk=_randn(rng, B, 1, kvh, hd),
+                nv=_randn(rng, B, 1, kvh, hd), kp=_randn(rng, n, bs, kvh, hd),
+                vp=_randn(rng, n, bs, kvh, hd), table=table, lengths=lengths)
+
+
+# ----------------------------------------------------------------- on the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kvh,hd,window", [
+    (4, 256, 16, 8, 128, 0), (2, 100, 4, 2, 64, 0), (2, 64, 4, 1, 256, 16),
+    (1, 48, 2, 2, 16, 0)])
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, b, s, h, kvh,
+                                            hd, window):
+    gen = torch.Generator(device=cuda).manual_seed(s + hd)
+    q = torch.randn(b, s, h, hd, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, s, kvh, hd, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, s, kvh, hd, generator=gen, device=cuda).to(dtype)
+    before = fa.launches.n
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    assert fa.launches.n == before + 1
+    ref = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_kernel_matches_plain_on_card(cuda, dtype, tol):
+    c = _paged_case(np.random.RandomState(5), 8, 16, 8, 128, 80, 16, 10)
+    t = {x: torch.from_numpy(c[x]).to(cuda) for x in c}
+    for x in ("q", "nk", "nv", "kp", "vp"):
+        t[x] = t[x].to(dtype)
+    cpu = {x: v.cpu() for x, v in t.items()}
+    before = pa.launches.n
+    out, kp, vp = pa.paged_decode_attention(
+        *(t[x] for x in ("q", "nk", "nv", "kp", "vp", "table", "lengths")))
+    assert pa.launches.n == before + 1
+    outc, kpc, vpc = pa.paged_decode_attention(
+        *(cpu[x] for x in ("q", "nk", "nv", "kp", "vp", "table", "lengths")))
+    assert torch.equal(kp.cpu(), kpc) and torch.equal(vp.cpu(), vpc)
+    assert (out.cpu().float() - outc.float()).abs().max().item() <= tol
