@@ -15,14 +15,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.flash_attention.ops import flash_attention as _flash_kernel
-from ..kernels.paged_attention.ops import (paged_attention, scatter_paged,
-                                           table_lookup)
+from ..kernels.flash_attention.ops import flash_attention  # noqa: F401
+from ..kernels.paged_attention import ops as paged_ops
+from ..kernels.paged_attention.ops import scatter_paged, table_lookup
 from .common import apply_rope, rms_norm
 
 NEG_INF = -1e30
-
-_scatter_paged = scatter_paged
 
 
 def qkv_project(params: dict, x: torch.Tensor, num_heads: int,
@@ -47,18 +45,6 @@ def qkv_project(params: dict, x: torch.Tensor, num_heads: int,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     return q, k, v
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q: (B,Sq,H,hd); k,v: (B,Skv,KVH,hd) -> (B,Sq,H,hd).  The aligned case
-    (``q_offset == 0``, every bucketed prefill) runs the flash kernel
-    wrapper; a continuation at another offset runs the plain oracle."""
-    if q_offset == 0:
-        return _flash_kernel(q, k, v, causal=causal, window=window)
-    return reference_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
 
 
 # ------------------------------------------------------------------ paged KV
@@ -90,24 +76,21 @@ def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
                            new_v: torch.Tensor, cache: PagedKVCache,
                            block_table: torch.Tensor, *,
                            write_mask: torch.Tensor | None = None):
-    """One-token attention against the paged pool.
+    """One-token attention against the paged pool, through
+    ``kernels.paged_attention.ops.paged_decode_attention``.
 
     q/new_k/new_v: (B,1,H|KVH,hd).  Writes the new K/V at logical position
-    ``length[b]`` through the block table (rows with ``write_mask`` False
-    drop the write and keep their length), then runs the paged kernel
-    wrapper over positions 0..length[b].  Returns (out (B,1,H,hd), cache)."""
-    n, bs = cache.k.shape[0], cache.k.shape[1]
-    idx = cache.length.long()
-    blk = table_lookup(block_table, idx // bs, n)
+    ``length[b]`` and attends over positions 0..length[b].  Rows with
+    ``write_mask`` False get an all-sentinel table row, so their write drops
+    and their length stays; their output is meaningless (every caller
+    discards it).  Returns (out (B,1,H,hd), cache)."""
     if write_mask is not None:
-        blk = torch.where(write_mask, blk, torch.full_like(blk, n))
-    _scatter_paged(cache.k, blk, idx % bs, new_k[:, 0])
-    _scatter_paged(cache.v, blk, idx % bs, new_v[:, 0])
+        block_table = torch.where(write_mask[:, None], block_table,
+                                  cache.k.shape[0])
+    out, _, _ = paged_ops.paged_decode_attention(
+        q, new_k, new_v, cache.k, cache.v, block_table, cache.length)
     inc = 1 if write_mask is None else write_mask.to(torch.int32)
-    table = block_table.clamp(max=n - 1).to(torch.int32)
-    out = paged_attention(q[:, 0].contiguous(), cache.k, cache.v, table,
-                          cache.length.to(torch.int32))
-    return out[:, None], cache._replace(length=cache.length + inc)
+    return out, cache._replace(length=cache.length + inc)
 
 
 def paged_fill_cache(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor,
@@ -124,8 +107,8 @@ def paged_fill_cache(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor,
     if length is not None:
         valid = j[None, :] < length[:, None]
         blk = torch.where(valid, blk, torch.full_like(blk, n))
-    _scatter_paged(cache.k, blk, off, k)
-    _scatter_paged(cache.v, blk, off, v)
+    scatter_paged(cache.k, blk, off, k)
+    scatter_paged(cache.v, blk, off, v)
     new_len = cache.length + (s if length is None else length)
     return PagedKVCache(cache.k, cache.v, new_len.to(torch.int32))
 
@@ -148,8 +131,8 @@ def paged_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     blk = table_lookup(block_table, q_pos // bs, n)
     valid = torch.arange(c, device=q.device)[None, :] < length[:, None]
     blk = torch.where(valid, blk, torch.full_like(blk, n))
-    _scatter_paged(cache.k, blk, q_pos % bs, k)
-    _scatter_paged(cache.v, blk, q_pos % bs, v)
+    scatter_paged(cache.k, blk, q_pos % bs, k)
+    scatter_paged(cache.v, blk, q_pos % bs, v)
     ks, vs = gather_paged_kv(cache, block_table)               # (B,Smax,..)
     smax = ks.shape[1]
     qg = (q.reshape(b, c, kvh, g, hd) * scale).float()
@@ -163,28 +146,3 @@ def paged_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = out.permute(0, 3, 1, 2, 4).reshape(b, c, h, hd)
     return out.to(q.dtype), cache._replace(
         length=(offset + length).to(torch.int32))
-
-
-# ------------------------------------------------------------------- reference
-def reference_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0) -> torch.Tensor:
-    """Naive O(S^2) oracle: q row i sits at position ``i + q_offset``; the
-    scale multiplies q in its own dtype before the float32 cast, as the JAX
-    package's XLA path does."""
-    b, sq, h, hd = q.shape
-    _, skv, kvh, _ = k.shape
-    g = h // kvh
-    scale = 1.0 / math.sqrt(hd)
-    qg = (q.reshape(b, sq, kvh, g, hd) * scale).float()
-    s = torch.einsum("bqnGd,bknd->bnGqk", qg, k.float())
-    q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kv_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kv_pos <= q_pos
-    if window:
-        mask &= kv_pos > q_pos - window
-    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bnGqk,bknd->bnGqd", p, v.float())
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)

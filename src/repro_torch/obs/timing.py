@@ -24,17 +24,15 @@ class Timed:
     Attributes after the block: ``t0`` / ``t1`` (clock stamps) and ``dur``
     (seconds)."""
 
-    __slots__ = ("name", "device", "t0", "t1", "dur", "_clock")
+    __slots__ = ("name", "device", "t0", "t1", "dur")
 
-    def __init__(self, name: str = "", *, device: torch.device,
-                 clock=time.perf_counter):
+    def __init__(self, name: str = "", *, device: torch.device):
         self.name = name
         self.device = torch.device(device)
-        self._clock = clock
         self.t0 = self.t1 = self.dur = 0.0
 
     def __enter__(self) -> "Timed":
-        self.t0 = self._clock()
+        self.t0 = time.perf_counter()
         return self
 
     def sync(self, out=None):
@@ -45,6 +43,6 @@ class Timed:
         return out
 
     def __exit__(self, *exc) -> bool:
-        self.t1 = self._clock()
+        self.t1 = time.perf_counter()
         self.dur = self.t1 - self.t0
         return False

@@ -37,9 +37,14 @@ from ..obs import Timed
 from .kvpool import PagedKVManager
 from .sampling import sample_tokens
 
+MIN_BUCKET = 16             # smallest prompt bucket
+MAX_PREFILL_PER_STEP = 1    # queued requests admitted per tick
+MAX_PREFILL_BATCH = 4       # rows of one batched prefill (capped at slots)
+
 
 # ------------------------------------------------------------------- buckets
-def prefill_buckets(max_len: int, min_bucket: int = 16) -> tuple[int, ...]:
+def prefill_buckets(max_len: int,
+                    min_bucket: int = MIN_BUCKET) -> tuple[int, ...]:
     """Power-of-two prompt buckets up to max_len.  When max_len is not
     itself a power of two, a final max_len-sized bucket covers the gap so no
     prompt below the cache size is rejected."""
@@ -156,9 +161,6 @@ class ServeEngine:
     def __init__(self, model: Model, *, kv_block_size: int, slots: int = 4,
                  max_len: int = 512,
                  buckets: tuple[int, ...] | None = None,
-                 min_bucket: int = 16,
-                 max_prefill_per_step: int = 1,
-                 max_prefill_batch: int = 4,
                  prefill_chunk: int | None = None,
                  kv_blocks: int | None = None,
                  prefix_cache: bool = True):
@@ -171,11 +173,10 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.buckets = tuple(sorted(buckets)) if buckets \
-            else prefill_buckets(max_len, min_bucket)
+            else prefill_buckets(max_len)
         if self.buckets[-1] > max_len:
             raise ValueError(f"bucket {self.buckets[-1]} > max_len {max_len}")
-        self.max_prefill_per_step = max(1, max_prefill_per_step)
-        self.max_prefill_batch = max(1, min(max_prefill_batch, slots))
+        self.max_prefill_batch = min(MAX_PREFILL_BATCH, slots)
         self.batch_buckets = prefill_buckets(self.max_prefill_batch,
                                              min_bucket=1)
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk \
@@ -476,13 +477,13 @@ class ServeEngine:
 
     def step(self) -> None:
         """One engine tick: advance each in-flight chunked prefill by one
-        chunk, admit up to ``max_prefill_per_step`` queued requests, then one
+        chunk, admit up to ``MAX_PREFILL_PER_STEP`` queued requests, then one
         lockstep decode step over the decoding slots.  Each slot's table is
         extended before its write; a slot the pool cannot extend stalls."""
         t_tick = self._now()
         for slot in list(self._prefilling):
             self._advance_chunk(slot)
-        self._admit(self.max_prefill_per_step)
+        self._admit(MAX_PREFILL_PER_STEP)
         busy = [i for i, r in enumerate(self.requests) if r is not None]
         active = [i for i in busy if i not in self._prefilling]
         if active:
