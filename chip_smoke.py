@@ -6,21 +6,27 @@
 Phases, one line or block of output each; any failure exits non-zero:
 
 1. device — the card's name, count, and ``nvidia-smi`` name / power limit;
-2. build  — both CUDA kernels from ``src/repro_torch/csrc``, in parallel,
-   with ``nvcc -Xptxas -v``'s registers / shared memory / spills;
+2. build  — the three CUDA kernels from ``src/repro_torch/csrc``, in
+   parallel, with ``nvcc -Xptxas -v``'s registers / shared memory / spills;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the serving path's shapes, bf16 and float32, with the stated tolerance;
-   then times (CUDA events, L2 flushed before each launch): kernel, plain
-   version, ``scaled_dot_product_attention`` as a yardstick for flash, and
-   the least time the card could take (bytes and operations against the
-   published H100 SXM peaks);
-4. layer parity — full-width qwen3-0.6b cut to 2 layers, float32: prefill
-   and 4 decode steps on the CPU (plain versions) and on the card (kernels)
-   from the same weights, logits held within a stated tolerance;
-5. serve — full-width qwen3-0.6b, all 28 layers, random weights from the
-   seed, through ``ServeEngine`` (paged KV, prefix cache, bucketed and
-   chunked prefill, greedy and sampled decode), with both kernels' launch
-   counters read around the run.
+   the serving paths' shapes, bf16 and float32, with the stated tolerance
+   (flash also at recurrentgemma's hd=256, 10 q heads over 1 kv head, and
+   with a window that binds); then times (CUDA events, L2 flushed before
+   each launch): kernel, plain version, ``scaled_dot_product_attention`` as
+   a yardstick for flash, and the least time the card could take (bytes
+   and operations against the published H100 SXM peaks);
+4. layer parity — full-width qwen3-0.6b cut to 2 layers and full-width
+   recurrentgemma-2b cut to 3 (rec, rec, local), float32: prefill and 4
+   decode steps on the CPU (plain versions) and on the card (kernels) from
+   the same weights, logits held within a stated tolerance;
+5. serve — two paths through ``ServeEngine``, random weights from the
+   seed, each run with every kernel's launch counter set to 0 just before
+   it and read just after:
+   a. full-width qwen3-0.6b, all 28 layers: paged KV, prefix cache,
+      bucketed and chunked prefill, greedy and sampled decode;
+   b. full-width recurrentgemma-2b, all 26 layers: dense KV (2048-token
+      window rings), a 2300-token prompt chunked across the window, decode
+      past it, a recycled slot, greedy and sampled decode.
 
 The last three lines: ``nvidia-smi``'s name and power limit, one JSON
 object with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -45,8 +51,12 @@ PEAK_FLOPS = {"bfloat16": 989.4 * TERA, "float32": 67.0 * TERA}
 
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PAGED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# float32 logits of a 2-layer full-width model: the kernels and cuBLAS sum
-# in other orders than the CPU, over d_model 1024 and vocab 151,936
+# the RG-LRU kernel rounds a*h, then +b, as its plain loop does: float32
+# agrees to the bit; a bf16 output may differ by one ulp of |h| < 8
+RGLRU_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -4}
+# float32 logits of a cut full-width model: the kernels and cuBLAS sum in
+# other orders than the CPU, over d_model 1024 / 2560 and vocab 151,936 /
+# 256,000
 LOGIT_TOL = 2e-3
 
 
@@ -81,9 +91,9 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["flash_attention", "paged_attention"])
-    say(f"[build] both kernels built in {time.perf_counter() - t0:.1f} s "
-        f"(sm_90a, into {build.BUILD_DIR})")
+    logs = build.build(["flash_attention", "paged_attention", "pavlov_rglru"])
+    say(f"[build] {len(logs)} kernels built in "
+        f"{time.perf_counter() - t0:.1f} s (sm_90a, into {build.BUILD_DIR})")
     for name, log in logs.items():
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line \
@@ -92,6 +102,13 @@ def phase_build():
 
 
 # -------------------------------------------------------------- 3. kernels
+#: GPU clock cycles the card spins before each timed call (about 1 ms):
+#: the host enqueues the call meanwhile, so the events time the card's work
+#: and not the host's launch path (a ctypes launch takes tens of µs, as long
+#: as a small kernel runs)
+SPIN_CYCLES = 2_000_000
+
+
 def time_ms(fn, iters: int, flush) -> float:
     """Mean ms per call over ``iters`` calls, CUDA events around each call,
     the L2 cache flushed before each one; after 3 warm calls."""
@@ -103,6 +120,7 @@ def time_ms(fn, iters: int, flush) -> float:
         flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -252,62 +270,176 @@ def phase_kernels(seed: int, card: str):
                 f"({by})")
             rows["paged"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                  library_ms=None, bound_ms=bnd, bound_by=by)
+
+    # ---- flash at recurrentgemma's local layers: hd=256, 10 q heads over 1
+    # kv head; the serving window of 2048 (not binding at S=256) and one of
+    # 128 that binds
+    b, h, kvh, hd = 4, 10, 1, 256
+    for dtype in ("bfloat16", "float32"):
+        for s, window in ((256, 2048), (512, 128)):
+            _, err = flash_case(b, s, h, kvh, hd, window, dtype, gen)
+            tol = FLASH_TOL[dtype]
+            say(f"[kernel] flash {dtype} B={b} S={s} H={h} KVH={kvh} "
+                f"hd={hd} window={window}: max|kernel-plain|={err:.3e} "
+                f"(tol {tol})")
+            if not err <= tol:
+                fail(f"flash kernel disagrees with its plain version at "
+                     f"hd={hd} ({err} > {tol})")
+    s, window = 256, 2048
+    (q, k, v), _ = flash_case(b, s, h, kvh, hd, window, "bfloat16", gen)
+    flops = 4.0 * b * h * hd * (s * (s + 1) // 2)
+    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+    ms = time_ms(lambda: flash_attention_raw(q, k, v, causal=True,
+                                             window=window), 20, flush)
+    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                                window=window), 10, flush)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+              for x in (k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20, flush)
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
+    say(f"[kernel] on {card}: flash bf16 B={b} S={s} H={h} KVH={kvh} "
+        f"hd={hd} window={window}: kernel {ms:.4f} ms, plain {plain:.4f} "
+        f"ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+
+    # ---- RG-LRU: B=4 slots, E = d_rnn = 2560; T=256 (a prefill bucket or
+    # chunk), T=1 (decode) and a ragged T=100.  a in [0.9, 0.999] and
+    # b ~ N(0, 1 - a^2), the ranges rglru_core gives them
+    from repro_torch.kernels.pavlov_rglru import (pavlov_rglru_raw,
+                                                  pavlov_rglru_ref)
+    b, e = 4, 2560
+
+    def rglru_inputs(t, dtype):
+        a = torch.empty((b, t, e), device="cuda").uniform_(
+            0.9, 0.999, generator=gen)
+        drive = torch.randn((b, t, e), generator=gen, device="cuda") \
+            * torch.sqrt(1.0 - a * a)
+        return a.to(getattr(torch, dtype)), drive.to(getattr(torch, dtype))
+
+    for dtype in ("float32", "bfloat16"):
+        for t in (1, 256, 100):
+            a, drive = rglru_inputs(t, dtype)
+            out = pavlov_rglru_raw(a, drive)
+            ref = pavlov_rglru_ref(a, drive)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = RGLRU_TOL[dtype]
+            say(f"[kernel] rglru {dtype} B={b} T={t} E={e}: "
+                f"max|kernel-plain|={err:.3e} (tol {tol})")
+            if not err <= tol:
+                fail(f"RG-LRU kernel disagrees with its plain version "
+                     f"({err} > {tol})")
+            if dtype == "float32" and t == 256:
+                rows["rglru"] = {"max_abs_err": err}
+    for t in (256, 1):          # float32: rglru_core builds a and b in f32
+        a, drive = rglru_inputs(t, "float32")
+        ms = time_ms(lambda: pavlov_rglru_raw(a, drive), 50, flush)
+        plain = time_ms(lambda: pavlov_rglru_ref(a, drive), 5, flush)
+        bnd, by = bound_ms(3.0 * b * t * e * 4, 2.0 * b * t * e, "float32")
+        say(f"[kernel] on {card}: rglru float32 B={b} T={t} E={e}: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if t == 256:
+            rows["rglru"].update(ms=ms, plain_ms=plain, library_ms=None,
+                                 bound_ms=bnd, bound_by=by)
     return rows
 
 
 # --------------------------------------------------------- 4. layer parity
-def phase_parity(seed: int):
+def phase_parity(seed: int, arch: str, num_layers: int,
+                 kv_block_size: int | None):
+    """The arch at full width cut to ``num_layers`` layers, float32: the
+    same weights on the CPU and on the card, prefill of two right-padded
+    rows and 4 greedy decode steps, logits compared."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.transformer import Model
-    cfg = get_config("qwen3-0.6b").replace(num_layers=2,
-                                           compute_dtype="float32")
+    cfg = get_config(arch).replace(num_layers=num_layers,
+                                   compute_dtype="float32")
     cpu = build_model(cfg, device="cpu", seed=seed)
     gpu = Model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
-    max_len, bs = 512, 16
+    max_len, s = 512, 256
     lens = [37, 200]
     rng = torch.Generator().manual_seed(seed)
-    toks = torch.randint(1, cfg.vocab_size, (2, 256), generator=rng)
-    table = torch.arange(2 * max_len // bs, dtype=torch.int32).reshape(2, -1)
+    toks = torch.randint(1, cfg.vocab_size, (2, s), generator=rng)
+    table = None if kv_block_size is None else torch.arange(
+        2 * max_len // kv_block_size, dtype=torch.int32).reshape(2, -1)
     length = torch.tensor(lens, dtype=torch.int32)
+    models = {"cpu": cpu, "card": gpu}
     states, logits = {}, {}
-    for model in (cpu, gpu):
-        dev = model.device.type
-        st = model.init_states(2, max_len, kv_block_size=bs)
-        lg, states[dev] = model.prefill(toks.to(dev), st,
-                                        length=length.to(dev),
-                                        block_table=table.to(dev))
-        logits[dev] = [lg.cpu()]
+
+    def on(x, side):
+        return None if x is None else x.to(models[side].device)
+
+    for side, model in models.items():
+        st = model.init_states(2, max_len, kv_block_size=kv_block_size)
+        lg, states[side] = model.prefill(on(toks, side), st,
+                                         length=on(length, side),
+                                         block_table=on(table, side))
+        logits[side] = [lg.cpu()]
     pos = length.clone()
     for _ in range(4):
         # both sides decode the CPU's greedy token, so they never diverge
         nxt = logits["cpu"][-1][:, 0].argmax(-1)[:, None]
-        for model in (cpu, gpu):
-            dev = model.device.type
-            lg, states[dev] = model.decode_step(
-                nxt.to(dev), states[dev], pos.to(dev),
-                block_table=table.to(dev))
-            logits[dev].append(lg.cpu())
+        for side, model in models.items():
+            lg, states[side] = model.decode_step(
+                on(nxt, side), states[side], on(pos, side),
+                block_table=on(table, side))
+            logits[side].append(lg.cpu())
         pos = pos + 1
-    if not all(torch.isfinite(lg).all() for lg in logits["cuda"]):
-        fail("non-finite logits on the card")
+    if not all(torch.isfinite(lg).all() for lg in logits["card"]):
+        fail(f"{arch}: non-finite logits on the card")
     worst = max((a - b).abs().max().item()
-                for a, b in zip(logits["cpu"], logits["cuda"]))
-    say(f"[parity] qwen3-0.6b full width, 2 layers, float32, prefill "
-        f"lengths {lens} + 4 decode steps: max|cuda-cpu| logits "
-        f"{worst:.3e} (tol {LOGIT_TOL})")
+                for a, b in zip(logits["cpu"], logits["card"]))
+    kv = "dense KV" if kv_block_size is None else \
+        f"paged KV (blocks of {kv_block_size})"
+    say(f"[parity] {arch} full width, {num_layers} layers "
+        f"({', '.join(cfg.layer_kinds)}), float32, {kv}, prefill lengths "
+        f"{lens} + 4 decode steps: max|cuda-cpu| logits {worst:.3e} "
+        f"(tol {LOGIT_TOL})")
     if not worst <= LOGIT_TOL:
-        fail(f"layer parity {worst} > {LOGIT_TOL}")
+        fail(f"{arch} layer parity {worst} > {LOGIT_TOL}")
 
 
 # ---------------------------------------------------------------- 5. serve
+def launch_counters():
+    """Every kernel's launch counter, by the name the kernels line uses."""
+    from repro_torch.kernels import (flash_attention, paged_attention,
+                                     pavlov_rglru)
+    return {"flash": flash_attention.launches,
+            "paged": paged_attention.launches,
+            "rglru": pavlov_rglru.launches,
+            "rglru_decode": pavlov_rglru.decode_launches}
+
+
+def reset_counts() -> None:
+    for c in launch_counters().values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {name: c.n for name, c in launch_counters().items()}
+
+
+def serve_line(s: dict, card: str) -> str:
+    return (f"on {card}: {s['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{s['ttft_ms']['p50']:.2f} ms (mean {s['ttft_ms']['mean']:.2f}, "
+            f"max {s['ttft_ms']['max']:.2f}), decode step "
+            f"{s['decode_step_ms']:.2f} ms over {s['decode_steps']} steps")
+
+
+def check_all(what: str, checks: dict) -> None:
+    for claim, ok in checks.items():
+        if not ok:
+            fail(f"{what}: {claim} does not hold")
+
+
 def phase_serve(seed: int, card: str):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, paged_attention
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine, prefill_buckets
     cfg = get_config("qwen3-0.6b")
@@ -330,16 +462,14 @@ def phase_serve(seed: int, card: str):
                         temperature=0.8, top_k=50, top_p=0.9, seed=seed))
     late = Request(rid=7, prompt=shared + prompt(12), max_new_tokens=16)
 
-    flash_attention.launches.reset()
-    paged_attention.launches.reset()
+    reset_counts()
     for r in reqs:
         engine.submit(r)
     while not reqs[6].generated:        # the shared prefix is published at
         engine.step()                   # the first request's prefill
     engine.submit(late)
     engine.run([])
-    counts = {"flash": flash_attention.launches.n,
-              "paged": paged_attention.launches.n}
+    counts = read_counts()
 
     s = engine.stats.summary()
     reqs.append(late)
@@ -352,11 +482,8 @@ def phase_serve(seed: int, card: str):
         f"{s['kv']['blocks_peak']}, decode stalls "
         f"{s['kv']['decode_stalls']}, non-finite logit rows "
         f"{s['nonfinite_logits']}, launches {counts}")
-    say(f"[serve] on {card}: {s['tokens_per_s']:.1f} tokens/s, TTFT p50 "
-        f"{s['ttft_ms']['p50']:.2f} ms (mean {s['ttft_ms']['mean']:.2f}, "
-        f"max {s['ttft_ms']['max']:.2f}), decode step "
-        f"{s['decode_step_ms']:.2f} ms over {s['decode_steps']} steps")
-    checks = {
+    say(f"[serve] qwen3-0.6b {serve_line(s, card)}")
+    check_all("serve qwen3-0.6b", {
         "every request finished": all(r.done and len(r.generated) == 16
                                       for r in reqs),
         "prefill_chunks >= 3": s["prefill_chunks"] >= 3,
@@ -367,10 +494,61 @@ def phase_serve(seed: int, card: str):
         "all logits finite": s["nonfinite_logits"] == 0,
         "tokens in vocab": all(0 <= t < cfg.vocab_size
                                for r in reqs for t in r.generated),
-    }
-    for what, ok in checks.items():
-        if not ok:
-            fail(f"serve: {what} does not hold")
+    })
+    return counts
+
+
+def phase_serve_recurrent(seed: int, card: str):
+    """Full-width recurrentgemma-2b through the dense-KV engine: short
+    prompts, one that chunks across the 2048-token window, a sampled
+    request that waits for a recycled slot, decode past the window."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine, prefill_buckets
+    cfg = get_config("recurrentgemma-2b")
+    n_rec = cfg.layer_kinds.count("rec")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=seed)
+    engine = ServeEngine(model, slots=4, max_len=4096,
+                         buckets=prefill_buckets(256), prefill_chunk=256)
+    engine.warmup()
+    torch.cuda.synchronize()
+    say(f"[serve] recurrentgemma-2b full width ({cfg.num_layers} layers: "
+        f"{n_rec} rec, {cfg.num_layers - n_rec} local, window "
+        f"{cfg.window}; {cfg.param_count() / 1e9:.2f} B parameters, bf16 "
+        f"compute, dense KV), model + warmup "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed + 1)
+    prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
+    new = 32
+    reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=new)
+            for i, n in enumerate((5, 40, 180, 2300))]
+    reqs.append(Request(rid=4, prompt=prompt(60), max_new_tokens=new,
+                        temperature=0.8, top_k=50, top_p=0.9, seed=seed))
+    reset_counts()
+    engine.run(reqs, on_truncate="raise")
+    counts = read_counts()
+    s = engine.stats.summary()
+    say(f"[serve] {len(reqs)} requests over {engine.slots} slots "
+        f"(prompts {[len(r.prompt) for r in reqs]}): completed "
+        f"{s['requests_completed']}, tokens {s['tokens_generated']}, "
+        f"prefill calls {s['prefill_calls']}, chunks {s['prefill_chunks']}, "
+        f"non-finite logit rows {s['nonfinite_logits']}, launches {counts}")
+    say(f"[serve] recurrentgemma-2b {serve_line(s, card)}")
+    check_all("serve recurrentgemma-2b", {
+        "every request finished": all(r.done and len(r.generated) == new
+                                      for r in reqs),
+        "prefill_chunks >= 9": s["prefill_chunks"] >= 9,
+        "RG-LRU kernel launched": counts["rglru"] > 0,
+        "flash kernel launched": counts["flash"] > 0,
+        f"decode steps x {n_rec} <= RG-LRU decode launches":
+            s["decode_steps"] * n_rec <= counts["rglru_decode"],
+        "all logits finite": s["nonfinite_logits"] == 0,
+        "tokens in vocab": all(0 <= t < cfg.vocab_size
+                               for r in reqs for t in r.generated),
+    })
     return counts
 
 
@@ -386,17 +564,25 @@ def main() -> None:
     sys.path.insert(0, str(src))
     phase_build()
     rows = phase_kernels(args.seed, smi)
-    phase_parity(args.seed)
-    counts = phase_serve(args.seed, smi)
+    phase_parity(args.seed, "qwen3-0.6b", 2, kv_block_size=16)
+    phase_parity(args.seed, "recurrentgemma-2b", 3, kv_block_size=None)
+    paths = [phase_serve(args.seed, smi),
+             phase_serve_recurrent(args.seed, smi)]
+    # launches: each path's run, counted from 0 just before it
+    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:22",
-         "launches": counts["flash"], **rows["flash"]},
+         "launches": launches["flash"], **rows["flash"]},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:31",
-         "launches": counts["paged"], **rows["paged"]},
+         "launches": launches["paged"], **rows["paged"]},
+        {"name": "pavlov_rglru", "route": "cuda",
+         "source": "src/repro_torch/csrc/pavlov_rglru.cu",
+         "replaces": "src/repro/kernels/pavlov_rglru/kernel.py:24",
+         "launches": launches["rglru"], **rows["rglru"]},
     ]
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

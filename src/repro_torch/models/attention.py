@@ -1,12 +1,16 @@
-"""Attention on the serving path of a dense GQA decoder: projections
-(+ optional bias / qk-norm), RoPE, the flash core, and the paged KV pool —
-the parts of ``repro.models.attention`` that qwen3-0.6b's serving path runs.
+"""Attention on the serving path: projections (+ optional bias / qk-norm),
+RoPE, the flash core, the dense per-slot KV cache (a ring for sliding-window
+layers) and the paged KV pool — the parts of ``repro.models.attention``
+that the port's served archs run.
 
 Layouts match the JAX package at every public function: activations
-``(B, S, H, hd)``, the block pool ``(N, bs, KVH, hd)``.  Unlike JAX's
-immutable arrays, the paged ops write the pool IN PLACE and hand back the
-same tensors in the returned ``PagedKVCache`` (one pool per layer, never a
-copy of it per call).
+``(B, S, H, hd)``, dense caches ``(B, S_max, KVH, hd)``, the block pool
+``(N, bs, KVH, hd)``.  Unlike JAX's immutable arrays, the cache ops write
+the cache IN PLACE and hand back the same tensors in the returned
+``KVCache`` / ``PagedKVCache`` (one cache per layer, never a copy of it per
+call).  Only the flash core is a kernel in the JAX package; the dense
+cache ops (``decode_attention``, ``chunk_attention``, ``local_attention``)
+run outside any Pallas kernel there, so plain PyTorch is their port.
 """
 from __future__ import annotations
 
@@ -45,6 +49,186 @@ def qkv_project(params: dict, x: torch.Tensor, num_heads: int,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+# ------------------------------------------------------- local (sliding) core
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int) -> torch.Tensor:
+    """Exact causal sliding-window attention by chunks of ``window``: each
+    chunk attends to itself and the previous chunk under (causal AND
+    distance < window).  q,k,v: (B,S,H|KVH,hd) with S % window == 0.
+    q is scaled in its own dtype before the float32 scores, as the JAX
+    package's XLA path does."""
+    b, s, h, hd = q.shape
+    _, _, kvh, _ = k.shape
+    g = h // kvh
+    if s % window:
+        raise ValueError(f"S {s} is not a multiple of window {window}")
+    c = s // window
+    scale = 1.0 / math.sqrt(hd)
+    qc = (q.reshape(b, c, window, kvh, g, hd) * scale).float()
+    kc = k.reshape(b, c, window, kvh, hd).float()
+    vc = v.reshape(b, c, window, kvh, hd).float()
+    # previous chunk (zeros before the first)
+    kp = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
+    vp = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    kk = torch.cat([kp, kc], dim=2)                        # (B,c,2w,KVH,hd)
+    vv = torch.cat([vp, vc], dim=2)
+    scores = torch.einsum("bcqnGd,bcknd->bcnGqk", qc, kk)  # (B,c,KVH,G,w,2w)
+    qpos = torch.arange(window, device=q.device)[:, None]
+    kpos = torch.arange(2 * window, device=q.device)[None, :] - window
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    neg = torch.tensor(NEG_INF, device=q.device)
+    scores = torch.where(mask, scores, neg)
+    # the first chunk has no previous chunk: its phantom keys are masked
+    scores[:, 0] = torch.where(mask & (kpos >= 0), scores[:, 0], neg)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bcnGqk,bcknd->bcqnGd", p, vv)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+# ------------------------------------------------------------------ dense KV
+class KVCache(NamedTuple):
+    """One layer's KV for every slot: ``k``/``v`` (B, S_max, KVH, hd) —
+    left-aligned for full attention, a ring of S_max = window slots for
+    sliding-window layers (position p lives in slot p % S_max) — and
+    ``length``: (B,) int32 tokens cached per slot."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+
+def init_kv_cache(batch: int, max_len: int, kv_heads: int, head_dim: int,
+                  dtype: torch.dtype, device: torch.device) -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, max_len, kv_heads, head_dim), dtype=dtype,
+                      device=device),
+        v=torch.zeros((batch, max_len, kv_heads, head_dim), dtype=dtype,
+                      device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """Float32 scores of ``qg`` (B,C,KVH,G,hd) against k/v (B,L,KVH,hd)
+    under ``mask`` (B,C,L) -> (B,C,KVH*G,hd) float32."""
+    b, c, kvh, g, hd = qg.shape
+    s = torch.einsum("bqnGd,bknd->bnGqk", qg, k.float())
+    s = torch.where(mask[:, None, None], s,
+                    torch.tensor(NEG_INF, device=qg.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bnGqk,bknd->bnGqd", p, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, c, kvh * g, hd)
+
+
+def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
+                     new_v: torch.Tensor, cache: KVCache, *, window: int = 0,
+                     write_mask: torch.Tensor | None = None):
+    """One-token attention against a dense cache.
+
+    q/new_k/new_v: (B,1,H|KVH,hd).  Writes the new K/V at position
+    ``length[b]`` (``length % S_max`` in a window's ring), IN PLACE, and
+    attends to every cached position (a ring: the last ``window``).  Rows
+    with ``write_mask`` False rewrite the entry they point at with its own
+    bits and keep their length, so their cache is bit-for-bit unchanged
+    (their output is meaningless).  Returns (out (B,1,H,hd), cache)."""
+    b, _, h, hd = q.shape
+    kvh = new_k.shape[2]
+    g = h // kvh
+    smax = cache.k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    idx = cache.length.long()
+    if window:
+        idx = idx % smax
+    # a write at or past S_max drops, as the reference's one-hot write does
+    keep = idx < smax
+    if write_mask is not None:
+        keep = keep & write_mask
+    idx = idx.clamp(max=smax - 1)
+    rows = torch.arange(b, device=q.device)
+    k_new = torch.where(keep[:, None, None], new_k[:, 0].to(cache.k.dtype),
+                        cache.k[rows, idx])
+    v_new = torch.where(keep[:, None, None], new_v[:, 0].to(cache.v.dtype),
+                        cache.v[rows, idx])
+    cache.k[rows, idx] = k_new
+    cache.v[rows, idx] = v_new
+    qg = (q.reshape(b, 1, kvh, g, hd) * scale).float()
+    pos = torch.arange(smax, device=q.device)[None, :]
+    length = cache.length.long()[:, None]
+    valid = pos <= length                                  # incl. the new one
+    if window:
+        valid = pos < torch.clamp(length + 1, max=window)
+    out = _attend(qg, cache.k, cache.v, valid[:, None, :])
+    inc = 1 if write_mask is None else write_mask.to(torch.int32)
+    return out.to(q.dtype), cache._replace(
+        length=(cache.length + inc).to(torch.int32))
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cache: KVCache, *, offset: torch.Tensor,
+                    length: torch.Tensor, window: int = 0):
+    """Attention for one prefill chunk resuming from a dense cache at
+    ``offset`` (``repro.models.attention.chunk_attention``).
+
+    q/k/v: (B,C,H|KVH,hd) at positions ``offset + i``; ``length``: (B,) real
+    tokens in the right-padded chunk.  The chunk's real K/V are written IN
+    PLACE — left-aligned at ``offset`` for full attention, into ring slots
+    for a window — and every real q row attends to its causal (and window)
+    horizon, as if the whole prompt had been prefilled at once.  Rows past
+    ``length`` give garbage.  Returns (out, cache with length
+    offset + length)."""
+    b, c, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    smax = cache.k.shape[1]
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    offset, length = offset.long(), length.long()
+    q_pos = offset[:, None] + torch.arange(c, device=dev)[None, :]   # (B,C)
+    qg = (q.reshape(b, c, kvh, g, hd) * scale).float()
+    new_len = offset + length
+
+    def gather_chunk(src: torch.Tensor, arr: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+        i = src.clamp(0, c - 1)[:, :, None, None].expand(-1, -1, kvh, hd)
+        return torch.gather(arr.to(dtype), 1, i)
+
+    def write(m: torch.Tensor, src: torch.Tensor) -> None:
+        m4 = m[:, :, None, None]
+        cache.k.copy_(torch.where(m4, gather_chunk(src, k, cache.k.dtype),
+                                  cache.k))
+        cache.v.copy_(torch.where(m4, gather_chunk(src, v, cache.v.dtype),
+                                  cache.v))
+
+    j = torch.arange(smax, device=dev)[None, :]                      # (1,S)
+    if not window:
+        # chunk rows < length land at offset..offset+length-1; stale
+        # entries past new_len stay, masked until decode overwrites them
+        src = j - offset[:, None]
+        write((src >= 0) & (src < length[:, None]), src)
+        mask = j[:, None, :] <= q_pos[:, :, None]                    # (B,C,S)
+        out = _attend(qg, cache.k, cache.v, mask)
+        return out.to(q.dtype), cache._replace(length=new_len.to(torch.int32))
+
+    # a ring of W slots: attend over (prior ring ++ chunk) BEFORE writing,
+    # since the chunk overwrites slots whose old occupants are still inside
+    # the early q rows' windows.  Slot j holds the last p < offset with
+    # p % W == j.
+    p_prior = (offset[:, None] - 1) - ((offset[:, None] - 1 - j) % smax)
+    chunk_valid = torch.arange(c, device=dev)[None, :] < length[:, None]
+    kv_pos = torch.cat([p_prior, q_pos], dim=1)                      # (B,W+C)
+    kv_valid = torch.cat([p_prior >= 0, chunk_valid], dim=1)
+    mask = (kv_valid[:, None, :]
+            & (kv_pos[:, None, :] <= q_pos[:, :, None])
+            & (kv_pos[:, None, :] > q_pos[:, :, None] - window))
+    out = _attend(qg, torch.cat([cache.k.float(), k.float()], dim=1),
+                  torch.cat([cache.v.float(), v.float()], dim=1), mask)
+    # ring write: slot j's new occupant is the last real position < new_len
+    # congruent to j — from the chunk if >= offset, else the old entry
+    last = new_len[:, None] - 1
+    src = last - ((last - j) % smax) - offset[:, None]
+    write(src >= 0, src)
+    return out.to(q.dtype), cache._replace(length=new_len.to(torch.int32))
 
 
 # ------------------------------------------------------------------ paged KV
@@ -136,13 +320,8 @@ def paged_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ks, vs = gather_paged_kv(cache, block_table)               # (B,Smax,..)
     smax = ks.shape[1]
     qg = (q.reshape(b, c, kvh, g, hd) * scale).float()
-    s = torch.einsum("bqnGd,bknd->bnGqk", qg, ks.float())
     mask = torch.arange(smax, device=q.device)[None, None, :] \
         <= q_pos[:, :, None]                                    # (B,C,Smax)
-    s = torch.where(mask[:, None, None], s,
-                    torch.tensor(NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bnGqk,bknd->bnGqd", p, vs.float())
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, c, h, hd)
+    out = _attend(qg, ks, vs, mask)
     return out.to(q.dtype), cache._replace(
         length=(offset + length).to(torch.int32))

@@ -1,0 +1,146 @@
+"""The recurrent block of RecurrentGemma/Griffin: a temporal depthwise conv,
+then the RG-LRU gated linear recurrence, times a GeLU-gated branch.
+
+The PyTorch counterpart of the RG-LRU half of ``repro.models.recurrent``.
+The recurrence itself always goes through
+``kernels.pavlov_rglru.ops.pavlov_rglru`` — the CUDA kernel for a tensor on
+the card, its plain sequential loop for one on the CPU — which is the JAX
+package's ``impl="pallas"`` route (the carried state folded into
+``b[:, 0]``).  Its chunked associative scan (``impl="xla"``) computes the
+same recurrence and is not ported.  The Mamba and LSTM blocks come with
+their slices.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.pavlov_rglru.ops import pavlov_rglru
+from .common import fan_in_std, gelu
+
+#: ``a = sigmoid(lambda)^(C * r)``: the RG-LRU's fixed temperature
+C_RGLRU = 8.0
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None,
+                  length: torch.Tensor | None = None):
+    """Depthwise causal temporal conv.  x: (B,S,C), w: (K,C).
+    ``state``: (B,K-1,C) trailing context of the previous segment.
+    ``length``: (B,) valid prefix lengths of a right-padded x — the returned
+    state is then the context trailing position ``length-1``, not S-1 (a
+    row with length 0 keeps its old state).  Returns (y, new_state)."""
+    k = w.shape[0]
+    b, s, c = x.shape
+    if state is None:
+        state = x.new_zeros((b, k - 1, c))
+    xp = torch.cat([state, x], dim=1)
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * w[i]
+    if k == 1:
+        return y.to(x.dtype), state
+    if length is None:
+        return y.to(x.dtype), xp[:, -(k - 1):]
+    # xp index of real token t is (k-1)+t, so the k-1 inputs trailing
+    # position length-1 sit at xp[length .. length+k-2]
+    idx = length.long()[:, None] + torch.arange(k - 1, device=x.device)
+    idx = idx.clamp(0, xp.shape[1] - 1)
+    new_state = torch.gather(xp, 1, idx[:, :, None].expand(b, k - 1, c))
+    return y.to(x.dtype), new_state
+
+
+@torch.no_grad()
+def init_rglru_block(params: dict, generator: torch.Generator) -> None:
+    """Fill a block's parameters in place with the JAX package's
+    distributions: every matrix normal with std 1/sqrt(fan-in) (the rows of
+    each block when ``w_a``/``w_i`` are block-diagonal, ``(G, d/G, d/G)``),
+    ``conv_w`` with std 1/sqrt(conv width), and ``lambda`` so that
+    ``a = sigmoid(lambda)^C`` is uniform in [0.9, 0.999]."""
+    for name, p in params.items():
+        if name == "lambda":
+            u = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            u.uniform_(0.9, 0.999, generator=generator)
+            r = u ** (1.0 / C_RGLRU)
+            p.copy_(torch.log(r / (1.0 - r)))
+        else:
+            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            w.normal_(0.0, fan_in_std(tuple(p.shape[-2:])),
+                      generator=generator)
+            p.copy_(w)
+
+
+def rglru_core(params: dict, x: torch.Tensor,
+               h0: torch.Tensor | None = None,
+               seq_mask: torch.Tensor | None = None):
+    """The RG-LRU recurrence.  x: (B,S,d_rnn) (post-conv); ``h0``: (B,d_rnn)
+    float32 carried state.  ``seq_mask``: (B,S) bool; False positions are
+    identity steps (a=1, b=0), so the final row holds the state at the last
+    True position.  Returns (y in x.dtype, h_last float32)."""
+    dt = x.dtype
+    xf = x.float()
+    w_a, w_i = params["w_a"], params["w_i"]
+    if w_a.dim() == 3:      # block-diagonal gates, in float32
+        g = w_a.shape[0]
+        xg = xf.reshape(xf.shape[0], xf.shape[1], g, -1)
+        r = torch.sigmoid(torch.einsum("bsgd,gde->bsge", xg, w_a.float())
+                          .reshape(xf.shape))
+        i = torch.sigmoid(torch.einsum("bsgd,gde->bsge", xg, w_i.float())
+                          .reshape(xf.shape))
+    else:                   # dense gates in the compute dtype, sigmoid in f32
+        r = torch.sigmoid(torch.matmul(x, w_a).float())
+        i = torch.sigmoid(torch.matmul(x, w_i).float())
+    log_a = -C_RGLRU * r * F.softplus(-params["lambda"].float())
+    a = torch.exp(log_a)
+    gated = i * xf
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)) \
+        * gated
+    if seq_mask is not None:
+        m = seq_mask[:, :, None]
+        a = torch.where(m, a, torch.ones_like(a))
+        b = torch.where(m, b, torch.zeros_like(b))
+    if h0 is not None:
+        # the kernel scans from h=0; folding a_0*h0 into b_0 gives the
+        # h0-seeded recurrence (h_0 = a_0*h0 + b_0 either way)
+        b[:, 0] += a[:, 0] * h0
+    h = pavlov_rglru(a.contiguous(), b.contiguous())
+    return h.to(dt), h[:, -1].float()
+
+
+def rglru_block(params: dict, x: torch.Tensor, *,
+                state: dict | None = None,
+                length: torch.Tensor | None = None):
+    """The Griffin recurrent block.  x: (B,S,D) -> (B,S,D).  ``state``:
+    ``{"conv": (B,K-1,d_rnn), "h": (B,d_rnn) float32}`` carried from an
+    earlier segment.  ``length``: (B,) valid prefix lengths of a
+    right-padded x — the returned state then reflects position length-1.
+    Returns (out, new state)."""
+    y = gelu(torch.matmul(x, params["w_y"]))
+    u = torch.matmul(x, params["w_x"])
+    conv_state = state["conv"] if state else None
+    h0 = state["h"] if state else None
+    seq_mask = None if length is None else \
+        torch.arange(x.shape[1], device=x.device)[None, :] < length[:, None]
+    u, new_conv = causal_conv1d(u, params["conv_w"], conv_state,
+                                length=length)
+    h, h_last = rglru_core(params, u, h0, seq_mask)
+    out = torch.matmul(h * y, params["w_out"])
+    return out, {"conv": new_conv, "h": h_last}
+
+
+def rglru_param_shapes(d_model: int, d_rnn: int, conv_width: int,
+                       gate_blocks: int) -> dict[str, tuple[int, ...]]:
+    """The shape of each parameter of one block (``lambda`` and the gates'
+    layout as ``repro.models.recurrent.init_rglru_block`` makes them)."""
+    if gate_blocks:
+        if d_rnn % gate_blocks:
+            raise ValueError(f"d_rnn {d_rnn} is not a multiple of "
+                             f"gate_blocks {gate_blocks}")
+        bd = d_rnn // gate_blocks
+        gate = (gate_blocks, bd, bd)
+    else:
+        gate = (d_rnn, d_rnn)
+    return {"w_x": (d_model, d_rnn), "w_y": (d_model, d_rnn),
+            "conv_w": (conv_width, d_rnn), "w_a": gate, "w_i": gate,
+            "lambda": (d_rnn,), "w_out": (d_rnn, d_model)}
+

@@ -1,41 +1,54 @@
-"""Model assembly for the port: decoder-only stacks of ``attn`` blocks with a
-GLU feed-forward (qwen3-0.6b and its family).  Every other block or
-feed-forward kind raises ``NotImplementedError`` until its slice lands.
+"""Model assembly for the port: decoder-only stacks of ``attn`` (full
+causal attention), ``local`` (sliding-window attention) and ``rec``
+(Griffin recurrent) blocks with a GLU feed-forward — qwen3-0.6b and
+recurrentgemma-2b and their families.  Every other block or feed-forward
+kind raises ``NotImplementedError`` until its slice lands.
 
 The PyTorch counterpart of ``repro.models.transformer.Model``, with the
-weights held by the module instead of passed as a pytree:
+weights held by the module instead of passed as a pytree, and the layers in
+the JAX package's order (the pattern's groups, then the tail):
 
   * ``forward``      — full-sequence logits.
-  * ``init_states``  — one paged KV pool per layer.
-  * ``prefill`` / ``decode_step`` — the serving path, through block tables.
+  * ``init_states``  — one ``BlockState`` per layer: a paged KV pool for
+    ``attn`` when ``kv_block_size`` is set, else a dense cache; a ring of
+    ``min(max_len, window)`` for ``local``; ``{"conv", "h"}`` for ``rec``.
+  * ``prefill`` / ``decode_step`` — the serving path.
 
 Parameters are stored the way the JAX package computes with them: matmul
 weights in the compute dtype (JAX casts its float32 masters per call, which
-gives the same values), norm scales and the tied embedding table in float32
-(``rms_norm`` and ``unembed`` read them in float32).  ``H·hd`` need not equal
-``d_model``: ``wo`` is ``(H·hd, d_model)``.
+gives the same values), norm scales, ``lambda`` and the tied embedding
+table in float32 (``rms_norm``, ``rglru_core`` and ``unembed`` read them in
+float32).  ``H·hd`` need not equal ``d_model``: ``wo`` is ``(H·hd,
+d_model)``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from . import attention as attn_lib
+from . import recurrent as rec_lib
 from .common import embed_scaled, fan_in_std, rms_norm, torch_dtype, unembed
 from .ffn import glu_ffn
 from .model_config import ArchConfig
 
 
+SUPPORTED_KINDS = ("attn", "local", "rec")
+
+
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = set(cfg.layer_kinds)
-    if kinds != {"attn"} or cfg.ffn_kind != "glu" or cfg.norm != "rms" \
-            or cfg.is_encdec or cfg.modality_tokens or not cfg.tie_embeddings:
+    if not kinds <= set(SUPPORTED_KINDS) or cfg.ffn_kind != "glu" \
+            or cfg.norm != "rms" or cfg.is_encdec or cfg.modality_tokens \
+            or not cfg.tie_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder-only 'attn' stacks with a "
-            f"GLU feed-forward, RMSNorm and tied embeddings; block kinds "
-            f"{sorted(kinds)}, ffn {cfg.ffn_kind!r}, norm {cfg.norm!r} come "
-            f"in a later slice")
+            f"{cfg.name}: the port serves decoder-only stacks of "
+            f"{SUPPORTED_KINDS} blocks with a GLU feed-forward, RMSNorm and "
+            f"tied embeddings; block kinds {sorted(kinds)}, ffn "
+            f"{cfg.ffn_kind!r}, norm {cfg.norm!r} come in a later slice")
 
 
 def _weight(*shape, dtype, device) -> nn.Parameter:
@@ -43,11 +56,33 @@ def _weight(*shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class AttnBlock(nn.Module):
-    """Pre-norm residual block: GQA self-attention, then the GLU FFN."""
+class BlockState(NamedTuple):
+    """One layer's serving state: ``kv`` for an attention layer (a dense
+    ``KVCache``, a window's ring, or a ``PagedKVCache``), ``rec`` for a
+    recurrent one (``{"conv": (B,K-1,d_rnn), "h": (B,d_rnn) float32}``)."""
+    kv: attn_lib.KVCache | attn_lib.PagedKVCache | None = None
+    rec: dict | None = None
 
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+
+def _glu_params(cfg: ArchConfig, cd: torch.dtype,
+                device: torch.device) -> nn.ParameterDict:
+    d = cfg.d_model
+    return nn.ParameterDict({
+        "w_gate": _weight(d, cfg.d_ff, dtype=cd, device=device),
+        "w_up": _weight(d, cfg.d_ff, dtype=cd, device=device),
+        "w_down": _weight(cfg.d_ff, d, dtype=cd, device=device),
+    })
+
+
+class AttnBlock(nn.Module):
+    """Pre-norm residual block: GQA self-attention — full causal for
+    ``attn``, sliding-window over a ring cache for ``local`` — then the GLU
+    FFN."""
+    PARTS = ("attn", "ffn")
+
+    def __init__(self, cfg: ArchConfig, kind: str, device: torch.device):
         super().__init__()
+        self.kind = kind
         d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
         hkv = cfg.num_kv_heads * cfg.head_dim
         cd = torch_dtype(cfg.compute_dtype)
@@ -69,43 +104,140 @@ class AttnBlock(nn.Module):
                 "q_norm": _weight(cfg.head_dim, dtype=f32, device=device),
                 "k_norm": _weight(cfg.head_dim, dtype=f32, device=device)})
         self.ln2 = _weight(d, dtype=f32, device=device)
-        self.ffn = nn.ParameterDict({
-            "w_gate": _weight(d, cfg.d_ff, dtype=cd, device=device),
-            "w_up": _weight(d, cfg.d_ff, dtype=cd, device=device),
-            "w_down": _weight(cfg.d_ff, d, dtype=cd, device=device),
-        })
+        self.ffn = _glu_params(cfg, cd, device)
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "train",
-                state: attn_lib.PagedKVCache | None = None,
+                state: BlockState | None = None,
                 length: torch.Tensor | None = None,
                 offset: torch.Tensor | None = None,
                 block_table: torch.Tensor | None = None):
         """One block (``repro.models.transformer.apply_block`` for
-        ``kind == "attn"``).  mode: train|prefill|decode.  In decode a 0/1
-        ``length`` is the activity mask.  Returns (x, new_state)."""
+        ``kind`` in attn/local).  mode: train|prefill|decode.  In decode a
+        0/1 ``length`` is the activity mask.  Returns (x, new_state)."""
+        window = cfg.window if self.kind == "local" else 0
         h = rms_norm(x, self.ln1)
         q, k, v = attn_lib.qkv_project(
             self.attn, h, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             positions, rope_theta=cfg.rope_theta)
-        new_state = state
+        kv = None if state is None else state.kv
+        paged = isinstance(kv, attn_lib.PagedKVCache)
         if mode == "decode":
             wm = None if length is None else length > 0
-            out, new_state = attn_lib.paged_decode_attention(
-                q, k, v, state, block_table, write_mask=wm)
+            if paged:
+                out, kv = attn_lib.paged_decode_attention(
+                    q, k, v, kv, block_table, write_mask=wm)
+            else:
+                out, kv = attn_lib.decode_attention(
+                    q, k, v, kv, window=window, write_mask=wm)
         elif mode == "prefill" and offset is not None:
-            out, new_state = attn_lib.paged_chunk_attention(
-                q, k, v, state, block_table, offset=offset, length=length)
+            if paged:
+                out, kv = attn_lib.paged_chunk_attention(
+                    q, k, v, kv, block_table, offset=offset, length=length)
+            else:
+                out, kv = attn_lib.chunk_attention(
+                    q, k, v, kv, offset=offset, length=length, window=window)
         else:
-            out = attn_lib.flash_attention(q, k, v, causal=True)
+            if window and q.shape[1] % window == 0:
+                out = attn_lib.local_attention(q, k, v, window=window)
+            else:
+                out = attn_lib.flash_attention(q, k, v, causal=True,
+                                               window=window)
             if mode == "prefill":
-                new_state = attn_lib.paged_fill_cache(
-                    state, k, v, block_table, length=length)
+                kv = attn_lib.paged_fill_cache(kv, k, v, block_table,
+                                               length=length) if paged \
+                    else _fill_cache(kv, k, v, window=window, length=length)
         b, s = out.shape[:2]
         o = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
         x = x + torch.matmul(o, self.attn["wo"])
         x = x + glu_ffn(self.ffn, rms_norm(x, self.ln2), cfg.activation)
-        return x, new_state
+        return x, None if state is None else state._replace(kv=kv)
+
+
+class RecBlock(nn.Module):
+    """Pre-norm residual block: the Griffin recurrent block (conv + RG-LRU),
+    then the GLU FFN.  The gate matrices are stored in the dtype
+    ``rglru_core`` multiplies in (compute dtype when dense, float32 when
+    block-diagonal); ``lambda`` stays float32."""
+    PARTS = ("rec", "ffn")
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        self.kind = "rec"
+        cd = torch_dtype(cfg.compute_dtype)
+        f32 = torch.float32
+        gate_dt = f32 if cfg.rglru_gate_blocks else cd
+        shapes = rec_lib.rglru_param_shapes(cfg.d_model, cfg.d_rnn,
+                                            cfg.d_conv, cfg.rglru_gate_blocks)
+        dtypes = {"w_a": gate_dt, "w_i": gate_dt, "lambda": f32}
+        self.ln1 = _weight(cfg.d_model, dtype=f32, device=device)
+        self.rec = nn.ParameterDict({
+            name: _weight(*shape, dtype=dtypes.get(name, cd), device=device)
+            for name, shape in shapes.items()})
+        self.ln2 = _weight(cfg.d_model, dtype=f32, device=device)
+        self.ffn = _glu_params(cfg, cd, device)
+
+    def forward(self, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, mode: str = "train",
+                state: BlockState | None = None,
+                length: torch.Tensor | None = None,
+                offset: torch.Tensor | None = None,
+                block_table: torch.Tensor | None = None):
+        """``apply_block`` for ``kind == "rec"``: in prefill the state
+        resumes from the carry (zeroed where offset == 0); in decode a 0/1
+        ``length`` freezes conv and h of rows with 0."""
+        h = rms_norm(x, self.ln1)
+        if mode == "train":
+            y, _ = rec_lib.rglru_block(self.rec, h)
+        else:
+            y, rec = rec_lib.rglru_block(
+                self.rec, h, state=_resume_rec(state.rec, offset),
+                length=length)
+            state = state._replace(rec=rec)
+        x = x + y
+        x = x + glu_ffn(self.ffn, rms_norm(x, self.ln2), cfg.activation)
+        return x, state
+
+
+def _resume_rec(rec: dict | None,
+                offset: torch.Tensor | None) -> dict | None:
+    """The carried conv/h state for a (possibly resumed) prefill chunk: a
+    slot prefilled from scratch (offset == 0) may hold a previous request's
+    residue, so it is zeroed per row; rows with offset > 0 keep theirs."""
+    if rec is None or offset is None:
+        return rec
+    live = offset > 0
+    return {k: torch.where(live.reshape((-1,) + (1,) * (a.dim() - 1)), a,
+                           torch.zeros_like(a))
+            for k, a in rec.items()}
+
+
+def _fill_cache(cache: attn_lib.KVCache, k: torch.Tensor, v: torch.Tensor,
+                window: int = 0,
+                length: torch.Tensor | None = None) -> attn_lib.KVCache:
+    """Write prefill K/V into a dense cache, IN PLACE: left-aligned, or the
+    window's ring.  ``length``: (B,) valid prefix lengths of right-padded
+    k/v.  Entries past ``length`` may hold padding garbage: they sit where
+    decode writes before its validity mask admits them."""
+    b, s = k.shape[0], k.shape[1]
+    smax = cache.k.shape[1]
+    if length is not None and window:
+        # ring layout: slot j holds the last real position p < length with
+        # p % smax == j (garbage slots are masked or overwritten downstream)
+        last = length.long()[:, None] - 1
+        j = torch.arange(smax, device=k.device)[None, :]
+        p = (last - ((last - j) % smax)).clamp(0, s - 1)
+        idx = p[:, :, None, None].expand(-1, -1, *k.shape[2:])
+        cache.k.copy_(torch.gather(k, 1, idx))
+        cache.v.copy_(torch.gather(v, 1, idx))
+        return cache._replace(length=(cache.length + length).to(torch.int32))
+    if window and s > smax:
+        k, v = k[:, -smax:], v[:, -smax:]
+        s = smax
+    cache.k[:, :s] = k
+    cache.v[:, :s] = v
+    new_len = cache.length + (s if length is None else length)
+    return cache._replace(length=new_len.to(torch.int32))
 
 
 class Model(nn.Module):
@@ -115,21 +247,24 @@ class Model(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        self.kinds = cfg.layer_kinds
         self.device = resolve_device(device)
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
         f32 = torch.float32
         self.embed = _weight(cfg.vocab_padded, cfg.d_model, dtype=f32,
                              device=self.device)
         self.final_norm = _weight(cfg.d_model, dtype=f32, device=self.device)
-        self.layers = nn.ModuleList(AttnBlock(cfg, self.device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(
+            RecBlock(cfg, self.device) if kind == "rec"
+            else AttnBlock(cfg, kind, self.device) for kind in self.kinds)
 
     # ------------------------------------------------------------------- init
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Random weights with the JAX package's distributions (normal,
-        std 1/sqrt(fan_in); norm scales 0, biases 0), drawn from
-        ``generator`` — which lives on the model's device."""
+        std 1/sqrt(fan_in); norm scales 0, biases 0; the RG-LRU's
+        ``init_rglru_block``), drawn from ``generator`` — which lives on the
+        model's device."""
         def normal(p: torch.Tensor, std: float) -> None:
             w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
             w.normal_(0.0, std, generator=generator)
@@ -140,7 +275,12 @@ class Model(nn.Module):
         for blk in self.layers:
             blk.ln1.zero_()
             blk.ln2.zero_()
-            for tree in (blk.attn, blk.ffn):
+            if isinstance(blk, RecBlock):
+                rec_lib.init_rglru_block(blk.rec, generator)
+                trees = (blk.ffn,)
+            else:
+                trees = (blk.attn, blk.ffn)
+            for tree in trees:
                 for name, p in tree.items():
                     if name.startswith("w"):
                         normal(p, fan_in_std(tuple(p.shape)))
@@ -168,27 +308,53 @@ class Model(nn.Module):
         return self._logits(x)
 
     # ----------------------------------------------------------- serving path
+    def init_block_state(self, i: int, batch: int,
+                         max_len: int) -> BlockState:
+        """Zeroed dense state of layer ``i`` for ``batch`` slots: a
+        ``max_len`` cache (``attn``), a ``min(max_len, window)`` ring
+        (``local``), or the conv context and float32 h (``rec``)."""
+        cfg = self.cfg
+        kind = self.kinds[i]
+        if kind == "rec":
+            return BlockState(rec={
+                "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_rnn),
+                                    dtype=self.compute_dtype,
+                                    device=self.device),
+                "h": torch.zeros((batch, cfg.d_rnn), dtype=torch.float32,
+                                 device=self.device)})
+        smax = max_len if kind == "attn" else min(max_len, cfg.window)
+        return BlockState(kv=attn_lib.init_kv_cache(
+            batch, smax, cfg.num_kv_heads, cfg.head_dim, self.compute_dtype,
+            self.device))
+
     def init_states(self, batch: int, max_len: int, *,
                     kv_block_size: int | None = None,
-                    kv_blocks: int | None = None
-                    ) -> list[attn_lib.PagedKVCache]:
-        """One ``PagedKVCache`` per layer: ``kv_blocks`` blocks of
-        ``kv_block_size`` tokens (default: the dense equivalent,
-        batch * max_len / kv_block_size) and zero lengths.  The layers'
-        pools are views into one allocation."""
-        if kv_block_size is None:
-            raise NotImplementedError(
-                "the port keeps KV in the paged pool only; pass "
-                "kv_block_size (dense per-slot caches come in a later slice)")
+                    kv_blocks: int | None = None) -> list[BlockState]:
+        """One ``BlockState`` per layer.  With ``kv_block_size``, every
+        ``attn`` layer keeps its KV in a ``PagedKVCache`` of ``kv_blocks``
+        blocks of ``kv_block_size`` tokens (default: the dense equivalent,
+        batch * max_len / kv_block_size) and zero lengths — the layers'
+        pools are views into one allocation; window rings and recurrent
+        states stay dense (``init_block_state``)."""
         cfg = self.cfg
-        if kv_blocks is None:
-            kv_blocks = batch * (-(-max_len // kv_block_size))
-        shape = (cfg.num_layers, kv_blocks, kv_block_size, cfg.num_kv_heads,
-                 cfg.head_dim)
-        k = torch.zeros(shape, dtype=self.compute_dtype, device=self.device)
-        v = torch.zeros(shape, dtype=self.compute_dtype, device=self.device)
-        length = torch.zeros((batch,), dtype=torch.int32, device=self.device)
-        return [attn_lib.PagedKVCache(k[i], v[i], length.clone())
+        paged = [i for i, kind in enumerate(self.kinds) if kind == "attn"] \
+            if kv_block_size is not None else []
+        pools = {}
+        if paged:
+            if kv_blocks is None:
+                kv_blocks = batch * (-(-max_len // kv_block_size))
+            shape = (len(paged), kv_blocks, kv_block_size, cfg.num_kv_heads,
+                     cfg.head_dim)
+            k = torch.zeros(shape, dtype=self.compute_dtype,
+                            device=self.device)
+            v = torch.zeros(shape, dtype=self.compute_dtype,
+                            device=self.device)
+            length = torch.zeros((batch,), dtype=torch.int32,
+                                 device=self.device)
+            pools = {i: BlockState(kv=attn_lib.PagedKVCache(
+                k[j], v[j], length.clone())) for j, i in enumerate(paged)}
+        return [pools[i] if i in pools
+                else self.init_block_state(i, batch, max_len)
                 for i in range(cfg.num_layers)]
 
     def _run(self, states, x, positions, mode, length=None, offset=None,
@@ -196,8 +362,8 @@ class Model(nn.Module):
         new_states = []
         for blk, st in zip(self.layers, states):
             x, st = blk(self.cfg, x, positions, mode=mode, state=st,
-                              length=length, offset=offset,
-                              block_table=block_table)
+                        length=length, offset=offset,
+                        block_table=block_table)
             new_states.append(st)
         return x, new_states
 
@@ -205,12 +371,14 @@ class Model(nn.Module):
     def prefill(self, tokens: torch.Tensor, states, *,
                 length: torch.Tensor | None = None,
                 offset: torch.Tensor | None = None,
-                block_table: torch.Tensor):
-        """Process a right-padded prompt batch; write its K/V; return the
+                block_table: torch.Tensor | None = None):
+        """Process a right-padded prompt batch; fill its states; return the
         logits at position ``length - 1`` (B,1,V) and the new states.
 
-        ``offset``: (B,) tokens already cached when ``tokens`` is one chunk
-        of a longer prompt (requires ``length``)."""
+        ``offset``: (B,) tokens already in ``states`` when ``tokens`` is one
+        chunk of a longer prompt (requires ``length``); recurrent states
+        resume from their carry (zeroed where offset == 0).
+        ``block_table``: (B, max_len/bs), required for paged states."""
         if offset is not None and length is None:
             raise ValueError("chunked prefill (offset=...) needs length")
         x = self._embed(tokens)
@@ -230,10 +398,11 @@ class Model(nn.Module):
     def decode_step(self, token: torch.Tensor, states,
                     position: torch.Tensor, *,
                     active: torch.Tensor | None = None,
-                    block_table: torch.Tensor):
+                    block_table: torch.Tensor | None = None):
         """token: (B,1) at ``position`` (B,) -> logits (B,1,V), states.
-        Rows with ``active`` False leave their KV and length bit-for-bit
-        unchanged (their logits are garbage)."""
+        Rows with ``active`` False leave every piece of their state (KV and
+        length, conv context, recurrent h) bit-for-bit unchanged (their
+        logits are garbage)."""
         x = self._embed(token)
         positions = position[:, None].long().expand(token.shape)
         length = None if active is None else active.to(torch.int32)

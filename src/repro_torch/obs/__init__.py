@@ -1,3 +1,3 @@
-from .timing import Timed
+from .timing import Timed, profile_trace
 
-__all__ = ["Timed"]
+__all__ = ["Timed", "profile_trace"]

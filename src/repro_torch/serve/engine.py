@@ -1,5 +1,6 @@
 """Batched serving engine: continuous batching over a fixed slot pool, with
-the KV cache in a paged block pool and a radix-tree prefix cache.
+the KV cache either in a paged block pool with a radix-tree prefix cache or
+dense per slot.
 
 The PyTorch counterpart of ``repro.serve.engine.ServeEngine`` for one
 device.  The host-side logic is the JAX engine's, line for line: requests
@@ -12,14 +13,17 @@ resuming at ``offset``; a partial-block prefix hit clones one block
 ``active`` mask freezes dead and mid-prefill slots bit for bit.
 
 Where the JAX engine compiles programs that return a new state tree, the
-port runs the model eagerly and the paged ops write the pool in place.  A
-batched prefill's padding rows (beyond the real group) carry all-sentinel
-block-table rows, so every KV write they make drops, and only the real rows'
-lengths are spliced back — padding never touches a real slot.
+port runs the model eagerly.  The state design is the JAX engine's: a
+batched prefill runs on fresh batch-N states (paged layers adopt the live
+pool, whose writes from padding rows drop through all-sentinel table rows)
+and only the real rows are spliced into their slots; a chunk runs on a
+batch-1 copy of its slot's states and is spliced back.  Decode updates the
+slot pool in place; rows frozen by ``active`` keep every bit.  A fresh
+prefill state starts at zero, and a chunk at offset 0 zeroes the carried
+recurrent state, so a recycled slot never sees its last request.
 
-Not in this slice: the dense-KV engine (``kv_block_size`` is required),
-meshes, prefill/decode roles, the placement policy, the program registry and
-the tracer — the constructor takes none of them.
+Not in this slice: meshes, prefill/decode roles, the placement policy, the
+program registry and the tracer — the constructor takes none of them.
 """
 from __future__ import annotations
 
@@ -31,8 +35,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..models.attention import PagedKVCache
-from ..models.transformer import Model
+from ..models.attention import KVCache, PagedKVCache
+from ..models.transformer import BlockState, Model
 from ..obs import Timed
 from .kvpool import PagedKVManager
 from .sampling import sample_tokens
@@ -158,16 +162,19 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, model: Model, *, kv_block_size: int, slots: int = 4,
-                 max_len: int = 512,
+    def __init__(self, model: Model, *, slots: int = 4, max_len: int = 512,
                  buckets: tuple[int, ...] | None = None,
                  prefill_chunk: int | None = None,
+                 kv_block_size: int | None = None,
                  kv_blocks: int | None = None,
                  prefix_cache: bool = True):
-        """``kv_block_size``: tokens per KV block (must divide max_len).
-        ``kv_blocks``: physical blocks in the pool (default: the dense
-        equivalent, slots * max_len / block_size).  ``prefix_cache``: share
-        same-prefix KV blocks across requests through the radix tree."""
+        """``kv_block_size``: tokens per KV block of the paged pool that
+        ``attn`` layers keep their KV in; None keeps every cache dense per
+        slot.  ``kv_blocks``: physical blocks in the pool (default: the
+        dense equivalent, slots * max_len / block_size).  ``prefix_cache``:
+        share same-prefix KV blocks across requests through the radix tree
+        (paged, and only when every layer is ``attn``: window rings and
+        recurrent states are not block-addressable)."""
         self.model = model
         self.device = model.device
         self.slots = slots
@@ -184,22 +191,26 @@ class ServeEngine:
         if not 1 <= self.prefill_chunk <= max_len:
             raise ValueError(f"prefill_chunk {self.prefill_chunk} outside "
                              f"[1, max_len {max_len}]")
-        blocks_per_slot = -(-max_len // kv_block_size)
-        if kv_blocks is None:
-            kv_blocks = slots * blocks_per_slot
-        if kv_blocks < blocks_per_slot:
-            # a pool smaller than one request's worst case could never admit
-            # a long prompt: admission would requeue it forever
-            raise ValueError(
-                f"kv_blocks {kv_blocks} < max_len/kv_block_size "
-                f"{blocks_per_slot}: the pool must cover at least one "
-                f"request's worst case")
-        self.kv = PagedKVManager(slots=slots, max_len=max_len,
-                                 block_size=kv_block_size,
-                                 num_blocks=kv_blocks,
-                                 prefix_cache=prefix_cache)
-        self._state_kw = dict(kv_block_size=kv_block_size,
-                              kv_blocks=kv_blocks)
+        self.kv: PagedKVManager | None = None
+        self._state_kw: dict = {}
+        if kv_block_size is not None:
+            blocks_per_slot = -(-max_len // kv_block_size)
+            if kv_blocks is None:
+                kv_blocks = slots * blocks_per_slot
+            if kv_blocks < blocks_per_slot:
+                # a pool smaller than one request's worst case could never
+                # admit a long prompt: admission would requeue it forever
+                raise ValueError(
+                    f"kv_blocks {kv_blocks} < max_len/kv_block_size "
+                    f"{blocks_per_slot}: the pool must cover at least one "
+                    f"request's worst case")
+            prefix_ok = all(kind == "attn" for kind in model.kinds)
+            self.kv = PagedKVManager(slots=slots, max_len=max_len,
+                                     block_size=kv_block_size,
+                                     num_blocks=kv_blocks,
+                                     prefix_cache=prefix_cache and prefix_ok)
+            self._state_kw = dict(kv_block_size=kv_block_size,
+                                  kv_blocks=kv_blocks)
         self.states = model.init_states(slots, max_len, **self._state_kw)
         self.requests: list[Request | None] = [None] * slots
         self.positions = np.zeros(slots, np.int32)
@@ -211,8 +222,8 @@ class ServeEngine:
         self._prefilling: dict[int, int] = {}   # slot -> prompt tokens consumed
         self._bt_cache: torch.Tensor | None = None
         self._bt_version = -1
-        self.stats = EngineStats(kv_pool_blocks=kv_blocks,
-                                 kv_block_size=kv_block_size)
+        self.stats = EngineStats(kv_pool_blocks=kv_blocks or 0,
+                                 kv_block_size=kv_block_size or 0)
 
     # ------------------------------------------------------------- plumbing
     @staticmethod
@@ -227,6 +238,8 @@ class ServeEngine:
 
     def _sync_kv_stats(self) -> None:
         st, mgr = self.stats, self.kv
+        if mgr is None:
+            return
         st.kv_blocks_in_use = mgr.in_use
         st.kv_blocks_peak = max(st.kv_blocks_peak, mgr.pool.peak_in_use)
         st.prefix_queries = mgr.stats.prefix_queries
@@ -282,22 +295,25 @@ class ServeEngine:
         while admitted < take:
             req = self._queue[0]
             slot = free[0]
-            plan = self.kv.admit(slot, req.prompt)
-            if plan is None:
-                # pool can't cover the prompt yet: keep FIFO order and retry
-                # next tick (decode frees blocks as requests end)
-                break
+            matched = 0
+            if self.kv is not None:
+                plan = self.kv.admit(slot, req.prompt)
+                if plan is None:
+                    # pool can't cover the prompt yet: keep FIFO order and
+                    # retry next tick (decode frees blocks as requests end)
+                    break
+                matched = plan.matched_tokens
+                if plan.copy is not None:
+                    self._run_copy(*plan.copy)
             self._queue.popleft()
             free.pop(0)
             self.requests[slot] = req
             self._set_sampling(slot, req)
-            if plan.copy is not None:
-                self._run_copy(*plan.copy)
             admitted += 1
-            if plan.matched_tokens > 0 or len(req.prompt) > self.buckets[-1]:
+            if matched > 0 or len(req.prompt) > self.buckets[-1]:
                 # chunked path: long prompts, and prefix-cache hits of any
                 # length (the hit resumes prefill at offset=matched)
-                self._prefilling[slot] = plan.matched_tokens
+                self._prefilling[slot] = matched
                 self._advance_chunk(slot)
             else:
                 b = bucket_for(len(req.prompt), self.buckets)
@@ -314,18 +330,38 @@ class ServeEngine:
         the copy-on-write step of a partial-block prefix hit."""
         with self._timed("kv_copy") as tm:
             for st in self.states:
-                st.k[dst] = st.k[src]
-                st.v[dst] = st.v[src]
+                if isinstance(st.kv, PagedKVCache):
+                    st.kv.k[dst] = st.kv.k[src]
+                    st.kv.v[dst] = st.kv.v[src]
             tm.sync()
 
-    def _tables_for(self, slot_ids: list[int], rows: int) -> torch.Tensor:
+    def _tables_for(self, slot_ids: list[int],
+                    rows: int) -> torch.Tensor | None:
         """(rows, blocks_per_slot) block-table rows for the given slots;
-        rows beyond ``slot_ids`` are all-sentinel, so their writes drop."""
+        rows beyond ``slot_ids`` are all-sentinel, so their writes drop.
+        None without a paged pool."""
+        if self.kv is None:
+            return None
         bt = np.full((rows, self.kv.blocks_per_slot), self.kv.sentinel,
                      np.int32)
         for i, s in enumerate(slot_ids):
             bt[i] = self.kv.table[s]
         return self._tensor(bt)
+
+    # ------------------------------------------------- fresh prefill states
+    def _fresh_states(self, n: int) -> list[BlockState]:
+        """Zeroed batch-``n`` states for a prefill group; paged layers adopt
+        the live pool (global blocks) with zero lengths
+        (``repro.serve.engine._adopt_pool_kv``)."""
+        out = []
+        for i, st in enumerate(self.states):
+            if isinstance(st.kv, PagedKVCache):
+                out.append(BlockState(kv=PagedKVCache(
+                    st.kv.k, st.kv.v, torch.zeros(
+                        (n,), dtype=torch.int32, device=self.device))))
+            else:
+                out.append(self.model.init_block_state(i, n, self.max_len))
+        return out
 
     # -------------------------------------------------------------- prefill
     def _prefill_group(self, bucket: int, members: list) -> None:
@@ -337,17 +373,14 @@ class ServeEngine:
             toks[i, :len(req.prompt)] = req.prompt
             lens[i] = len(req.prompt)
         slots_real = [slot for slot, _ in members]
-        fresh = torch.zeros((nb,), dtype=torch.int32, device=self.device)
-        rows = [PagedKVCache(st.k, st.v, fresh) for st in self.states]
         with self._timed("prefill") as tm:
             logits, rows = self.model.prefill(
-                self._tensor(toks), rows, length=self._tensor(lens),
+                self._tensor(toks), self._fresh_states(nb),
+                length=self._tensor(lens),
                 block_table=self._tables_for(slots_real, nb))
+            _splice_states(self.states, rows, slots_real)
             first = self._sample(logits[:n, 0], slots_real, lens[:n])
             tm.sync()
-        idx = self._tensor(np.asarray(slots_real, np.int64))
-        for st, row in zip(self.states, rows):
-            st.length[idx] = row.length[:n]
         now = tm.t1
         st = self.stats
         st.prefill_calls += 1
@@ -361,7 +394,8 @@ class ServeEngine:
             st.prefill_prompt_tokens += len(req.prompt)
             st.prefill_tokens_computed += len(req.prompt)
             st.ttft_s.append(now - req.t_submit)
-            self.kv.publish(slot, req.prompt)
+            if self.kv is not None:
+                self.kv.publish(slot, req.prompt)
             if len(req.generated) >= req.max_new_tokens or tok == req.eos_id:
                 self._finish(slot, now)
 
@@ -373,21 +407,18 @@ class ServeEngine:
         n = len(piece)
         toks = np.zeros((1, c), np.int64)
         toks[0, :n] = piece
-        rows = [PagedKVCache(st.k, st.v, st.length[slot:slot + 1])
-                for st in self.states]
         with self._timed("prefill_chunk") as tm:
             logits, rows = self.model.prefill(
-                self._tensor(toks), rows,
+                self._tensor(toks), _gather_slot(self.states, slot),
                 length=self._tensor(np.asarray([n], np.int32)),
                 offset=self._tensor(np.asarray([off], np.int32)),
                 block_table=self._tables_for([slot], 1))
+            _splice_states(self.states, rows, [slot])
             done = off + n >= len(req.prompt)
             # only the final chunk's sampled token is used
             tok = self._sample(logits[:, -1], [slot], [off + n])[0] \
                 if done else None
             tm.sync()
-        for st, row in zip(self.states, rows):
-            st.length[slot] = row.length[0]
         st = self.stats
         st.prefill_chunks += 1
         st.prefill_tokens_computed += n
@@ -404,7 +435,8 @@ class ServeEngine:
         st.prefills_chunked += 1
         st.prefill_prompt_tokens += len(req.prompt)
         st.ttft_s.append(now - req.t_submit)
-        self.kv.publish(slot, req.prompt)
+        if self.kv is not None:
+            self.kv.publish(slot, req.prompt)
         if len(req.generated) >= req.max_new_tokens or tok == req.eos_id:
             self._finish(slot, now)
 
@@ -414,62 +446,71 @@ class ServeEngine:
         req.aborted = False
         req.t_done = now
         self.requests[slot] = None
-        # publish only the written prefix: the last sampled token was never
-        # fed back through decode, so its KV was never written
-        self.kv.finish(slot, req.prompt + req.generated[:-1])
+        if self.kv is not None:
+            # publish only the written prefix: the last sampled token was
+            # never fed back through decode, so its KV was never written
+            self.kv.finish(slot, req.prompt + req.generated[:-1])
         self.stats.requests_completed += 1
         self.stats.tokens_generated += len(req.generated)
 
     # ---------------------------------------------------------------- warmup
+    def _warm_table(self, rows: int) -> torch.Tensor | None:
+        """All-sentinel block tables: warmup calls drop every paged write."""
+        if self.kv is None:
+            return None
+        return self._tensor(np.full((rows, self.kv.blocks_per_slot),
+                                    self.kv.sentinel, np.int32))
+
     def warmup(self) -> None:
         """Run every shape the engine can serve once — each (batch-bucket,
-        bucket) prefill, the chunk continuation, the block clone and the
-        decode step — through all-sentinel tables (every KV write drops),
-        then reset the pool.  Builds the kernels and warms the allocator so
-        the first request is not charged for them."""
+        bucket) prefill on fresh states, the chunk continuation on a copy of
+        slot 0, the block clone (paged) and the decode step with every row
+        frozen — then reset the states.  Builds the kernels and warms the
+        allocator so the first request is not charged for them."""
         if self._queue or self._prefilling \
                 or any(r is not None for r in self.requests):
             raise RuntimeError("warmup() requires an idle engine")
-        sentinel = lambda rows: self._tensor(np.full(   # noqa: E731
-            (rows, self.kv.blocks_per_slot), self.kv.sentinel, np.int32))
         zeros = lambda rows: torch.zeros(              # noqa: E731
             (rows,), dtype=torch.int32, device=self.device)
         with self._timed("warmup") as tm:
             for b in self.buckets:
                 for nb in self.batch_buckets:
-                    rows = [PagedKVCache(st.k, st.v, zeros(nb))
-                            for st in self.states]
                     self.model.prefill(
                         torch.zeros((nb, b), dtype=torch.long,
-                                    device=self.device), rows,
-                        length=zeros(nb) + 1, block_table=sentinel(nb))
-            if self.max_len - 1 > self.buckets[-1] or self.kv.prefix_enabled:
-                rows = [PagedKVCache(st.k, st.v, zeros(1))
-                        for st in self.states]
+                                    device=self.device),
+                        self._fresh_states(nb), length=zeros(nb) + 1,
+                        block_table=self._warm_table(nb))
+            if self.max_len - 1 > self.buckets[-1] \
+                    or (self.kv is not None and self.kv.prefix_enabled):
                 self.model.prefill(
                     torch.zeros((1, self.prefill_chunk), dtype=torch.long,
-                                device=self.device), rows,
+                                device=self.device),
+                    _gather_slot(self.states, 0),
                     length=zeros(1) + 1, offset=zeros(1),
-                    block_table=sentinel(1))
-            self._run_copy(0, 0)
+                    block_table=self._warm_table(1))
+            if self.kv is not None:
+                self._run_copy(0, 0)
             self.model.decode_step(
                 torch.zeros((self.slots, 1), dtype=torch.long,
                             device=self.device), self.states,
                 zeros(self.slots),
                 active=torch.zeros((self.slots,), dtype=torch.bool,
                                    device=self.device),
-                block_table=sentinel(self.slots))
+                block_table=self._warm_table(self.slots))
             self.states = self.model.init_states(self.slots, self.max_len,
                                                  **self._state_kw)
             tm.sync()
-        # the pool was just re-zeroed: drop every prefix that described it
-        self.kv.clear()
+        if self.kv is not None:
+            # the pool was just re-zeroed: drop every prefix that described it
+            self.kv.clear()
         self.positions[:] = 0
 
     # ---------------------------------------------------------------- decode
-    def _decode_table(self) -> torch.Tensor:
+    def _decode_table(self) -> torch.Tensor | None:
         """The device copy of the full block table, rebuilt only when
-        admission, extension or retirement changed it."""
+        admission, extension or retirement changed it (None when dense)."""
+        if self.kv is None:
+            return None
         if self._bt_cache is None or self._bt_version != self.kv.version:
             self._bt_cache = self._tensor(np.asarray(self.kv.table, np.int32))
             self._bt_version = self.kv.version
@@ -478,15 +519,16 @@ class ServeEngine:
     def step(self) -> None:
         """One engine tick: advance each in-flight chunked prefill by one
         chunk, admit up to ``MAX_PREFILL_PER_STEP`` queued requests, then one
-        lockstep decode step over the decoding slots.  Each slot's table is
-        extended before its write; a slot the pool cannot extend stalls."""
+        lockstep decode step over the decoding slots.  With a paged pool each
+        slot's table is extended before its write; a slot the pool cannot
+        extend stalls."""
         t_tick = self._now()
         for slot in list(self._prefilling):
             self._advance_chunk(slot)
         self._admit(MAX_PREFILL_PER_STEP)
         busy = [i for i, r in enumerate(self.requests) if r is not None]
         active = [i for i in busy if i not in self._prefilling]
-        if active:
+        if self.kv is not None and active:
             ok = []
             for i in active:
                 # the write this tick lands at position[i]: the table must
@@ -567,3 +609,46 @@ class ServeEngine:
             if on_truncate == "warn":
                 warnings.warn(msg, RuntimeWarning, stacklevel=2)
         return requests
+
+
+# --------------------------------------------------------- state pool surgery
+def _gather_slot(states: list[BlockState], slot: int) -> list[BlockState]:
+    """A batch-1 copy of slot ``slot`` of the pooled states
+    (``repro.serve.engine._gather_slot``); paged layers keep the global pool
+    and copy only the slot's length."""
+    one = slice(slot, slot + 1)
+    out = []
+    for st in states:
+        if isinstance(st.kv, PagedKVCache):
+            out.append(BlockState(kv=st.kv._replace(
+                length=st.kv.length[one].clone())))
+        elif st.kv is not None:
+            out.append(BlockState(kv=KVCache(*(a[one].clone()
+                                               for a in st.kv))))
+        else:
+            out.append(BlockState(rec={k: a[one].clone()
+                                       for k, a in st.rec.items()}))
+    return out
+
+
+def _splice_states(states: list[BlockState], rows: list[BlockState],
+                   slot_ids: list[int]) -> None:
+    """Write rows ``0..len(slot_ids)-1`` of the batch-N ``rows`` into the
+    (distinct) slots ``slot_ids`` of the pooled ``states``, IN PLACE
+    (``repro.serve.engine._splice_states``; rows past the real group are
+    never written, which is where the JAX engine's reverse-order splice
+    leaves them).  Paged layers take only the lengths: their blocks are the
+    pool's own."""
+    n = len(slot_ids)
+    st0 = states[0]
+    dev = (st0.kv.length if st0.kv is not None else st0.rec["h"]).device
+    idx = torch.tensor(slot_ids, dtype=torch.long, device=dev)
+    for st, row in zip(states, rows):
+        if isinstance(st.kv, PagedKVCache):
+            st.kv.length[idx] = row.kv.length[:n]
+        elif st.kv is not None:
+            for dst, src in zip(st.kv, row.kv):
+                dst[idx] = src[:n]
+        else:
+            for key, dst in st.rec.items():
+                dst[idx] = row.rec[key][:n]

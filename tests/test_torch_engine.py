@@ -81,11 +81,131 @@ def test_sampled_requests_reproduce_and_warmup_resets(engines):
 
 def test_engine_refuses_what_this_slice_leaves_out(engines):
     _, _, tm = engines
-    with pytest.raises(TypeError):
-        ServeEngine(tm, slots=2, max_len=64)             # no kv_block_size
     for kw in ({"mesh": None}, {"role": "decode"}, {"policy": None},
                {"tracer": None}):
         with pytest.raises(TypeError):
             ServeEngine(tm, kv_block_size=8, max_len=64, **kw)
     with pytest.raises(ValueError, match="kv_blocks"):
         ServeEngine(tm, kv_block_size=8, max_len=64, kv_blocks=4)
+
+
+def test_qwen3_dense_and_paged_engines_agree(engines):
+    """The dense-KV engine (no ``kv_block_size``, warmed up first) serves
+    the trace with the same greedy tokens as the paged one."""
+    _, _, tm = engines
+    dense_kw = {k: v for k, v in KW.items() if k != "kv_block_size"}
+    dense = ServeEngine(tm, **dense_kw)
+    assert dense.kv is None
+    dense.warmup()
+    got = _serve(dense, Request)
+    assert got == _serve(ServeEngine(tm, **KW), Request)
+    s = dense.stats.summary()
+    assert s["requests_completed"] == 6 and s["prefill_chunks"] >= 3
+    assert s["kv"]["pool_blocks"] == 0 and s["kv"]["prefix_hits"] == 0
+
+
+# ----------------------------------------------- recurrentgemma, dense KV
+RG = "recurrentgemma-2b"
+# 2 slots for 5 requests (slots are recycled mid-run); the 40-token prompt
+# is longer than the largest bucket, so it runs as chunks of 16 across the
+# window of 16; 24 new tokens carry every request's decode past the window
+RG_KW = dict(slots=2, max_len=96, buckets=(16, 32), prefill_chunk=16)
+
+
+def _serve_rg(engine, request_cls):
+    rng = np.random.RandomState(3)
+    reqs = [request_cls(rid=i, prompt=rng.randint(1, 512, n).tolist(),
+                        max_new_tokens=24)
+            for i, n in enumerate((5, 40, 12, 9, 20))]
+    engine.run(reqs)
+    return [r.generated for r in reqs]
+
+
+@pytest.fixture(scope="module")
+def rg_models():
+    from test_torch_model import RG_GAIN
+    jm, jp, tree = lively_params("float32", arch=RG, gain=RG_GAIN)
+    tm = from_jax_params(tree, reduced_config(RG).replace(
+        compute_dtype="float32"), "cpu")
+    return jm, jp, tm
+
+
+def test_recurrentgemma_engine_matches_jax_engine(rg_models):
+    jm, jp, tm = rg_models
+    jax_engine = JaxEngine(jm, jp, **RG_KW)
+    want = _serve_rg(jax_engine, JaxRequest)
+    engine = ServeEngine(tm, **RG_KW)
+    got = _serve_rg(engine, Request)
+    assert got == want
+    assert len({tuple(g) for g in got}) == len(got)    # tokens vary
+    js, ts = jax_engine.stats, engine.stats
+    assert (ts.prefill_calls, ts.prefill_chunks, ts.decode_steps) \
+        == (js.prefill_calls, js.prefill_chunks, js.decode_steps)
+    s = engine.stats.summary()
+    assert s["requests_completed"] == 5 and s["nonfinite_logits"] == 0
+    assert s["prefill_chunks"] == 3 and s["prefills_chunked"] == 1
+    assert s["kv"]["pool_blocks"] == 0
+
+
+def test_recurrentgemma_chunked_prefill_equals_one_shot(rg_models):
+    """Inside the port: with a 64-token bucket the 40-token prompt prefills
+    in one shot; the greedy tokens are those of the chunked run.  A paged
+    engine for this arch (no full-attention layer, so nothing is paged and
+    the prefix cache stays off) serves the same tokens."""
+    _, _, tm = rg_models
+    chunked = ServeEngine(tm, **RG_KW)
+    chunked.warmup()
+    want = _serve_rg(chunked, Request)
+    one_shot = ServeEngine(tm, **{**RG_KW, "buckets": (16, 32, 64)})
+    assert _serve_rg(one_shot, Request) == want
+    assert one_shot.stats.prefill_chunks == 0
+    paged = ServeEngine(tm, kv_block_size=8, **RG_KW)
+    assert not paged.kv.prefix_enabled
+    assert _serve_rg(paged, Request) == want
+
+
+# ---------------------------------------------------------------------- CLI
+def _options(parser):
+    return {o for a in parser._actions for o in a.option_strings
+            if o.startswith("--") and o != "--help"}
+
+
+def test_cli_serves_recurrentgemma_with_dense_kv(capsys):
+    from repro_torch.launch.serve import main
+    s = main(["--arch", RG, "--reduced", "--device", "cpu",
+              "--kv-block-size", "0", "--max-len", "64", "--requests", "3"])
+    assert s["requests_completed"] == 3 and s["nonfinite_logits"] == 0
+    assert s["kv"]["pool_blocks"] == 0
+    assert '"requests_completed": 3' in capsys.readouterr().out
+
+
+def test_cli_fails_loudly_on_every_option_it_lacks(capsys):
+    """Every option of the JAX package's CLI is either served by the port's
+    or refused by name (exit 2, with the reason)."""
+    from repro.launch.serve import build_parser as jax_parser
+    from repro_torch.launch.serve import NOT_PORTED, build_parser
+    port = build_parser()
+    refused = {o for a in port._actions for o in a.option_strings
+               if a.help == "==SUPPRESS=="}
+    assert refused == set(NOT_PORTED)
+    assert _options(jax_parser()) <= _options(port)
+    for opt in NOT_PORTED:
+        with pytest.raises(SystemExit) as exc:
+            port.parse_args([opt, "1"])
+        assert exc.value.code == 2
+    assert "does not have yet" in capsys.readouterr().err
+
+
+def test_cli_profile_dir_writes_a_trace_and_a_summary(tmp_path, capsys):
+    """On the CPU the profile holds the run's wall time and no card
+    numbers: nothing ran on a card."""
+    from repro_torch.launch.serve import main
+    s = main(["--reduced", "--device", "cpu", "--max-len", "64",
+              "--kv-block-size", "8", "--requests", "2",
+              "--profile-dir", str(tmp_path)])
+    capsys.readouterr()
+    prof = s["profile"]
+    assert prof["device"] == "cpu" and prof["wall_ms"] > 0
+    assert prof["device_busy_ms"] is None and prof["kernel_launches"] == 0
+    for name in ("trace.json", "ops.txt", "summary.json"):
+        assert (tmp_path / name).stat().st_size > 0

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import pavlov_rglru as pr  # noqa: E402
 
 
 def _randn(rng, *shape, dtype=np.float32):
@@ -38,6 +39,14 @@ def _paged_case(rng, B, h, kvh, hd, n, bs, nb):
                 vp=_randn(rng, n, bs, kvh, hd), table=table, lengths=lengths)
 
 
+def _rglru_inputs(rng, b, t, e):
+    """float32 decays a in [0.9, 0.999] (the RG-LRU init's range) and
+    driving terms scaled by sqrt(1 - a^2), as ``rglru_core`` builds them."""
+    a = rng.uniform(0.9, 0.999, (b, t, e))
+    drive = rng.standard_normal((b, t, e)) * np.sqrt(1.0 - a * a)
+    return a.astype(np.float32), drive.astype(np.float32)
+
+
 # ----------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda():
@@ -51,7 +60,9 @@ def cuda():
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,s,h,kvh,hd,window", [
     (4, 256, 16, 8, 128, 0), (2, 100, 4, 2, 64, 0), (2, 64, 4, 1, 256, 16),
-    (1, 48, 2, 2, 16, 0)])
+    (1, 48, 2, 2, 16, 0),
+    (2, 256, 10, 1, 256, 2048),     # recurrentgemma's local layers: MQA
+    (1, 512, 10, 1, 256, 128)])     # ... with a window that binds
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, b, s, h, kvh,
                                             hd, window):
     gen = torch.Generator(device=cuda).manual_seed(s + hd)
@@ -83,3 +94,23 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype, tol):
         *(cpu[x] for x in ("q", "nk", "nv", "kp", "vp", "table", "lengths")))
     assert torch.equal(kp.cpu(), kpc) and torch.equal(vp.cpu(), vpc)
     assert (out.cpu().float() - outc.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("t", [1, 100, 256])
+def test_rglru_kernel_matches_plain_on_card(cuda, dtype, tol, t):
+    """The kernel rounds a*h and then +b, as the plain loop does, so float32
+    agrees to the bit in practice; bf16 outputs are a rounding of those."""
+    a, b = _rglru_inputs(np.random.RandomState(t), 4, t, 2560)
+    a = torch.from_numpy(a).to(cuda).to(dtype)
+    b = torch.from_numpy(b).to(cuda).to(dtype)
+    before, dec = pr.launches.n, pr.decode_launches.n
+    out = pr.pavlov_rglru(a, b)
+    assert pr.launches.n == before + 1
+    assert pr.decode_launches.n == dec + (t == 1)
+    ref = pr.pavlov_rglru_ref(a, b)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == a.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol

@@ -14,6 +14,7 @@ from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref  
 from repro.kernels.paged_attention import paged_decode_attention as jax_paged  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import pavlov_rglru as pr  # noqa: E402
 
 from test_torch_gpu import _paged_case, _randn  # noqa: E402
 
@@ -86,14 +87,15 @@ def test_scatter_paged_drops_out_of_range_rows(blk):
 def test_cpu_tensors_never_launch():
     """A CPU tensor takes the plain version: no build, no launch."""
     rng = np.random.RandomState(0)
-    before = (fa.launches.n, pa.launches.n)
+    before = (fa.launches.n, pa.launches.n, pr.launches.n)
     x = torch.from_numpy(_randn(rng, 1, 8, 2, 16))
     fa.flash_attention(x, x, x)
     c = _paged_case(rng, 2, 2, 2, 16, 4, 4, 2)
     pa.paged_decode_attention(*(torch.from_numpy(c[k].copy()) for k in
                                 ("q", "nk", "nv", "kp", "vp", "table",
                                  "lengths")))
-    assert (fa.launches.n, pa.launches.n) == before
+    pr.pavlov_rglru(x[0], x[0])
+    assert (fa.launches.n, pa.launches.n, pr.launches.n) == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -106,3 +108,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, 2, 16), torch.zeros(2, 4, 2, 16),
             torch.zeros(2, 4, 2, 16), torch.zeros(1, 2, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        pr.pavlov_rglru_raw(x[0], x[0])
