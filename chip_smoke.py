@@ -6,27 +6,33 @@
 Phases, one line or block of output each; any failure exits non-zero:
 
 1. device — the card's name, count, and ``nvidia-smi`` name / power limit;
-2. build  — the three CUDA kernels from ``src/repro_torch/csrc``, in
+2. build  — the four CUDA kernels from ``src/repro_torch/csrc``, in
    parallel, with ``nvcc -Xptxas -v``'s registers / shared memory / spills;
 3. kernels — each kernel against its plain PyTorch version on the card at
    the serving paths' shapes, bf16 and float32, with the stated tolerance
    (flash also at recurrentgemma's hd=256, 10 q heads over 1 kv head, and
-   with a window that binds); then times (CUDA events, L2 flushed before
-   each launch): kernel, plain version, ``scaled_dot_product_attention`` as
-   a yardstick for flash, and the least time the card could take (bytes
-   and operations against the published H100 SXM peaks);
-4. layer parity — full-width qwen3-0.6b cut to 2 layers and full-width
-   recurrentgemma-2b cut to 3 (rec, rec, local), float32: prefill and 4
-   decode steps on the CPU (plain versions) and on the card (kernels) from
-   the same weights, logits held within a stated tolerance;
-5. serve — two paths through ``ServeEngine``, random weights from the
+   with a window that binds; the selective scan with a carried state and
+   ragged lengths that include a frozen row); then times (CUDA events, L2
+   flushed before each launch): kernel, plain version,
+   ``scaled_dot_product_attention`` as a yardstick for flash, and the least
+   time the card could take (bytes and operations against the published
+   H100 SXM peaks);
+4. layer parity — full-width qwen3-0.6b cut to 2 layers, full-width
+   recurrentgemma-2b cut to 3 (rec, rec, local) and full-width
+   falcon-mamba-7b cut to 2, float32: prefill and 4 decode steps on the CPU
+   (plain versions) and on the card (kernels) from the same weights, logits
+   held within a stated tolerance;
+5. serve — three paths through ``ServeEngine``, random weights from the
    seed, each run with every kernel's launch counter set to 0 just before
-   it and read just after:
+   it and read just after, each model released before the next is built:
    a. full-width qwen3-0.6b, all 28 layers: paged KV, prefix cache,
       bucketed and chunked prefill, greedy and sampled decode;
    b. full-width recurrentgemma-2b, all 26 layers: dense KV (2048-token
       window rings), a 2300-token prompt chunked across the window, decode
-      past it, a recycled slot, greedy and sampled decode.
+      past it, a recycled slot, greedy and sampled decode;
+   c. full-width falcon-mamba-7b, all 64 ssm layers: conv and scan states
+      per slot, a 1000-token prompt in 4 chunks, a recycled slot, greedy
+      and sampled decode.
 
 The last three lines: ``nvidia-smi``'s name and power limit, one JSON
 object with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -35,6 +41,7 @@ The script imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -54,9 +61,17 @@ PAGED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the RG-LRU kernel rounds a*h, then +b, as its plain loop does: float32
 # agrees to the bit; a bf16 output may differ by one ulp of |h| < 8
 RGLRU_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -4}
+# the selective scan rounds its update where its plain loop does (h_T
+# agrees to float32 rounding, to the bit in practice), but y is a 17-term
+# sum taken in another order: it agrees to a few float32 ulps of the
+# output's scale (|y| reaches ~80 here), so SSM_Y_ULPS of max|y|; a bf16 y
+# is one more rounding of that (one bf16 ulp, 2^-7 of |y|)
+SSM_TOL = 1e-5
+SSM_Y_ULPS = 8 * 2.0 ** -23
+SSM_BF16_ULP = 2.0 ** -7
 # float32 logits of a cut full-width model: the kernels and cuBLAS sum in
-# other orders than the CPU, over d_model 1024 / 2560 and vocab 151,936 /
-# 256,000
+# other orders than the CPU, over d_model 1024 / 2560 / 4096 and vocab
+# 151,936 / 256,000 / 65,024
 LOGIT_TOL = 2e-3
 
 
@@ -91,7 +106,8 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["flash_attention", "paged_attention", "pavlov_rglru"])
+    logs = build.build(["flash_attention", "paged_attention", "pavlov_rglru",
+                        "pavlov_ssm"])
     say(f"[build] {len(logs)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s (sm_90a, into {build.BUILD_DIR})")
     for name, log in logs.items():
@@ -342,7 +358,91 @@ def phase_kernels(seed: int, card: str):
         if t == 256:
             rows["rglru"].update(ms=ms, plain_ms=plain, library_ms=None,
                                  bound_ms=bnd, bound_by=by)
+    rows["ssm"] = ssm_kernel(gen, flush, card)
     return rows
+
+
+def ssm_kernel(gen, flush, card: str) -> dict:
+    """The selective scan at falcon-mamba's d_inner 8192 and d_state 16, in
+    float32 as ``mamba_ssm`` builds its inputs (and once in bf16): B=4
+    slots at T=256 (a prefill bucket), 1 (decode) and a ragged 100, B=1 at
+    T=256 (a prefill chunk); with a carried h0 and ragged lengths that
+    include a 0, whose h_T must be h0 to the bit.  Inputs in the ranges
+    ``mamba_ssm`` gives them: delta = softplus(.) around 0.05, a = -(1..16)
+    scaled by U[0.5, 1.5]."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.pavlov_ssm import pavlov_ssm_raw, pavlov_ssm_ref
+    d, n = 8192, 16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(b, t, carry, dtype=torch.float32):
+        scale = torch.empty((d, n), device="cuda").uniform_(
+            0.5, 1.5, generator=gen)
+        a = -torch.arange(1, n + 1, device="cuda").float() * scale
+        length = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        if carry and b > 1:
+            length = torch.randint(1, t + 1, (b,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            length[1] = 0
+        streams = [F.softplus(randn(b, t, d) - 3.0), randn(b, t, d),
+                   randn(b, t, n), randn(b, t, n)]
+        return ([z.to(dtype) for z in streams]
+                + [a, 1.0 + 0.1 * randn(d), 0.5 * randn(b, d, n), length])
+
+    row = {"max_abs_err": 0.0}
+    for b, t, carry, dtype in ((4, 256, False, torch.float32),
+                               (4, 256, True, torch.float32),
+                               (4, 100, True, torch.float32),
+                               (4, 1, True, torch.float32),
+                               (1, 256, True, torch.float32),
+                               (4, 100, True, torch.bfloat16)):
+        args = inputs(b, t, carry, dtype)
+        if not carry:
+            args[-2:] = [None, None]
+        y, h_t = pavlov_ssm_raw(*args)
+        y_ref, h_ref = pavlov_ssm_ref(*args)
+        torch.cuda.synchronize()
+        dy = (y.float() - y_ref.float()).abs()
+        err_h = (h_t - h_ref).abs().max().item()
+        err_y = dy.max().item()
+        scale = SSM_Y_ULPS * y_ref.float().abs().max().item()
+        if dtype == torch.float32:
+            ok = err_y <= scale and err_h <= SSM_TOL
+            row["max_abs_err"] = max(row["max_abs_err"], err_y, err_h)
+            tol = f"tol y {scale:.2e} (8 ulps of max|y|), h_T {SSM_TOL}"
+        else:
+            ok = err_h <= SSM_TOL and bool(
+                (dy <= y_ref.float().abs() * SSM_BF16_ULP + scale).all())
+            tol = f"tol y one bf16 ulp + {scale:.2e}, h_T {SSM_TOL}"
+        frozen = ""
+        if carry and b > 1:
+            kept = torch.equal(h_t[1], args[6][1])
+            frozen = f", 0-length row h_T == h0 bitwise: {kept}"
+            ok = ok and kept
+        say(f"[kernel] ssm {str(dtype)[6:]} B={b} T={t} D={d} N={n} "
+            f"{'h0 + lengths ' + str(args[7].tolist()) if carry else 'h0=0'}"
+            f": max|kernel-plain| y {err_y:.3e}, h_T {err_h:.3e} ({tol})"
+            f"{frozen}")
+        if not ok:
+            fail("selective-scan kernel disagrees with its plain version")
+    # timed as serving calls it: h0 and lengths in, every step valid
+    for b, t in ((4, 256), (4, 1), (1, 256)):
+        args = inputs(b, t, False)
+        nbytes = 4.0 * (3 * b * t * d + 2 * b * t * n + d * n + d
+                        + 2 * b * d * n + b)
+        ms = time_ms(lambda: pavlov_ssm_raw(*args), 50, flush)
+        plain = time_ms(lambda: pavlov_ssm_ref(*args), 3, flush)
+        bnd, by = bound_ms(nbytes, 7.0 * b * t * d * n, "float32")
+        say(f"[kernel] on {card}: ssm float32 B={b} T={t} D={d} N={n}: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}; {b * t * d * n / 1e6:.1f} M expf)")
+        if (b, t) == (4, 256):
+            row.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                       bound_by=by)
+    return row
 
 
 # --------------------------------------------------------- 4. layer parity
@@ -393,8 +493,9 @@ def phase_parity(seed: int, arch: str, num_layers: int,
         fail(f"{arch}: non-finite logits on the card")
     worst = max((a - b).abs().max().item()
                 for a, b in zip(logits["cpu"], logits["card"]))
-    kv = "dense KV" if kv_block_size is None else \
-        f"paged KV (blocks of {kv_block_size})"
+    kv = "no KV" if set(cfg.layer_kinds) == {"ssm"} \
+        else "dense KV" if kv_block_size is None \
+        else f"paged KV (blocks of {kv_block_size})"
     say(f"[parity] {arch} full width, {num_layers} layers "
         f"({', '.join(cfg.layer_kinds)}), float32, {kv}, prefill lengths "
         f"{lens} + 4 decode steps: max|cuda-cpu| logits {worst:.3e} "
@@ -407,11 +508,21 @@ def phase_parity(seed: int, arch: str, num_layers: int,
 def launch_counters():
     """Every kernel's launch counter, by the name the kernels line uses."""
     from repro_torch.kernels import (flash_attention, paged_attention,
-                                     pavlov_rglru)
+                                     pavlov_rglru, pavlov_ssm)
     return {"flash": flash_attention.launches,
             "paged": paged_attention.launches,
             "rglru": pavlov_rglru.launches,
-            "rglru_decode": pavlov_rglru.decode_launches}
+            "rglru_decode": pavlov_rglru.decode_launches,
+            "ssm": pavlov_ssm.launches,
+            "ssm_decode": pavlov_ssm.decode_launches}
+
+
+def release() -> None:
+    """Give the card's memory back before the next model is built: the
+    last phase's model and engine are unreachable once it returns."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def reset_counts() -> None:
@@ -552,6 +663,58 @@ def phase_serve_recurrent(seed: int, card: str):
     return counts
 
 
+def phase_serve_mamba(seed: int, card: str):
+    """Full-width falcon-mamba-7b through the engine: no KV cache, the conv
+    and scan states per slot; short prompts, one of 1000 tokens in 4
+    chunks, a sampled request that waits for a recycled slot."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine, prefill_buckets
+    cfg = get_config("falcon-mamba-7b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=seed)
+    engine = ServeEngine(model, slots=4, max_len=4096,
+                         buckets=prefill_buckets(256), prefill_chunk=256)
+    engine.warmup()
+    torch.cuda.synchronize()
+    say(f"[serve] falcon-mamba-7b full width ({cfg.num_layers} ssm layers, "
+        f"d_inner {cfg.d_inner}, d_state {cfg.d_state}; "
+        f"{cfg.param_count() / 1e9:.2f} B parameters, bf16 compute, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card), "
+        f"model + warmup {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed + 2)
+    prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
+    new = 32
+    reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=new)
+            for i, n in enumerate((5, 40, 180, 1000))]
+    reqs.append(Request(rid=4, prompt=prompt(60), max_new_tokens=new,
+                        temperature=0.8, top_k=50, top_p=0.9, seed=seed))
+    reset_counts()
+    engine.run(reqs, on_truncate="raise")
+    counts = read_counts()
+    s = engine.stats.summary()
+    say(f"[serve] {len(reqs)} requests over {engine.slots} slots "
+        f"(prompts {[len(r.prompt) for r in reqs]}): completed "
+        f"{s['requests_completed']}, tokens {s['tokens_generated']}, "
+        f"prefill calls {s['prefill_calls']}, chunks {s['prefill_chunks']}, "
+        f"non-finite logit rows {s['nonfinite_logits']}, launches {counts}")
+    say(f"[serve] falcon-mamba-7b {serve_line(s, card)}")
+    check_all("serve falcon-mamba-7b", {
+        "every request finished": all(r.done and len(r.generated) == new
+                                      for r in reqs),
+        "prefill_chunks >= 4": s["prefill_chunks"] >= 4,
+        "SSM kernel launched": counts["ssm"] > 0,
+        f"decode steps x {cfg.num_layers} <= SSM decode launches":
+            s["decode_steps"] * cfg.num_layers <= counts["ssm_decode"],
+        "all logits finite": s["nonfinite_logits"] == 0,
+        "tokens in vocab": all(0 <= t < cfg.vocab_size
+                               for r in reqs for t in r.generated),
+    })
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -566,8 +729,12 @@ def main() -> None:
     rows = phase_kernels(args.seed, smi)
     phase_parity(args.seed, "qwen3-0.6b", 2, kv_block_size=16)
     phase_parity(args.seed, "recurrentgemma-2b", 3, kv_block_size=None)
-    paths = [phase_serve(args.seed, smi),
-             phase_serve_recurrent(args.seed, smi)]
+    phase_parity(args.seed, "falcon-mamba-7b", 2, kv_block_size=None)
+    release()
+    paths = []
+    for serve in (phase_serve, phase_serve_recurrent, phase_serve_mamba):
+        paths.append(serve(args.seed, smi))
+        release()
     # launches: each path's run, counted from 0 just before it
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     kernels = [
@@ -583,6 +750,10 @@ def main() -> None:
          "source": "src/repro_torch/csrc/pavlov_rglru.cu",
          "replaces": "src/repro/kernels/pavlov_rglru/kernel.py:24",
          "launches": launches["rglru"], **rows["rglru"]},
+        {"name": "pavlov_ssm", "route": "cuda",
+         "source": "src/repro_torch/csrc/pavlov_ssm.cu",
+         "replaces": "src/repro/kernels/pavlov_ssm/kernel.py:24",
+         "launches": launches["ssm"], **rows["ssm"]},
     ]
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

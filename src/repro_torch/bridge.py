@@ -5,12 +5,17 @@ The tree (``repro.models.transformer.Model.init``) holds ``embed``,
 ``final_norm``, ``groups[str(j)]`` — the blocks at pattern position ``j``,
 stacked on axis 0 over the scanned groups — and ``tail``, the blocks past the
 last whole group.  Layer ``g * len(pattern) + j`` is ``groups[str(j)][g]``.
-The block type of a layer follows its pattern position (``attn`` /
-``local`` blocks hold ``attn``, ``rec`` blocks hold ``rec`` — ``w_x, w_y,
-conv_w, w_a, w_i, lambda, w_out`` — beside ``ln1``, ``ln2`` and ``ffn``).
-Each leaf is copied into the port's tensor, which casts matmul weights to
-the compute dtype once (the JAX package casts them per call); ``lambda``
-and the norm scales stay float32.
+The block type of a layer follows its pattern position, and each block type
+declares the norms (``NORMS``) and parameter groups (``PARTS``) it holds:
+``attn`` / ``local`` blocks hold ``ln1``, ``attn``, ``ln2``, ``ffn``;
+``rec`` blocks ``ln1``, ``rec`` (``w_x, w_y, conv_w, w_a, w_i, lambda,
+w_out``), ``ln2``, ``ffn``; ``ssm`` blocks ``ln1`` and ``ssm`` (``in_proj,
+conv_w, x_proj, dt_proj, dt_bias, a_log, d_skip, out_proj``) only.  A JAX
+block holding anything else is refused.  Each leaf is copied into the
+port's tensor, which casts matmul weights to the compute dtype once (the
+JAX package casts them per call); the leaves the port reads in float32
+(``lambda``, Mamba's ``x_proj, dt_proj, dt_bias, a_log, d_skip``, the norm
+scales) stay float32.
 """
 from __future__ import annotations
 
@@ -63,12 +68,12 @@ def from_jax_params(tree: dict, cfg: ArchConfig,
     _copy(model.embed, tree["embed"], "embed")
     _copy(model.final_norm, tree["final_norm"]["scale"], "final_norm")
     for i, (blk, lt) in enumerate(zip(model.layers, _layer_trees(tree, cfg))):
-        if set(lt) != {"ln1", "ln2", *blk.PARTS}:
+        want = (*blk.NORMS, *blk.PARTS)
+        if set(lt) != set(want):
             raise ValueError(f"layer {i} ({blk.kind}): JAX block holds "
-                             f"{sorted(lt)}, port expects ln1, ln2, "
-                             f"{', '.join(blk.PARTS)}")
-        _copy(blk.ln1, lt["ln1"]["scale"], f"layer {i} ln1")
-        _copy(blk.ln2, lt["ln2"]["scale"], f"layer {i} ln2")
+                             f"{sorted(lt)}, port expects {', '.join(want)}")
+        for norm in blk.NORMS:
+            _copy(getattr(blk, norm), lt[norm]["scale"], f"layer {i} {norm}")
         for part in blk.PARTS:
             mod = getattr(blk, part)
             if set(mod.keys()) != set(lt[part]):

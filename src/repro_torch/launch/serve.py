@@ -5,11 +5,14 @@ batch of requests -> the stats summary as JSON.
       --requests 8 --slots 4 --max-len 1024 --kv-block-size 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-2b --max-len 4096 --kv-block-size 0
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch falcon-mamba-7b --max-len 4096 --kv-block-size 0
 
 Runs on the card; ``--device cpu`` runs the plain versions on the CPU.
-``--kv-block-size 0`` keeps every KV cache dense per slot.  The options of
-``repro.launch.serve`` that the port does not have yet are accepted by name
-only to fail with that message.
+``--kv-block-size 0`` keeps every KV cache dense per slot (falcon-mamba
+has no KV cache: its conv and scan states are per slot either way).  The
+options of ``repro.launch.serve`` that the port does not have yet are
+accepted by name only to fail with that message.
 """
 from __future__ import annotations
 

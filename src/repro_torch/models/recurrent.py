@@ -1,14 +1,21 @@
-"""The recurrent block of RecurrentGemma/Griffin: a temporal depthwise conv,
-then the RG-LRU gated linear recurrence, times a GeLU-gated branch.
+"""The recurrent blocks: RecurrentGemma/Griffin's (a temporal depthwise
+conv, then the RG-LRU gated linear recurrence, times a GeLU-gated branch)
+and Falcon-Mamba's Mamba-1 selective SSM (conv, SiLU, the selective scan,
+times a SiLU-gated branch).
 
-The PyTorch counterpart of the RG-LRU half of ``repro.models.recurrent``.
-The recurrence itself always goes through
-``kernels.pavlov_rglru.ops.pavlov_rglru`` — the CUDA kernel for a tensor on
-the card, its plain sequential loop for one on the CPU — which is the JAX
-package's ``impl="pallas"`` route (the carried state folded into
-``b[:, 0]``).  Its chunked associative scan (``impl="xla"``) computes the
-same recurrence and is not ported.  The Mamba and LSTM blocks come with
-their slices.
+The PyTorch counterpart of the RG-LRU and Mamba halves of
+``repro.models.recurrent``.  Each recurrence always goes through its kernel
+wrapper — the CUDA kernel for a tensor on the card, its plain sequential
+loop for one on the CPU:
+  * the RG-LRU through ``kernels.pavlov_rglru.ops.pavlov_rglru``, the JAX
+    package's ``impl="pallas"`` route (the carried state folded into
+    ``b[:, 0]``);
+  * the selective scan through ``kernels.pavlov_ssm.ops.pavlov_ssm``, which
+    takes the carried ``h0`` and the prefix ``length`` and returns ``h_T``:
+    the function of ``mamba_ssm``'s masked XLA route, which the JAX package
+    serves with (its Pallas route carries no state).
+The JAX package's chunked associative scans (``impl="xla"``) compute the
+same recurrences and are not ported.  The LSTM comes with its slice.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.pavlov_rglru.ops import pavlov_rglru
+from ..kernels.pavlov_ssm.ops import pavlov_ssm
 from .common import fan_in_std, gelu
 
 #: ``a = sigmoid(lambda)^(C * r)``: the RG-LRU's fixed temperature
@@ -144,3 +152,83 @@ def rglru_param_shapes(d_model: int, d_rnn: int, conv_width: int,
             "conv_w": (conv_width, d_rnn), "w_a": gate, "w_i": gate,
             "lambda": (d_rnn,), "w_out": (d_rnn, d_model)}
 
+
+
+# ---------------------------------------------------------------------- Mamba-1
+#: Mamba parameters ``mamba_ssm`` reads in float32; the port stores them so
+MAMBA_F32 = ("x_proj", "dt_proj", "dt_bias", "a_log", "d_skip")
+
+
+def mamba_param_shapes(d_model: int, d_inner: int, d_state: int,
+                       d_conv: int, dt_rank: int) -> dict[str, tuple[int, ...]]:
+    """The shape of each parameter of one Mamba-1 block, as
+    ``repro.models.recurrent.init_mamba_block`` makes them."""
+    return {"in_proj": (d_model, 2 * d_inner), "conv_w": (d_conv, d_inner),
+            "x_proj": (d_inner, dt_rank + 2 * d_state),
+            "dt_proj": (dt_rank, d_inner), "dt_bias": (d_inner,),
+            "a_log": (d_inner, d_state), "d_skip": (d_inner,),
+            "out_proj": (d_inner, d_model)}
+
+
+@torch.no_grad()
+def init_mamba_block(params: dict, generator: torch.Generator) -> None:
+    """Fill a Mamba block's parameters in place with the JAX package's
+    distributions: every matrix normal with std 1/sqrt(fan-in) (``conv_w``:
+    1/sqrt(conv width)), ``dt_bias = log(expm1(u))`` with u uniform in
+    [1e-3, 1e-1], ``a_log = log(1..N)`` on every row exactly, ``d_skip``
+    ones."""
+    for name, p in params.items():
+        w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        if name == "dt_bias":
+            w.uniform_(1e-3, 1e-1, generator=generator)
+            w = torch.log(torch.expm1(w))
+        elif name == "a_log":
+            n = torch.arange(1, p.shape[1] + 1, dtype=torch.float32,
+                             device=p.device)
+            w = torch.log(n).expand(p.shape)
+        elif name == "d_skip":
+            w.fill_(1.0)
+        else:
+            w.normal_(0.0, fan_in_std(tuple(p.shape)), generator=generator)
+        p.copy_(w)
+
+
+def mamba_ssm(params: dict, x: torch.Tensor, dt_rank: int, d_state: int,
+              h0: torch.Tensor | None = None,
+              length: torch.Tensor | None = None):
+    """Selective scan.  x: (B,S,d_inner) (post conv+silu); ``h0``:
+    (B,d_inner,d_state) float32 carried state; ``length``: (B,) int32 valid
+    prefix lengths — later steps leave the state unchanged.  The input
+    projections, softplus and ``a`` in float32 with PyTorch ops (the
+    parameters they read are stored float32), where the JAX package computes
+    them outside its kernel; the recurrence in the kernel wrapper.  Returns
+    (y in x.dtype, h_T float32)."""
+    xf = x.float()
+    proj = torch.matmul(xf, params["x_proj"])
+    dt_in, b_in, c_in = torch.split(proj, [dt_rank, d_state, d_state],
+                                    dim=-1)
+    delta = F.softplus(torch.matmul(dt_in, params["dt_proj"])
+                       + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    y, h_last = pavlov_ssm(delta, xf, b_in.contiguous(), c_in.contiguous(),
+                           a, params["d_skip"], h0, length)
+    return y.to(x.dtype), h_last
+
+
+def mamba_block(params: dict, x: torch.Tensor, *, d_state: int,
+                dt_rank: int, state: dict | None = None,
+                length: torch.Tensor | None = None):
+    """The Mamba-1 block.  x: (B,S,D) -> (B,S,D).  ``state``:
+    ``{"conv": (B,K-1,d_inner), "h": (B,d_inner,d_state) float32}`` carried
+    from an earlier segment.  ``length``: (B,) int32 valid prefix lengths of
+    a right-padded x — the returned state then reflects position length-1
+    (a row with 0 keeps its state bit for bit).  Returns (out, new
+    state)."""
+    xi, z = torch.matmul(x, params["in_proj"]).chunk(2, dim=-1)
+    conv_state = state["conv"] if state else None
+    h0 = state["h"] if state else None
+    xi, new_conv = causal_conv1d(xi, params["conv_w"], conv_state,
+                                 length=length)
+    y, h_last = mamba_ssm(params, F.silu(xi), dt_rank, d_state, h0, length)
+    out = torch.matmul(y * F.silu(z), params["out_proj"])
+    return out, {"conv": new_conv, "h": h_last}

@@ -1,8 +1,9 @@
 """Model assembly for the port: decoder-only stacks of ``attn`` (full
 causal attention), ``local`` (sliding-window attention) and ``rec``
 (Griffin recurrent) blocks with a GLU feed-forward — qwen3-0.6b and
-recurrentgemma-2b and their families.  Every other block or feed-forward
-kind raises ``NotImplementedError`` until its slice lands.
+recurrentgemma-2b and their families — or of ``ssm`` (Mamba-1) blocks with
+no feed-forward — falcon-mamba-7b.  Every other block or feed-forward kind
+raises ``NotImplementedError`` until its slice lands.
 
 The PyTorch counterpart of ``repro.models.transformer.Model``, with the
 weights held by the module instead of passed as a pytree, and the layers in
@@ -11,15 +12,17 @@ the JAX package's order (the pattern's groups, then the tail):
   * ``forward``      — full-sequence logits.
   * ``init_states``  — one ``BlockState`` per layer: a paged KV pool for
     ``attn`` when ``kv_block_size`` is set, else a dense cache; a ring of
-    ``min(max_len, window)`` for ``local``; ``{"conv", "h"}`` for ``rec``.
+    ``min(max_len, window)`` for ``local``; ``{"conv", "h"}`` for ``rec``
+    and ``ssm``.
   * ``prefill`` / ``decode_step`` — the serving path.
 
 Parameters are stored the way the JAX package computes with them: matmul
 weights in the compute dtype (JAX casts its float32 masters per call, which
-gives the same values), norm scales, ``lambda`` and the tied embedding
-table in float32 (``rms_norm``, ``rglru_core`` and ``unembed`` read them in
-float32).  ``H·hd`` need not equal ``d_model``: ``wo`` is ``(H·hd,
-d_model)``.
+gives the same values), norm scales, ``lambda``, Mamba's ``x_proj``,
+``dt_proj``, ``dt_bias``, ``a_log`` and ``d_skip``, and the tied embedding
+table in float32 (``rms_norm``, ``rglru_core``, ``mamba_ssm`` and
+``unembed`` read them in float32).  ``H·hd`` need not equal ``d_model``:
+``wo`` is ``(H·hd, d_model)``.
 """
 from __future__ import annotations
 
@@ -36,19 +39,24 @@ from .ffn import glu_ffn
 from .model_config import ArchConfig
 
 
-SUPPORTED_KINDS = ("attn", "local", "rec")
+SUPPORTED_KINDS = ("attn", "local", "rec", "ssm")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
+    """Stacks of attn/local/rec blocks take a GLU feed-forward; a stack of
+    ``ssm`` blocks has none (``ffn_kind == "none"``), and only it."""
     kinds = set(cfg.layer_kinds)
-    if not kinds <= set(SUPPORTED_KINDS) or cfg.ffn_kind != "glu" \
+    stack_ok = kinds == {"ssm"} and cfg.ffn_kind == "none" \
+        or "ssm" not in kinds and cfg.ffn_kind == "glu"
+    if not kinds <= set(SUPPORTED_KINDS) or not stack_ok \
             or cfg.norm != "rms" or cfg.is_encdec or cfg.modality_tokens \
             or not cfg.tie_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder-only stacks of "
-            f"{SUPPORTED_KINDS} blocks with a GLU feed-forward, RMSNorm and "
-            f"tied embeddings; block kinds {sorted(kinds)}, ffn "
-            f"{cfg.ffn_kind!r}, norm {cfg.norm!r} come in a later slice")
+            f"{cfg.name}: the port serves decoder-only stacks of attn, "
+            f"local and rec blocks with a GLU feed-forward, or of ssm blocks "
+            f"with none, with RMSNorm and tied embeddings; block kinds "
+            f"{sorted(kinds)}, ffn {cfg.ffn_kind!r}, norm {cfg.norm!r} come "
+            f"in a later slice")
 
 
 def _weight(*shape, dtype, device) -> nn.Parameter:
@@ -59,7 +67,9 @@ def _weight(*shape, dtype, device) -> nn.Parameter:
 class BlockState(NamedTuple):
     """One layer's serving state: ``kv`` for an attention layer (a dense
     ``KVCache``, a window's ring, or a ``PagedKVCache``), ``rec`` for a
-    recurrent one (``{"conv": (B,K-1,d_rnn), "h": (B,d_rnn) float32}``)."""
+    recurrent one (``rec``: ``{"conv": (B,K-1,d_rnn), "h": (B,d_rnn)
+    float32}``; ``ssm``: ``{"conv": (B,K-1,d_inner), "h":
+    (B,d_inner,d_state) float32}``)."""
     kv: attn_lib.KVCache | attn_lib.PagedKVCache | None = None
     rec: dict | None = None
 
@@ -78,6 +88,7 @@ class AttnBlock(nn.Module):
     """Pre-norm residual block: GQA self-attention — full causal for
     ``attn``, sliding-window over a ring cache for ``local`` — then the GLU
     FFN."""
+    NORMS = ("ln1", "ln2")
     PARTS = ("attn", "ffn")
 
     def __init__(self, cfg: ArchConfig, kind: str, device: torch.device):
@@ -159,6 +170,7 @@ class RecBlock(nn.Module):
     then the GLU FFN.  The gate matrices are stored in the dtype
     ``rglru_core`` multiplies in (compute dtype when dense, float32 when
     block-diagonal); ``lambda`` stays float32."""
+    NORMS = ("ln1", "ln2")
     PARTS = ("rec", "ffn")
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
@@ -197,6 +209,49 @@ class RecBlock(nn.Module):
         x = x + y
         x = x + glu_ffn(self.ffn, rms_norm(x, self.ln2), cfg.activation)
         return x, state
+
+
+class SsmBlock(nn.Module):
+    """Pre-norm residual Mamba-1 block (``ln1`` only, no FFN).
+    ``in_proj``, ``conv_w`` and ``out_proj`` are stored in the compute
+    dtype, the parameters ``mamba_ssm`` reads in float32 in float32."""
+    NORMS = ("ln1",)
+    PARTS = ("ssm",)
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        self.kind = "ssm"
+        cd = torch_dtype(cfg.compute_dtype)
+        self.dt_rank = cfg.dt_rank or max(1, cfg.d_model // 16)
+        shapes = rec_lib.mamba_param_shapes(cfg.d_model, cfg.d_inner,
+                                            cfg.d_state, cfg.d_conv,
+                                            self.dt_rank)
+        self.ln1 = _weight(cfg.d_model, dtype=torch.float32, device=device)
+        self.ssm = nn.ParameterDict({
+            name: _weight(*shape, device=device,
+                          dtype=torch.float32 if name in rec_lib.MAMBA_F32
+                          else cd)
+            for name, shape in shapes.items()})
+
+    def forward(self, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, mode: str = "train",
+                state: BlockState | None = None,
+                length: torch.Tensor | None = None,
+                offset: torch.Tensor | None = None,
+                block_table: torch.Tensor | None = None):
+        """``apply_block`` for ``kind == "ssm"``: in prefill the state
+        resumes from the carry (zeroed where offset == 0); in decode a 0/1
+        ``length`` freezes conv and h of rows with 0."""
+        h = rms_norm(x, self.ln1)
+        kw = dict(d_state=cfg.d_state, dt_rank=self.dt_rank)
+        if mode == "train":
+            y, _ = rec_lib.mamba_block(self.ssm, h, **kw)
+        else:
+            y, rec = rec_lib.mamba_block(
+                self.ssm, h, state=_resume_rec(state.rec, offset),
+                length=length, **kw)
+            state = state._replace(rec=rec)
+        return x + y, state
 
 
 def _resume_rec(rec: dict | None,
@@ -256,6 +311,7 @@ class Model(nn.Module):
         self.final_norm = _weight(cfg.d_model, dtype=f32, device=self.device)
         self.layers = nn.ModuleList(
             RecBlock(cfg, self.device) if kind == "rec"
+            else SsmBlock(cfg, self.device) if kind == "ssm"
             else AttnBlock(cfg, kind, self.device) for kind in self.kinds)
 
     # ------------------------------------------------------------------- init
@@ -263,8 +319,8 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Random weights with the JAX package's distributions (normal,
         std 1/sqrt(fan_in); norm scales 0, biases 0; the RG-LRU's
-        ``init_rglru_block``), drawn from ``generator`` — which lives on the
-        model's device."""
+        ``init_rglru_block``, Mamba's ``init_mamba_block``), drawn from
+        ``generator`` — which lives on the model's device."""
         def normal(p: torch.Tensor, std: float) -> None:
             w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
             w.normal_(0.0, std, generator=generator)
@@ -273,9 +329,12 @@ class Model(nn.Module):
         normal(self.embed, 1.0 / self.cfg.d_model ** 0.5)
         self.final_norm.zero_()
         for blk in self.layers:
-            blk.ln1.zero_()
-            blk.ln2.zero_()
-            if isinstance(blk, RecBlock):
+            for norm in blk.NORMS:
+                getattr(blk, norm).zero_()
+            if isinstance(blk, SsmBlock):
+                rec_lib.init_mamba_block(blk.ssm, generator)
+                trees = ()
+            elif isinstance(blk, RecBlock):
                 rec_lib.init_rglru_block(blk.rec, generator)
                 trees = (blk.ffn,)
             else:
@@ -312,15 +371,19 @@ class Model(nn.Module):
                          max_len: int) -> BlockState:
         """Zeroed dense state of layer ``i`` for ``batch`` slots: a
         ``max_len`` cache (``attn``), a ``min(max_len, window)`` ring
-        (``local``), or the conv context and float32 h (``rec``)."""
+        (``local``), or the conv context and float32 h (``rec``: (B, d_rnn);
+        ``ssm``: (B, d_inner, d_state))."""
         cfg = self.cfg
         kind = self.kinds[i]
-        if kind == "rec":
+        if kind in ("rec", "ssm"):
+            width = cfg.d_rnn if kind == "rec" else cfg.d_inner
+            h = (batch, width) if kind == "rec" \
+                else (batch, width, cfg.d_state)
             return BlockState(rec={
-                "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_rnn),
+                "conv": torch.zeros((batch, cfg.d_conv - 1, width),
                                     dtype=self.compute_dtype,
                                     device=self.device),
-                "h": torch.zeros((batch, cfg.d_rnn), dtype=torch.float32,
+                "h": torch.zeros(h, dtype=torch.float32,
                                  device=self.device)})
         smax = max_len if kind == "attn" else min(max_len, cfg.window)
         return BlockState(kv=attn_lib.init_kv_cache(

@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import pavlov_rglru as pr  # noqa: E402
+from repro_torch.kernels import pavlov_ssm as ps  # noqa: E402
 
 
 def _randn(rng, *shape, dtype=np.float32):
@@ -45,6 +46,24 @@ def _rglru_inputs(rng, b, t, e):
     a = rng.uniform(0.9, 0.999, (b, t, e))
     drive = rng.standard_normal((b, t, e)) * np.sqrt(1.0 - a * a)
     return a.astype(np.float32), drive.astype(np.float32)
+
+
+def _ssm_inputs(rng, b, t, d, n):
+    """float32 selective-scan inputs in the ranges ``mamba_ssm`` gives them:
+    delta = softplus(.) around 0.05, a = -(1..N) per channel (the init's
+    ``-exp(a_log)``) scaled by U[0.5, 1.5], x, B, C ~ N(0, 1), d_skip around
+    1; a carried h0 and ragged lengths, row 1's 0 (a frozen row)."""
+    delta = np.log1p(np.exp(rng.normal(-3.0, 1.0, (b, t, d))))
+    a = -np.arange(1, n + 1)[None] * rng.uniform(0.5, 1.5, (d, n))
+    length = rng.randint(1, t + 1, b)
+    if b > 1:
+        length[1] = 0
+    return dict(delta=delta.astype(np.float32),
+                x=_randn(rng, b, t, d), bc=_randn(rng, b, t, n),
+                cc=_randn(rng, b, t, n), a=a.astype(np.float32),
+                d_skip=rng.normal(1.0, 0.1, d).astype(np.float32),
+                h0=_randn(rng, b, d, n) * 0.5,
+                length=length.astype(np.int32))
 
 
 # ----------------------------------------------------------------- on the card
@@ -114,3 +133,47 @@ def test_rglru_kernel_matches_plain_on_card(cuda, dtype, tol, t):
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == a.shape
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+#: the selective scan's y tolerance, in float32 ulps (2^-23) of max|y|
+Y_ULPS = 8 * 2.0 ** -23
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,n,carry", [
+    (4, 256, 8192, 16, False),      # falcon-mamba's prefill bucket, h0 = 0
+    (4, 100, 8192, 16, True),       # ragged T, h0 and lengths with a 0
+    (4, 1, 8192, 16, True),         # a decode step
+    (1, 256, 8192, 16, True),       # a prefill chunk
+    (3, 37, 200, 4, True),          # N < 16, D not a multiple of a block
+    (2, 40, 96, 32, True)])         # the largest N
+def test_ssm_kernel_matches_plain_on_card(cuda, dtype, b, t, d, n, carry):
+    """The update rounds where the plain loop rounds (no FMA, accurate
+    expf), so h_T agrees to float32 rounding (to the bit in practice).  y
+    is a 17-term sum taken in another order: it agrees to a few float32
+    ulps of the output's scale (|y| reaches ~80 at T=256; both sides are
+    ~1e-5 from a float64 loop there), hence ``Y_ULPS`` of max|y|.  A
+    0-length row keeps h0 bit for bit.  bf16 inputs are widened to float32
+    on both sides; y is one bf16 rounding of that."""
+    c = _ssm_inputs(np.random.RandomState(t + n), b, t, d, n)
+    g = {k: torch.from_numpy(v).to(cuda) for k, v in c.items()}
+    ins = [g[k].to(dtype) for k in ("delta", "x", "bc", "cc")]
+    h0, length = (g["h0"], g["length"]) if carry else (None, None)
+    before, dec = ps.launches.n, ps.decode_launches.n
+    y, h_t = ps.pavlov_ssm(*ins, g["a"], g["d_skip"], h0, length)
+    assert ps.launches.n == before + 1
+    assert ps.decode_launches.n == dec + (t == 1)
+    y_ref, h_ref = ps.pavlov_ssm_ref(*ins, g["a"], g["d_skip"], h0, length)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (b, t, d)
+    assert h_t.dtype == torch.float32 and h_t.shape == (b, d, n)
+    assert (h_t - h_ref).abs().max().item() <= 1e-5
+    err = (y.float() - y_ref.float()).abs()
+    scale = Y_ULPS * y_ref.float().abs().max().item()
+    if dtype == torch.float32:
+        assert err.max().item() <= scale
+    else:       # one bf16 rounding of values a float32 rounding apart
+        assert bool((err <= y_ref.float().abs() * 2.0 ** -7 + scale).all())
+    if carry and b > 1:
+        assert torch.equal(h_t[1], h0[1])               # the 0-length row

@@ -246,12 +246,19 @@ def test_model_defaults_to_the_card_and_never_falls_back():
                                   "starcoder2-7b", "phi3.5-moe-42b-a6.6b"])
 def test_other_block_kinds_raise(arch):
     cfg = reduced_config(arch)
+    bad = [cfg]
     if arch == "recurrentgemma-2b":
         # its rec and local blocks are ported: a hybrid that mixes in a
         # block kind still to port must raise
-        cfg = cfg.replace(block_pattern=("rec", "ssm", "local"))
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+        bad = [cfg.replace(block_pattern=("rec", "ssm", "local"))]
+    if arch == "falcon-mamba-7b":
+        # its ssm stack is ported: ssm blocks beside a GLU feed-forward,
+        # and an attn block in a stack without one, must raise
+        bad = [cfg.replace(ffn_kind="glu", d_ff=128),
+               cfg.replace(block_pattern=("ssm", "attn"))]
+    for c in bad:
+        with pytest.raises(NotImplementedError):
+            build_model(c, device="cpu")
 
 
 def test_init_draws_from_the_generator():
