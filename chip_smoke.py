@@ -6,23 +6,33 @@
 Phases, one line or block of output each; any failure exits non-zero:
 
 1. device — the card's name, count, and ``nvidia-smi`` name / power limit;
-2. build  — the four CUDA kernels from ``src/repro_torch/csrc``, in
+2. build  — the seven CUDA kernels from ``src/repro_torch/csrc``, in
    parallel, with ``nvcc -Xptxas -v``'s registers / shared memory / spills;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the serving paths' shapes, bf16 and float32, with the stated tolerance
-   (flash also at recurrentgemma's hd=256, 10 q heads over 1 kv head, and
-   with a window that binds; the selective scan with a carried state and
-   ragged lengths that include a frozen row); then times (CUDA events, L2
-   flushed before each launch): kernel, plain version,
-   ``scaled_dot_product_attention`` as a yardstick for flash, and the least
-   time the card could take (bytes and operations against the published
-   H100 SXM peaks);
+   the paths' shapes, bf16 and float32, with the stated tolerance (flash
+   also at recurrentgemma's hd=256, 10 q heads over 1 kv head, and with a
+   window that binds; the selective scan with a carried state and ragged
+   lengths that include a frozen row; the Pascal matmul at the edge zoo's
+   TR1 hoisted input GEMMs, the Jacquard GEMV at its FC widths, the LSTM
+   recurrence at H=2048 and the ragged H=2900, with and without a carried
+   state); then times (CUDA events, L2 flushed before each launch): kernel,
+   plain version, a PyTorch call as a yardstick (``scaled_dot_product_
+   attention`` for flash, ``torch.matmul`` for the GEMM and GEMV, cuDNN's
+   ``torch.nn.LSTM`` for a whole LSTM layer), and the least time the card
+   could take (bytes and operations against the published H100 SXM peaks);
 4. layer parity — full-width qwen3-0.6b cut to 2 layers, full-width
    recurrentgemma-2b cut to 3 (rec, rec, local) and full-width
    falcon-mamba-7b cut to 2, float32: prefill and 4 decode steps on the CPU
    (plain versions) and on the card (kernels) from the same weights, logits
    held within a stated tolerance;
-5. serve — three paths through ``ServeEngine``, random weights from the
+5. edge LSTM stack — the LSTM layers of the edge zoo's mobile RNN-T
+   (``TR1_rnnt_mobile``) at full width, float32, random weights from the
+   seed: its encoder cut to 2 layers on the CPU (plain versions) and on the
+   card (kernels), held within a stated tolerance; then on the card, with
+   the launch counters set to 0 just before, the whole 8-layer encoder over
+   T=200 and the 2-layer prediction network over U=20, once as one call and
+   once as 20 single steps carrying (h, c), which must agree bit for bit;
+6. serve — three paths through ``ServeEngine``, random weights from the
    seed, each run with every kernel's launch counter set to 0 just before
    it and read just after, each model released before the next is built:
    a. full-width qwen3-0.6b, all 28 layers: paged KV, prefix cache,
@@ -73,6 +83,16 @@ SSM_BF16_ULP = 2.0 ** -7
 # other orders than the CPU, over d_model 1024 / 2560 / 4096 and vocab
 # 151,936 / 256,000 / 65,024
 LOGIT_TOL = 2e-3
+# a float32 product summed over K in another order than its plain version
+# (FMA chains against a multiply and an add): the rounding differences
+# walk like sqrt(K) float32 ulps of the output's scale, so sqrt(K) ulps of
+# max|y|; a bf16 output is one more rounding (one bf16 ulp, 2^-7 of |y|)
+F32_ULP = 2.0 ** -23
+BF16_ULP = 2.0 ** -7
+# the LSTM recurrence vs its plain loop, float32: the cell update rounds
+# alike, the dot products over H sum in another order each step; |h| < 1
+# and |c| a few units over T=200
+LSTM_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -107,7 +127,8 @@ def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(["flash_attention", "paged_attention", "pavlov_rglru",
-                        "pavlov_ssm"])
+                        "pavlov_ssm", "pascal_matmul", "jacquard_gemv",
+                        "pavlov_lstm"])
     say(f"[build] {len(logs)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s (sm_90a, into {build.BUILD_DIR})")
     for name, log in logs.items():
@@ -359,6 +380,9 @@ def phase_kernels(seed: int, card: str):
             rows["rglru"].update(ms=ms, plain_ms=plain, library_ms=None,
                                  bound_ms=bnd, bound_by=by)
     rows["ssm"] = ssm_kernel(gen, flush, card)
+    rows["pascal"] = pascal_kernel(gen, flush, card)
+    rows["jacquard"] = jacquard_kernel(gen, flush, card)
+    rows["lstm"] = lstm_kernel(gen, flush, card)
     return rows
 
 
@@ -445,6 +469,230 @@ def ssm_kernel(gen, flush, card: str) -> dict:
     return row
 
 
+def sum_check(out, ref, k: int, dtype) -> tuple[float, bool, str]:
+    """Max |out - ref| and whether it is within the tolerance of a product
+    over ``k`` terms: sqrt(k) float32 ulps of max|ref|, one bf16 ulp more
+    in bf16."""
+    import torch
+    err = (out.float() - ref.float()).abs()
+    scale = math.sqrt(k) * F32_ULP * ref.float().abs().max().item()
+    if dtype == torch.float32:
+        return err.max().item(), err.max().item() <= scale, \
+            f"tol {scale:.2e} (sqrt(K) ulps of max|y|)"
+    ok = bool((err <= ref.float().abs() * BF16_ULP + scale).all())
+    return err.max().item(), ok, f"tol one bf16 ulp + {scale:.2e}"
+
+
+def gemm_inputs(gen, m: int, k: int, n: int, dtype):
+    """x ~ N(0, 1) (m rows) and w with the fan-in init's std 1/sqrt(K)."""
+    import torch
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    return x.to(dtype), w.to(dtype)
+
+
+def pascal_kernel(gen, flush, card: str) -> dict:
+    """The Pascal matmul at the edge zoo's TR1 hoisted input GEMMs (the
+    encoder's M = B·T = 200 rows: enc1..7's 2048 -> 8192 and enc0's
+    512 -> 8192; the prediction network's M = 20 in one call and M = 1 a
+    single step, pred0's 640 -> 8192 and pred1's 2048 -> 8192) and at a
+    ragged shape with lead dims, bf16 and float32; timed in float32 (the
+    LSTM stack's dtype) and bf16 beside ``torch.matmul``."""
+    import torch
+    from repro_torch.kernels.pascal_matmul import (pascal_matmul,
+                                                   pascal_matmul_raw,
+                                                   pascal_matmul_ref)
+    row = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for lead, k, n in (((200,), 2048, 8192), ((200,), 512, 8192),
+                           ((20,), 640, 8192), ((20,), 2048, 8192),
+                           ((1,), 640, 8192), ((1,), 2048, 8192),
+                           ((3, 37), 300, 1000)):
+            m = math.prod(lead)
+            x, w = gemm_inputs(gen, m, k, n, dtype)
+            out = pascal_matmul(x.reshape(*lead, k), w)
+            ref = pascal_matmul_ref(x, w)
+            torch.cuda.synchronize()
+            err, ok, tol = sum_check(out.reshape(m, n), ref, k, dtype)
+            say(f"[kernel] pascal {str(dtype)[6:]} {lead} x {k} @ {k} x {n}:"
+                f" max|kernel-plain|={err:.3e} ({tol})")
+            if not ok:
+                fail("Pascal matmul kernel disagrees with its plain version")
+            if dtype == torch.float32:
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+    m, k, n = 200, 2048, 8192
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = gemm_inputs(gen, m, k, n, dtype)
+        item = x.element_size()
+        ms = time_ms(lambda: pascal_matmul_raw(x, w), 20, flush)
+        plain = time_ms(lambda: pascal_matmul_ref(x, w), 3, flush)
+        lib = time_ms(lambda: torch.matmul(x, w), 20, flush)
+        bnd, by = bound_ms(item * (m * k + k * n + m * n), 2.0 * m * k * n,
+                           str(dtype)[6:])
+        say(f"[kernel] on {card}: pascal {str(dtype)[6:]} {m} x {k} @ {k} x "
+            f"{n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if dtype == torch.float32:
+            row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by)
+    return row
+
+
+def jacquard_kernel(gen, flush, card: str) -> dict:
+    """The Jacquard GEMV at M = 1 and 4 at the edge zoo's FC widths (LSTM1's
+    output 1280 -> 8192, TR1's joint_out 640 -> 4096, LSTM4's output
+    2900 -> 8192) and at (4, 1024, 300), bf16 and float32; timed at M = 1,
+    1280 -> 8192 beside ``torch.matmul``.  No path of the port calls the
+    GEMV (none of the JAX package does): its launches are these checks'."""
+    import torch
+    from repro_torch.kernels import jacquard_gemv as jg
+    row = {"max_abs_err": 0.0}
+    jg.launches.reset()
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k, n in ((1, 1280, 8192), (4, 1280, 8192), (1, 640, 4096),
+                        (4, 640, 4096), (1, 2900, 8192), (4, 2900, 8192),
+                        (4, 1024, 300)):
+            x, w = gemm_inputs(gen, m, k, n, dtype)
+            out = jg.jacquard_gemv(x, w)
+            ref = jg.jacquard_gemv_ref(x, w)
+            torch.cuda.synchronize()
+            err, ok, tol = sum_check(out, ref, k, dtype)
+            say(f"[kernel] jacquard {str(dtype)[6:]} M={m} K={k} N={n}: "
+                f"max|kernel-plain|={err:.3e} ({tol})")
+            if not ok:
+                fail("Jacquard GEMV kernel disagrees with its plain version")
+            if dtype == torch.float32:
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["launches"] = jg.launches.n
+    m, k, n = 1, 1280, 8192
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = gemm_inputs(gen, m, k, n, dtype)
+        item = x.element_size()
+        ms = time_ms(lambda: jg.jacquard_gemv_raw(x, w), 50, flush)
+        plain = time_ms(lambda: jg.jacquard_gemv_ref(x, w), 20, flush)
+        lib = time_ms(lambda: torch.matmul(x, w), 50, flush)
+        bnd, by = bound_ms(item * (m * k + k * n + m * n), 2.0 * m * k * n,
+                           str(dtype)[6:])
+        say(f"[kernel] on {card}: jacquard {str(dtype)[6:]} M={m} K={k} "
+            f"N={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if dtype == torch.float32:
+            row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by)
+    return row
+
+
+def lstm_inputs(gen, b: int, t: int, hd: int, dtype):
+    """Gates xg ~ N(0, 1), W_h with the fan-in init's std 1/sqrt(H), and a
+    carried state in an LSTM's ranges (|h| < 1)."""
+    import torch
+    xg = torch.randn((b, t, 4 * hd), generator=gen, device="cuda")
+    wh = torch.randn((hd, 4 * hd), generator=gen, device="cuda") \
+        / math.sqrt(hd)
+    h0 = torch.empty((b, hd), device="cuda").uniform_(-0.9, 0.9,
+                                                      generator=gen)
+    c0 = torch.randn((b, hd), generator=gen, device="cuda")
+    return xg.to(dtype), wh.to(dtype), h0, c0
+
+
+def cudnn_lstm(params: dict):
+    """``torch.nn.LSTM`` (cuDNN) computing ``lstm_layer``'s function: the
+    same gate order, weight_ih = w_x^T, weight_hh = w_h^T, the forget
+    gate's +1 in bias_ih.  A yardstick only: the port never calls it."""
+    import torch
+    d_in, h4 = params["w_x"].shape
+    hd = h4 // 4
+    lstm = torch.nn.LSTM(d_in, hd, batch_first=True).to("cuda")
+    forget = torch.zeros(h4, device="cuda")
+    forget[hd:2 * hd] = 1.0
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(params["w_x"].T)
+        lstm.weight_hh_l0.copy_(params["w_h"].T)
+        lstm.bias_ih_l0.copy_(params["b"] + forget)
+        lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def lstm_kernel(gen, flush, card: str) -> dict:
+    """The LSTM recurrence at TR1's width (H=2048, T=200) and LSTM4's
+    ragged one (H=2900, T=80), B=1 and 4, zero and carried state, bf16 and
+    float32; timed at B=1, T=200, H=2048 in float32 (the stack's dtype) and
+    bf16, and the whole layer (Pascal GEMM + bias + recurrence, 2048 ->
+    2048) beside cuDNN's ``torch.nn.LSTM`` on the same weights."""
+    import torch
+    from repro_torch.kernels.pavlov_lstm import (pavlov_lstm_raw,
+                                                 pavlov_lstm_ref)
+    from repro_torch.models.recurrent import init_lstm_layer, lstm_layer
+    row = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, hd in ((1, 200, 2048), (4, 200, 2048), (1, 80, 2900),
+                         (4, 80, 2900)):
+            for carry in (False, True):
+                xg, wh, h0, c0 = lstm_inputs(gen, b, t, hd, dtype)
+                state = (h0, c0) if carry else (None, None)
+                y, h_t, c_t = pavlov_lstm_raw(xg, wh, *state)
+                y_ref, h_ref, c_ref = pavlov_lstm_ref(xg, wh, *state)
+                torch.cuda.synchronize()
+                dy = (y.float() - y_ref.float()).abs()
+                err_s = max((h_t - h_ref).abs().max().item(),
+                            (c_t - c_ref).abs().max().item())
+                if dtype == torch.float32:
+                    ok = max(dy.max().item(), err_s) <= LSTM_TOL
+                    row["max_abs_err"] = max(row["max_abs_err"],
+                                             dy.max().item(), err_s)
+                    tol = f"tol {LSTM_TOL}"
+                else:
+                    ok = err_s <= LSTM_TOL and bool(
+                        (dy <= y_ref.float().abs() * BF16_ULP
+                         + LSTM_TOL).all())
+                    tol = f"tol h one bf16 ulp + {LSTM_TOL}, state {LSTM_TOL}"
+                say(f"[kernel] lstm {str(dtype)[6:]} B={b} T={t} H={hd} "
+                    f"{'carried (h0, c0)' if carry else 'zero state'}: "
+                    f"max|kernel-plain| h {dy.max().item():.3e}, (h_T, c_T) "
+                    f"{err_s:.3e} ({tol})")
+                if not ok:
+                    fail("LSTM kernel disagrees with its plain version")
+    b, t, hd = 1, 200, 2048
+    for dtype in (torch.float32, torch.bfloat16):
+        xg, wh, _, _ = lstm_inputs(gen, b, t, hd, dtype)
+        item = xg.element_size()
+        ms = time_ms(lambda: pavlov_lstm_raw(xg, wh), 10, flush)
+        plain = time_ms(lambda: pavlov_lstm_ref(xg, wh), 3, flush)
+        # W_h read once (the table's convention) and W_h read every step
+        nbytes = item * (b * t * 4 * hd + hd * 4 * hd + b * t * hd) \
+            + 4.0 * 2 * b * hd
+        bnd, by = bound_ms(nbytes, 2.0 * b * t * hd * 4 * hd, str(dtype)[6:])
+        every = 1e3 * item * t * hd * 4 * hd / PEAK_BYTES_S
+        say(f"[kernel] on {card}: lstm {str(dtype)[6:]} B={b} T={t} H={hd}: "
+            f"kernel {ms:.4f} ms ({t} step launches), plain {plain:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}; W_h read once), {every:.4f} ms with "
+            f"W_h read from device memory every step")
+        if dtype == torch.float32:
+            row.update(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                       bound_every_step_ms=every)
+    # the whole layer, 2048 -> 2048 at T=200, float32: the port's route and
+    # cuDNN's on the same weights (a random bias so the +1 placement shows)
+    params = init_lstm_layer(hd, hd, gen)
+    params["b"].normal_(0.0, 0.1, generator=gen)
+    x = torch.randn((b, t, hd), generator=gen, device="cuda")
+    lib_lstm = cudnn_lstm(params)
+    with torch.no_grad():
+        y_lib, _ = lib_lstm(x)
+    y_port, _ = lstm_layer(params, x)
+    torch.cuda.synchronize()
+    gap = (y_lib - y_port).abs().max().item()
+    layer = time_ms(lambda: lstm_layer(params, x), 10, flush)
+    with torch.no_grad():
+        lib = time_ms(lambda: lib_lstm(x), 10, flush)
+    say(f"[kernel] on {card}: lstm layer float32 B={b} T={t} {hd} -> {hd}: "
+        f"port (Pascal GEMM + bias + recurrence) {layer:.4f} ms, cuDNN "
+        f"torch.nn.LSTM {lib:.4f} ms; max|port-cuDNN| h {gap:.3e}")
+    row.update(library_ms=lib, layer_ms=layer,
+               library_of="torch.nn.LSTM (cuDNN): the whole layer, beside "
+                          "layer_ms")
+    return row
+
+
 # --------------------------------------------------------- 4. layer parity
 def phase_parity(seed: int, arch: str, num_layers: int,
                  kv_block_size: int | None):
@@ -504,17 +752,168 @@ def phase_parity(seed: int, arch: str, num_layers: int,
         fail(f"{arch} layer parity {worst} > {LOGIT_TOL}")
 
 
-# ---------------------------------------------------------------- 5. serve
+# ------------------------------------------------------- 5. edge LSTM stack
+def run_stack(params: list, x, states=None):
+    """x through ``lstm_layer`` after ``lstm_layer``; returns the last
+    layer's h and each layer's (h_T, c_T)."""
+    from repro_torch.models.recurrent import lstm_layer
+    out = []
+    for i, p in enumerate(params):
+        x, st = lstm_layer(p, x, None if states is None else states[i])
+        out.append(st)
+    return x, out
+
+
+def run_steps(params: list, x):
+    """x through the stack one timestep a call, carrying each layer's
+    (h, c); returns the last layer's h over all steps and the states."""
+    import torch
+    states, ys = None, []
+    for u in range(x.shape[1]):
+        y, states = run_stack(params, x[:, u:u + 1], states)
+        ys.append(y)
+    return torch.cat(ys, dim=1), states
+
+
+def max_diff(card: list, cpu: list) -> float:
+    """Max |card - cpu| over pairs of tensors."""
+    return max((a.cpu() - c).abs().max().item() for a, c in zip(card, cpu))
+
+
+def flat(h, states) -> list:
+    """h and each layer's (h_T, c_T), as one list of tensors."""
+    return [h] + [s for st in states for s in st]
+
+
+def phase_edge_lstm(seed: int, card: str) -> dict:
+    """The LSTM layers of the edge zoo's mobile RNN-T at full width, float32
+    (``init_lstm_layer``'s dtype, what the JAX package computes), batch 1:
+    the widths come from the port's copy of the zoo."""
+    import torch
+    from repro_torch.core import LayerKind
+    from repro_torch.edge import get_model
+    from repro_torch.models.recurrent import init_lstm_layer
+    graph = get_model("TR1_rnnt_mobile")
+    lstms = [l for l in graph.layers if l.kind is LayerKind.LSTM]
+    enc = [l for l in lstms if l.name.startswith("enc")]
+    pred = [l for l in lstms if l.name.startswith("pred")]
+    b, t_len, u_len = enc[0].batch, enc[0].seq_len, pred[0].seq_len
+
+    # parity: the encoder cut to 2 layers and the 2-layer prediction
+    # network (one call over U and U carried single steps), the same
+    # weights and inputs on the CPU (plain versions) and on the card
+    # (kernels)
+    gen = torch.Generator().manual_seed(seed)
+    cut = [init_lstm_layer(l.in_features, l.hidden, gen) for l in enc[:2]]
+    pcut = [init_lstm_layer(l.in_features, l.hidden, gen) for l in pred]
+    x = torch.randn((b, t_len, enc[0].in_features), generator=gen)
+    lab = torch.randn((b, u_len, pred[0].in_features), generator=gen)
+    t0 = time.perf_counter()
+    enc_cpu = flat(*run_stack(cut, x))
+    one_cpu = flat(*run_stack(pcut, lab))
+    steps_cpu = flat(*run_steps(pcut, lab))
+    cpu_s = time.perf_counter() - t0
+    on_card = [[{k: v.to("cuda") for k, v in p.items()} for p in ps]
+               for ps in (cut, pcut)]
+    enc_err = max_diff(flat(*run_stack(on_card[0], x.to("cuda"))), enc_cpu)
+    one_err = max_diff(flat(*run_stack(on_card[1], lab.to("cuda"))), one_cpu)
+    steps_err = max_diff(flat(*run_steps(on_card[1], lab.to("cuda"))),
+                         steps_cpu)
+    say(f"[edge] TR1_rnnt_mobile encoder cut to 2 layers "
+        f"({enc[0].in_features} -> {enc[0].hidden} -> {enc[1].hidden}, "
+        f"T={t_len}, B={b}), float32: max|cuda-cpu| over h and each layer's "
+        f"(h_T, c_T) {enc_err:.3e}; prediction network "
+        f"({pred[0].in_features} -> {pred[0].hidden} -> {pred[1].hidden}, "
+        f"U={u_len}) in one call {one_err:.3e}, as {u_len} carried single "
+        f"steps {steps_err:.3e} (tol {LSTM_TOL}; CPU plain route "
+        f"{cpu_s:.1f} s)")
+    cpu_same = all(torch.equal(a, c) for a, c in zip(steps_cpu, one_cpu))
+    say(f"[edge] prediction network on the CPU: {u_len} carried single "
+        f"steps == one call, bit for bit: {cpu_same}")
+    check_all("edge LSTM parity cut", {
+        f"encoder cut within {LSTM_TOL}": enc_err <= LSTM_TOL,
+        f"prediction network, one call, within {LSTM_TOL}":
+            one_err <= LSTM_TOL,
+        f"prediction network, single steps, within {LSTM_TOL}":
+            steps_err <= LSTM_TOL,
+        "CPU carried single steps equal one call bit for bit": cpu_same,
+    })
+    del cut, pcut, on_card
+
+    # the whole stack on the card, counted from 0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    enc_p = [init_lstm_layer(l.in_features, l.hidden, gen) for l in enc]
+    pred_p = [init_lstm_layer(l.in_features, l.hidden, gen) for l in pred]
+    n_params = sum(v.numel() for p in enc_p + pred_p for v in p.values())
+    feats = torch.randn((b, t_len, enc[0].in_features), generator=gen,
+                        device="cuda")
+    # the prediction network's input: the embedded labels (pred_embed's
+    # output width)
+    labels = torch.randn((b, u_len, pred[0].in_features), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(enc) + 3)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    h = feats
+    for i, p in enumerate(enc_p):
+        h, _ = run_stack([p], h)
+        marks[i + 1].record()
+    g_one, st_one = run_stack(pred_p, labels)
+    marks[len(enc) + 1].record()
+    g_steps, states = run_steps(pred_p, labels)
+    marks[len(enc) + 2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    layer_ms = [a.elapsed_time(z) for a, z in zip(marks, marks[1:])]
+    enc_ms = sum(layer_ms[:len(enc)])
+    same = torch.equal(g_steps, g_one) and all(
+        torch.equal(a, c) for sa, sc in zip(states, st_one)
+        for a, c in zip(sa, sc))
+    calls = len(enc) + len(pred) + len(pred) * u_len
+    finite = all(bool(torch.isfinite(z).all())
+                 for z in (h, g_one, g_steps, *(s for st in states
+                                                 for s in st)))
+    say(f"[edge] TR1_rnnt_mobile LSTM stack on {card}, full width "
+        f"({n_params / 1e6:.1f} M parameters, float32, B={b}): encoder "
+        f"{len(enc)} layers over T={t_len} "
+        f"{' + '.join(f'{v:.2f}' for v in layer_ms[:len(enc)])} = "
+        f"{enc_ms:.2f} ms; prediction network {len(pred)} layers over "
+        f"U={u_len} in one call {layer_ms[len(enc)]:.2f} ms, as {u_len} "
+        f"carried single steps {layer_ms[len(enc) + 1]:.2f} ms; stack "
+        f"{sum(layer_ms):.2f} ms on the card's clock, {1e3 * wall:.2f} ms "
+        f"wall; launches {counts}")
+    say(f"[edge] prediction network: {u_len} carried single steps == one "
+        f"call over U={u_len}, bit for bit: {same}")
+    check_all("edge LSTM stack", {
+        "carried single steps equal one call bit for bit": same,
+        f"Pascal launches == lstm_layer calls ({calls})":
+            counts["pascal"] == calls,
+        f"LSTM launches == lstm_layer calls ({calls})": counts["lstm"] == calls,
+        "all outputs finite": finite,
+    })
+    return counts
+
+
+# ---------------------------------------------------------------- 6. serve
 def launch_counters():
     """Every kernel's launch counter, by the name the kernels line uses."""
-    from repro_torch.kernels import (flash_attention, paged_attention,
-                                     pavlov_rglru, pavlov_ssm)
+    from repro_torch.kernels import (flash_attention, jacquard_gemv,
+                                     paged_attention, pascal_matmul,
+                                     pavlov_lstm, pavlov_rglru, pavlov_ssm)
     return {"flash": flash_attention.launches,
             "paged": paged_attention.launches,
             "rglru": pavlov_rglru.launches,
             "rglru_decode": pavlov_rglru.decode_launches,
             "ssm": pavlov_ssm.launches,
-            "ssm_decode": pavlov_ssm.decode_launches}
+            "ssm_decode": pavlov_ssm.decode_launches,
+            "pascal": pascal_matmul.launches,
+            "jacquard": jacquard_gemv.launches,
+            "lstm": pavlov_lstm.launches,
+            "lstm_steps": pavlov_lstm.step_launches}
 
 
 def release() -> None:
@@ -731,7 +1130,8 @@ def main() -> None:
     phase_parity(args.seed, "recurrentgemma-2b", 3, kv_block_size=None)
     phase_parity(args.seed, "falcon-mamba-7b", 2, kv_block_size=None)
     release()
-    paths = []
+    paths = [phase_edge_lstm(args.seed, smi)]
+    release()
     for serve in (phase_serve, phase_serve_recurrent, phase_serve_mamba):
         paths.append(serve(args.seed, smi))
         release()
@@ -754,11 +1154,28 @@ def main() -> None:
          "source": "src/repro_torch/csrc/pavlov_ssm.cu",
          "replaces": "src/repro/kernels/pavlov_ssm/kernel.py:24",
          "launches": launches["ssm"], **rows["ssm"]},
+        {"name": "pascal_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/pascal_matmul.cu",
+         "replaces": "src/repro/kernels/pascal_matmul/kernel.py:22",
+         "launches": launches["pascal"], **rows["pascal"]},
+        {"name": "jacquard_gemv", "route": "cuda",
+         "source": "src/repro_torch/csrc/jacquard_gemv.cu",
+         "replaces": "src/repro/kernels/jacquard_gemv/kernel.py:26",
+         "launches_from": "phase 3's checks: no path calls the GEMV",
+         **rows["jacquard"]},
+        {"name": "pavlov_lstm", "route": "cuda",
+         "source": "src/repro_torch/csrc/pavlov_lstm.cu",
+         "replaces": "src/repro/kernels/pavlov_lstm/kernel.py:26",
+         "launches": launches["lstm"],
+         "step_launches": launches["lstm_steps"], **rows["lstm"]},
     ]
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(row[key]):
                 fail(f"{row['name']}: {key} is not finite")
+        if row["library_ms"] is not None \
+                and not math.isfinite(row["library_ms"]):
+            fail(f"{row['name']}: library_ms is not finite")
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

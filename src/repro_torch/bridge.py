@@ -16,6 +16,11 @@ port's tensor, which casts matmul weights to the compute dtype once (the
 JAX package casts them per call); the leaves the port reads in float32
 (``lambda``, Mamba's ``x_proj, dt_proj, dt_bias, a_log, d_skip``, the norm
 scales) stay float32.
+
+An LSTM layer (``repro.models.recurrent.init_lstm_layer``) is a tree of its
+own, ``w_x`` (Din, 4H), ``w_h`` (H, 4H) and ``b`` (4H,): ``lstm_from_jax``
+carries it into the dict ``repro_torch.models.recurrent.lstm_layer``
+reads.
 """
 from __future__ import annotations
 
@@ -83,3 +88,19 @@ def from_jax_params(tree: dict, cfg: ArchConfig,
             for name, p in mod.items():
                 _copy(p, lt[part][name], f"layer {i} {part}.{name}")
     return model
+
+
+def lstm_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict:
+    """The port's LSTM layer parameters (float32, on ``device``) from the
+    numpy leaves of the JAX package's ``init_lstm_layer`` tree."""
+    if set(tree) != {"w_x", "w_h", "b"}:
+        raise ValueError(f"LSTM tree holds {sorted(tree)}, expected b, w_h, "
+                         f"w_x")
+    h4 = np.shape(tree["w_h"])[1]
+    want = {"w_x": (np.shape(tree["w_x"])[0], h4), "w_h": (h4 // 4, h4),
+            "b": (h4,)}
+    params = {}
+    for name, shape in want.items():
+        params[name] = torch.empty(shape, dtype=torch.float32, device=device)
+        _copy(params[name], tree[name], f"lstm {name}")
+    return params

@@ -1,27 +1,32 @@
 """The recurrent blocks: RecurrentGemma/Griffin's (a temporal depthwise
-conv, then the RG-LRU gated linear recurrence, times a GeLU-gated branch)
-and Falcon-Mamba's Mamba-1 selective SSM (conv, SiLU, the selective scan,
-times a SiLU-gated branch).
+conv, then the RG-LRU gated linear recurrence, times a GeLU-gated branch),
+Falcon-Mamba's Mamba-1 selective SSM (conv, SiLU, the selective scan,
+times a SiLU-gated branch) and the LSTM layer.
 
-The PyTorch counterpart of the RG-LRU and Mamba halves of
-``repro.models.recurrent``.  Each recurrence always goes through its kernel
-wrapper — the CUDA kernel for a tensor on the card, its plain sequential
-loop for one on the CPU:
+The PyTorch counterpart of ``repro.models.recurrent``.  Each recurrence
+always goes through its kernel wrapper — the CUDA kernel for a tensor on
+the card, its plain sequential loop for one on the CPU:
   * the RG-LRU through ``kernels.pavlov_rglru.ops.pavlov_rglru``, the JAX
     package's ``impl="pallas"`` route (the carried state folded into
     ``b[:, 0]``);
   * the selective scan through ``kernels.pavlov_ssm.ops.pavlov_ssm``, which
     takes the carried ``h0`` and the prefix ``length`` and returns ``h_T``:
     the function of ``mamba_ssm``'s masked XLA route, which the JAX package
-    serves with (its Pallas route carries no state).
+    serves with (its Pallas route carries no state);
+  * the LSTM through ``kernels.pavlov_lstm.ops.pavlov_lstm``: the paper's
+    Pavlov decoupled schedule, the input GEMM over all T on the Pascal
+    matmul wrapper, then the recurrence with the carried ``(h, c)`` — the
+    function of ``lstm_layer``'s XLA scan (the JAX package's Pallas LSTM
+    starts from zero state).
 The JAX package's chunked associative scans (``impl="xla"``) compute the
-same recurrences and are not ported.  The LSTM comes with its slice.
+same recurrences and are not ported.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels.pavlov_lstm.ops import pavlov_lstm
 from ..kernels.pavlov_rglru.ops import pavlov_rglru
 from ..kernels.pavlov_ssm.ops import pavlov_ssm
 from .common import fan_in_std, gelu
@@ -232,3 +237,39 @@ def mamba_block(params: dict, x: torch.Tensor, *, d_state: int,
     y, h_last = mamba_ssm(params, F.silu(xi), dt_rank, d_state, h0, length)
     out = torch.matmul(y * F.silu(z), params["out_proj"])
     return out, {"conv": new_conv, "h": h_last}
+
+
+# ------------------------------------------------------------------------ LSTM
+@torch.no_grad()
+def init_lstm_layer(d_in: int, d_hidden: int,
+                    generator: torch.Generator) -> dict:
+    """One LSTM layer's float32 parameters with the JAX package's
+    distributions (``repro.models.recurrent.init_lstm_layer``): ``w_x``
+    (d_in, 4H) and ``w_h`` (H, 4H) normal with std 1/sqrt(fan-in), ``b``
+    (4H,) zeros; made on the generator's device."""
+    dev = generator.device
+    params = {}
+    for name, shape in (("w_x", (d_in, 4 * d_hidden)),
+                        ("w_h", (d_hidden, 4 * d_hidden))):
+        w = torch.empty(shape, dtype=torch.float32, device=dev)
+        params[name] = w.normal_(0.0, fan_in_std(shape), generator=generator)
+    params["b"] = torch.zeros((4 * d_hidden,), dtype=torch.float32, device=dev)
+    return params
+
+
+def lstm_layer(params: dict, x: torch.Tensor,
+               state: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """x: (B,S,Din) -> (B,S,H).  The input MVMs for all timesteps are one
+    GEMM before the recurrence (the Pavlov decoupled schedule), so W_x is
+    read once.  ``state``: (h, c), each (B,H) float32, carried from an
+    earlier segment (zeros when None).  Returns (y in x.dtype, (h_T, c_T)
+    float32).
+
+    The model-level API of the JAX package's ``lstm_layer`` (a parameter
+    tree and a state tuple) over the kernel-level ``pavlov_lstm`` (bare
+    tensors, as the JAX package's ``kernels.pavlov_lstm.ops``), which the
+    tests hold to its JAX counterpart; the two are one route here."""
+    h0, c0 = state if state is not None else (None, None)
+    y, h, c = pavlov_lstm(x, params["w_x"], params["w_h"], params["b"], h0,
+                          c0)
+    return y, (h, c)

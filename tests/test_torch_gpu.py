@@ -10,9 +10,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import jacquard_gemv as jg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import pascal_matmul as pm  # noqa: E402
+from repro_torch.kernels import pavlov_lstm as pl  # noqa: E402
 from repro_torch.kernels import pavlov_rglru as pr  # noqa: E402
 from repro_torch.kernels import pavlov_ssm as ps  # noqa: E402
+from repro_torch.models import recurrent as trec  # noqa: E402
 
 
 def _randn(rng, *shape, dtype=np.float32):
@@ -177,3 +181,139 @@ def test_ssm_kernel_matches_plain_on_card(cuda, dtype, b, t, d, n, carry):
         assert bool((err <= y_ref.float().abs() * 2.0 ** -7 + scale).all())
     if carry and b > 1:
         assert torch.equal(h_t[1], h0[1])               # the 0-length row
+
+
+# ------------------------------------------------------ the Mensa dataflows
+def _sum_close(out, ref, k, dtype):
+    """A float32 product over ``k`` terms summed in another order (FMA
+    chains against a multiply and an add): the rounding differences walk
+    like sqrt(k) ulps (2^-23) of the output's scale, so sqrt(k) ulps of
+    max|y|; a bf16 output is one more rounding (one bf16 ulp, 2^-7 of
+    |y|)."""
+    err = (out.float() - ref.float()).abs()
+    scale = np.sqrt(k) * 2.0 ** -23 * ref.float().abs().max().item()
+    if dtype == torch.float32:
+        return err.max().item() <= scale
+    return bool((err <= ref.float().abs() * 2.0 ** -7 + scale).all())
+
+
+def _gemm_inputs(rng, lead, k, n, dtype, device):
+    """x ~ N(0, 1) and w with the fan-in init's std 1/sqrt(K)."""
+    x = torch.from_numpy(_randn(rng, *lead, k)).to(device).to(dtype)
+    w = torch.from_numpy(_randn(rng, k, n) / np.sqrt(k)).to(device)
+    return x, w.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,k,n", [
+    ((200,), 2048, 8192),           # TR1 enc1..7's hoisted input GEMM
+    ((200,), 512, 8192),            # TR1 enc0's
+    ((3, 37), 300, 1000),           # lead dims; no dim a tile multiple
+    ((1,), 64, 33)])
+def test_pascal_kernel_matches_plain_on_card(cuda, dtype, lead, k, n):
+    x, w = _gemm_inputs(np.random.RandomState(k + n), lead, k, n, dtype,
+                        cuda)
+    before = pm.launches.n
+    out = pm.pascal_matmul(x, w)
+    assert pm.launches.n == before + 1
+    ref = pm.pascal_matmul_ref(x.reshape(-1, k), w).reshape(*lead, n)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (*lead, n)
+    assert _sum_close(out, ref, k, dtype)
+
+
+@pytest.mark.gpu
+def test_pascal_kernel_rows_do_not_depend_on_m(cuda):
+    """One row's product is that row of the many-row product, bit for bit:
+    the LSTM layer's carried single steps rely on it."""
+    x, w = _gemm_inputs(np.random.RandomState(3), (20,), 640, 8192,
+                        torch.float32, cuda)
+    full = pm.pascal_matmul(x, w)
+    assert all(torch.equal(full[i:i + 1], pm.pascal_matmul(x[i:i + 1], w))
+               for i in range(20))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 1280, 8192),                # LSTM1's output FC
+    (4, 640, 4096),                 # TR1's joint_out
+    (1, 2900, 8192),                # LSTM4's output FC: ragged K
+    (4, 1024, 300),
+    (16, 96, 64),                   # the most rows
+    (3, 100, 37)])                  # N ragged in both dtypes
+def test_jacquard_kernel_matches_plain_on_card(cuda, dtype, m, k, n):
+    x, w = _gemm_inputs(np.random.RandomState(m + k + n), (m,), k, n, dtype,
+                        cuda)
+    before = jg.launches.n
+    out = jg.jacquard_gemv(x, w)
+    assert jg.launches.n == before + 1
+    ref = jg.jacquard_gemv_ref(x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert _sum_close(out, ref, k, dtype)
+
+
+def _lstm_inputs(rng, b, t, hd):
+    """Gates xg ~ N(0, 1), W_h with the fan-in init's std, a carried state
+    in the ranges an LSTM gives it (|h| < 1)."""
+    return dict(xg=_randn(rng, b, t, 4 * hd),
+                wh=_randn(rng, hd, 4 * hd) / np.float32(np.sqrt(hd)),
+                h0=rng.uniform(-0.9, 0.9, (b, hd)).astype(np.float32),
+                c0=_randn(rng, b, hd))
+
+
+#: the recurrence on the card vs its plain loop, float32: dot products in
+#: another order each step, |h| < 1, |c| a few units
+LSTM_TOL = 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,hd,carry", [
+    (1, 200, 2048, False),          # TR1's encoder layer, zero state
+    (4, 80, 2900, True),            # LSTM4's width: no multiple of 16 units
+    (5, 7, 100, True),              # a batch past one group of 4
+    (2, 9, 37, False)])             # odd H: scalar loads in both dtypes
+def test_lstm_kernel_matches_plain_on_card(cuda, dtype, b, t, hd, carry):
+    """The cell update rounds as the plain loop does and the dot products
+    are float32 FMA chains in another order: h, h_T and c_T within
+    ``LSTM_TOL``; a bf16 h is one rounding of that."""
+    c = {k: torch.from_numpy(v).to(cuda)
+         for k, v in _lstm_inputs(np.random.RandomState(t + hd), b, t,
+                                  hd).items()}
+    xg, wh = c["xg"].to(dtype), c["wh"].to(dtype)
+    h0, c0 = (c["h0"], c["c0"]) if carry else (None, None)
+    before, steps = pl.launches.n, pl.step_launches.n
+    y, h_t, c_t = pl.lstm_recurrence(xg, wh, h0, c0)
+    assert pl.launches.n == before + 1
+    assert pl.step_launches.n == steps + t
+    y_ref, h_ref, c_ref = pl.pavlov_lstm_ref(xg, wh, h0, c0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (b, t, hd)
+    assert h_t.dtype == c_t.dtype == torch.float32
+    assert (h_t - h_ref).abs().max().item() <= LSTM_TOL
+    assert (c_t - c_ref).abs().max().item() <= LSTM_TOL
+    err = (y.float() - y_ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= LSTM_TOL
+    else:
+        assert bool((err <= y_ref.float().abs() * 2.0 ** -7
+                     + LSTM_TOL).all())
+
+
+@pytest.mark.gpu
+def test_lstm_layer_carried_steps_equal_one_call_on_card(cuda):
+    """TR1's prediction network's first layer (640 -> 2048, U = 20): 20
+    single-step calls carrying (h, c) give the bits of one call."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = trec.init_lstm_layer(640, 2048, g)
+    x = torch.randn(1, 20, 640, generator=g, device=cuda)
+    y, (h, c) = trec.lstm_layer(params, x)
+    st, ys = None, []
+    for t in range(20):
+        yt, st = trec.lstm_layer(params, x[:, t:t + 1], st)
+        ys.append(yt)
+    assert torch.equal(torch.cat(ys, dim=1), y)
+    assert torch.equal(st[0], h) and torch.equal(st[1], c)
