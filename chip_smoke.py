@@ -15,11 +15,15 @@ Phases, one line or block of output each; any failure exits non-zero:
    lengths that include a frozen row; the Pascal matmul at the edge zoo's
    TR1 hoisted input GEMMs, the Jacquard GEMV at its FC widths, the LSTM
    recurrence at H=2048 and the ragged H=2900, with and without a carried
-   state); then times (CUDA events, L2 flushed before each launch): kernel,
+   state); then times (CUDA events, L2 flushed before each launch, the
+   median of 21 calls, min and max on the line before the row): kernel,
    plain version, a PyTorch call as a yardstick (``scaled_dot_product_
    attention`` for flash, ``torch.matmul`` for the GEMM and GEMV, cuDNN's
    ``torch.nn.LSTM`` for a whole LSTM layer), and the least time the card
    could take (bytes and operations against the published H100 SXM peaks);
+   flash in bf16 (its tensor-core route) at S=64, 256 and 1024 and at
+   recurrentgemma's local layer, and in float32 (its SIMT route); the
+   GEMV at M=1 1280 -> 8192 and M=4 640 -> 4096 in both dtypes;
 4. layer parity — full-width qwen3-0.6b cut to 2 layers, full-width
    recurrentgemma-2b cut to 3 (rec, rec, local) and full-width
    falcon-mamba-7b cut to 2, float32: prefill and 4 decode steps on the CPU
@@ -146,14 +150,19 @@ def phase_build():
 SPIN_CYCLES = 2_000_000
 
 
-def time_ms(fn, iters: int, flush) -> float:
-    """Mean ms per call over ``iters`` calls, CUDA events around each call,
-    the L2 cache flushed before each one; after 3 warm calls."""
+#: calls timed for each number: their median, so one stall does not move it
+TIMED_CALLS = 21
+
+
+def time_ms(what: str, fn, flush) -> float:
+    """Median ms per call over :data:`TIMED_CALLS` calls, CUDA events around
+    each call, the L2 cache flushed before each one; after 3 warm calls.
+    Prints the median, min and max on a line of its own."""
     import torch
     for _ in range(3):
         fn()
-    total = 0.0
-    for _ in range(iters):
+    times = []
+    for _ in range(TIMED_CALLS):
         flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -162,8 +171,12 @@ def time_ms(fn, iters: int, flush) -> float:
         fn()
         b.record()
         b.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
+        times.append(a.elapsed_time(b))
+    times.sort()
+    med = times[len(times) // 2]
+    say(f"[time] {what}: median {med:.4f} ms of {TIMED_CALLS} calls (min "
+        f"{times[0]:.4f}, max {times[-1]:.4f})")
+    return med
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -200,11 +213,49 @@ def phase_kernels(seed: int, card: str):
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     rows = {}
+    # what one launch of a 1-element kernel reads on these events: the
+    # floor under every time below
+    tiny = torch.zeros(1, device="cuda")
+    floor = time_ms("timing floor", tiny.zero_, flush)
+    say(f"[kernel] on {card}: timing floor (a 1-element kernel): "
+        f"{floor:.4f} ms")
 
-    # ---- flash: B=4, H=16, KVH=8, hd=128, causal; a window and a ragged S
+    def flash_times(b, s, h, kvh, hd, window, dtype) -> dict:
+        """One causal flash call at these shapes: its error against the
+        plain version, and the kernel's, the plain version's and
+        ``scaled_dot_product_attention``'s times beside the bound."""
+        assert window == 0 or window >= s   # SDPA's causal mask is the same
+        (q, k, v), err = flash_case(b, s, h, kvh, hd, window, dtype, gen)
+        pairs = s * (s + 1) // 2
+        flops = 4.0 * b * h * hd * pairs
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        what = (f"flash {dtype} B={b} S={s} H={h} KVH={kvh} hd={hd}"
+                + (f" window={window}" if window else ""))
+        ms = time_ms(f"{what}, kernel", lambda: flash_attention_raw(
+            q, k, v, causal=True, window=window), flush)
+        plain = time_ms(f"{what}, plain", lambda: flash_attention_ref(
+            q, k, v, causal=True, window=window), flush)
+        # the yardstick gets K/V already repeated to H heads (not timed)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        lib = time_ms(f"{what}, sdpa", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush)
+        bnd, by = bound_ms(nbytes, flops, dtype)
+        say(f"[kernel] on {card}: {what} causal: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}); "
+            f"max|kernel-plain|={err:.3e}")
+        if not err <= FLASH_TOL[dtype]:
+            fail(f"flash kernel disagrees with its plain version ({err})")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                    bound_ms=bnd, bound_by=by)
+
+    # ---- flash: B=4, H=16, KVH=8, hd=128, causal; serving's prefill
+    # buckets, a window and a ragged S
     b, h, kvh, hd = 4, 16, 8, 128
     for dtype in ("bfloat16", "float32"):
-        for s, window in ((16, 0), (256, 0), (1024, 0), (256, 64), (100, 0)):
+        for s, window in ((16, 0), (32, 0), (64, 0), (128, 0), (256, 0),
+                          (1024, 0), (256, 64), (100, 0)):
             _, err = flash_case(b, s, h, kvh, hd, window, dtype, gen)
             tol = FLASH_TOL[dtype]
             say(f"[kernel] flash {dtype} B={b} S={s} H={h} KVH={kvh} "
@@ -213,31 +264,19 @@ def phase_kernels(seed: int, card: str):
             if not err <= tol:
                 fail(f"flash kernel disagrees with its plain version "
                      f"({err} > {tol})")
-            if dtype == "bfloat16" and window == 0 and s == 256:
-                rows["flash"] = {"max_abs_err": err}
-    for s in (256, 1024):
-        (q, k, v), _ = flash_case(b, s, h, kvh, hd, 0, "bfloat16", gen)
-        pairs = s * (s + 1) // 2
-        flops = 4.0 * b * h * hd * pairs
-        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-        ms = time_ms(lambda: flash_attention_raw(q, k, v, causal=True), 20,
-                     flush)
-        plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
-                        10, flush)
-        # the yardstick gets K/V already repeated to H heads (not timed)
-        qt = q.transpose(1, 2)
-        kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
-                  for x in (k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 20, flush)
-        bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        say(f"[kernel] on {card}: flash bf16 B={b} S={s} causal: kernel "
-            f"{ms:.4f} ms, "
-            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms "
-            f"({by})")
-        if s == 256:
-            rows["flash"].update(ms=ms, plain_ms=plain, library_ms=lib,
-                                 bound_ms=bnd, bound_by=by)
+    # timed: bf16 (the tensor-core route) at qwen3's heads for S=256 (the
+    # row), S=1024 and a small bucket (S=64), and at recurrentgemma's local
+    # layer; float32 (the SIMT route) at S=256
+    rows["flash"] = flash_times(b, 256, h, kvh, hd, 0, "bfloat16")
+    rows["flash"]["routes"] = {
+        "bfloat16": "tensor cores: wgmma, TMA K/V ring, packed GQA heads",
+        "float32": "SIMT: scalar float32 FMAs"}
+    rows["flash"]["more_bfloat16"] = {
+        "S=1024": flash_times(b, 1024, h, kvh, hd, 0, "bfloat16"),
+        "S=64": flash_times(b, 64, h, kvh, hd, 0, "bfloat16"),
+        "recurrentgemma local S=256": flash_times(4, 256, 10, 1, 256, 2048,
+                                                  "bfloat16")}
+    rows["flash"]["float32"] = flash_times(b, 256, h, kvh, hd, 0, "float32")
 
     # ---- paged: 8 slots, bs=16, lengths over 0..1023, sentinel entries
     slots, bs, nb = 8, 16, 1024 // 16
@@ -297,10 +336,11 @@ def phase_kernels(seed: int, card: str):
             nbytes = (2.0 * live * kvh * hd * item + 2 * q0.numel() * item
                       + 4 * (table.numel() + slots))
             flops = 4.0 * h * hd * live
-            ms = time_ms(lambda: paged_decode_attention_raw(
-                q0, kp, vp, clamped, lengths), 50, flush)
-            plain = time_ms(lambda: paged_attention_ref(
-                q0, kp, vp, clamped, lengths), 20, flush)
+            what = f"paged bf16 ({live} live tokens)"
+            ms = time_ms(f"{what}, kernel", lambda: paged_decode_attention_raw(
+                q0, kp, vp, clamped, lengths), flush)
+            plain = time_ms(f"{what}, plain", lambda: paged_attention_ref(
+                q0, kp, vp, clamped, lengths), flush)
             bnd, by = bound_ms(nbytes, flops, "bfloat16")
             say(f"[kernel] on {card}: paged bf16 ({live} live tokens): kernel "
                 f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
@@ -322,23 +362,6 @@ def phase_kernels(seed: int, card: str):
             if not err <= tol:
                 fail(f"flash kernel disagrees with its plain version at "
                      f"hd={hd} ({err} > {tol})")
-    s, window = 256, 2048
-    (q, k, v), _ = flash_case(b, s, h, kvh, hd, window, "bfloat16", gen)
-    flops = 4.0 * b * h * hd * (s * (s + 1) // 2)
-    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-    ms = time_ms(lambda: flash_attention_raw(q, k, v, causal=True,
-                                             window=window), 20, flush)
-    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=True,
-                                                window=window), 10, flush)
-    qt = q.transpose(1, 2)
-    kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
-              for x in (k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 20, flush)
-    bnd, by = bound_ms(nbytes, flops, "bfloat16")
-    say(f"[kernel] on {card}: flash bf16 B={b} S={s} H={h} KVH={kvh} "
-        f"hd={hd} window={window}: kernel {ms:.4f} ms, plain {plain:.4f} "
-        f"ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
 
     # ---- RG-LRU: B=4 slots, E = d_rnn = 2560; T=256 (a prefill bucket or
     # chunk), T=1 (decode) and a ragged T=100.  a in [0.9, 0.999] and
@@ -371,8 +394,11 @@ def phase_kernels(seed: int, card: str):
                 rows["rglru"] = {"max_abs_err": err}
     for t in (256, 1):          # float32: rglru_core builds a and b in f32
         a, drive = rglru_inputs(t, "float32")
-        ms = time_ms(lambda: pavlov_rglru_raw(a, drive), 50, flush)
-        plain = time_ms(lambda: pavlov_rglru_ref(a, drive), 5, flush)
+        what = f"rglru float32 B={b} T={t} E={e}"
+        ms = time_ms(f"{what}, kernel", lambda: pavlov_rglru_raw(a, drive),
+                     flush)
+        plain = time_ms(f"{what}, plain", lambda: pavlov_rglru_ref(a, drive),
+                        flush)
         bnd, by = bound_ms(3.0 * b * t * e * 4, 2.0 * b * t * e, "float32")
         say(f"[kernel] on {card}: rglru float32 B={b} T={t} E={e}: kernel "
             f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
@@ -457,8 +483,10 @@ def ssm_kernel(gen, flush, card: str) -> dict:
         args = inputs(b, t, False)
         nbytes = 4.0 * (3 * b * t * d + 2 * b * t * n + d * n + d
                         + 2 * b * d * n + b)
-        ms = time_ms(lambda: pavlov_ssm_raw(*args), 50, flush)
-        plain = time_ms(lambda: pavlov_ssm_ref(*args), 3, flush)
+        what = f"ssm float32 B={b} T={t} D={d} N={n}"
+        ms = time_ms(f"{what}, kernel", lambda: pavlov_ssm_raw(*args), flush)
+        plain = time_ms(f"{what}, plain", lambda: pavlov_ssm_ref(*args),
+                        flush)
         bnd, by = bound_ms(nbytes, 7.0 * b * t * d * n, "float32")
         say(f"[kernel] on {card}: ssm float32 B={b} T={t} D={d} N={n}: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
@@ -524,9 +552,13 @@ def pascal_kernel(gen, flush, card: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         x, w = gemm_inputs(gen, m, k, n, dtype)
         item = x.element_size()
-        ms = time_ms(lambda: pascal_matmul_raw(x, w), 20, flush)
-        plain = time_ms(lambda: pascal_matmul_ref(x, w), 3, flush)
-        lib = time_ms(lambda: torch.matmul(x, w), 20, flush)
+        what = f"pascal {str(dtype)[6:]} {m} x {k} @ {k} x {n}"
+        ms = time_ms(f"{what}, kernel", lambda: pascal_matmul_raw(x, w),
+                     flush)
+        plain = time_ms(f"{what}, plain", lambda: pascal_matmul_ref(x, w),
+                        flush)
+        lib = time_ms(f"{what}, torch.matmul", lambda: torch.matmul(x, w),
+                      flush)
         bnd, by = bound_ms(item * (m * k + k * n + m * n), 2.0 * m * k * n,
                            str(dtype)[6:])
         say(f"[kernel] on {card}: pascal {str(dtype)[6:]} {m} x {k} @ {k} x "
@@ -564,21 +596,34 @@ def jacquard_kernel(gen, flush, card: str) -> dict:
             if dtype == torch.float32:
                 row["max_abs_err"] = max(row["max_abs_err"], err)
     row["launches"] = jg.launches.n
-    m, k, n = 1, 1280, 8192
-    for dtype in (torch.float32, torch.bfloat16):
-        x, w = gemm_inputs(gen, m, k, n, dtype)
-        item = x.element_size()
-        ms = time_ms(lambda: jg.jacquard_gemv_raw(x, w), 50, flush)
-        plain = time_ms(lambda: jg.jacquard_gemv_ref(x, w), 20, flush)
-        lib = time_ms(lambda: torch.matmul(x, w), 50, flush)
-        bnd, by = bound_ms(item * (m * k + k * n + m * n), 2.0 * m * k * n,
-                           str(dtype)[6:])
-        say(f"[kernel] on {card}: jacquard {str(dtype)[6:]} M={m} K={k} "
-            f"N={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
-            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
-        if dtype == torch.float32:
-            row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                       bound_by=by)
+    # timed at the three FC widths at M=1 (LSTM1's output FC is the row) and
+    # TR1's joint_out at M=4, float32 and bf16, beside the bound and
+    # torch.matmul; each with the rate it reaches against 3.35 TB/s
+    more = {}
+    for m, k, n in ((1, 1280, 8192), (1, 640, 4096), (1, 2900, 8192),
+                    (4, 640, 4096)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = gemm_inputs(gen, m, k, n, dtype)
+            nbytes = x.element_size() * (m * k + k * n + m * n)
+            what = f"jacquard {str(dtype)[6:]} M={m} K={k} N={n}"
+            ms = time_ms(f"{what}, kernel", lambda: jg.jacquard_gemv_raw(x, w),
+                         flush)
+            plain = time_ms(f"{what}, plain",
+                            lambda: jg.jacquard_gemv_ref(x, w), flush)
+            lib = time_ms(f"{what}, torch.matmul", lambda: torch.matmul(x, w),
+                          flush)
+            bnd, by = bound_ms(nbytes, 2.0 * m * k * n, str(dtype)[6:])
+            say(f"[kernel] on {card}: {what}: kernel {ms:.4f} ms "
+                f"({nbytes / ms / 1e9 / 3.35:.1%} of 3.35 TB/s), plain "
+                f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
+            times = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                         bound_by=by)
+            if (m, k, n, dtype) == (1, 1280, 8192, torch.float32):
+                row.update(times)
+            else:
+                more[f"{str(dtype)[6:]} M={m} {k}->{n}"] = times
+    row["more"] = more
     return row
 
 
@@ -656,8 +701,11 @@ def lstm_kernel(gen, flush, card: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         xg, wh, _, _ = lstm_inputs(gen, b, t, hd, dtype)
         item = xg.element_size()
-        ms = time_ms(lambda: pavlov_lstm_raw(xg, wh), 10, flush)
-        plain = time_ms(lambda: pavlov_lstm_ref(xg, wh), 3, flush)
+        what = f"lstm {str(dtype)[6:]} B={b} T={t} H={hd}"
+        ms = time_ms(f"{what}, kernel", lambda: pavlov_lstm_raw(xg, wh),
+                     flush)
+        plain = time_ms(f"{what}, plain", lambda: pavlov_lstm_ref(xg, wh),
+                        flush)
         # W_h read once (the table's convention) and W_h read every step
         nbytes = item * (b * t * 4 * hd + hd * 4 * hd + b * t * hd) \
             + 4.0 * 2 * b * hd
@@ -681,9 +729,10 @@ def lstm_kernel(gen, flush, card: str) -> dict:
     y_port, _ = lstm_layer(params, x)
     torch.cuda.synchronize()
     gap = (y_lib - y_port).abs().max().item()
-    layer = time_ms(lambda: lstm_layer(params, x), 10, flush)
+    what = f"lstm layer float32 B={b} T={t} {hd} -> {hd}"
+    layer = time_ms(f"{what}, port", lambda: lstm_layer(params, x), flush)
     with torch.no_grad():
-        lib = time_ms(lambda: lib_lstm(x), 10, flush)
+        lib = time_ms(f"{what}, cuDNN", lambda: lib_lstm(x), flush)
     say(f"[kernel] on {card}: lstm layer float32 B={b} T={t} {hd} -> {hd}: "
         f"port (Pascal GEMM + bias + recurrence) {layer:.4f} ms, cuDNN "
         f"torch.nn.LSTM {lib:.4f} ms; max|port-cuDNN| h {gap:.3e}")

@@ -3,9 +3,10 @@
 Replaces ``repro/kernels/jacquard_gemv/kernel.py::_gemv_kernel``.  What
 bounds it on the card: the bytes of w, each read once (at M = 1, K = 1280,
 N = 8192 in float32, 42 MB, 12.5 µs at 3.35 TB/s).  A block owns a slab of
-N columns, 8 lanes across it with a 16-byte load a row each, and 32 groups
-of lanes split K; x is staged in shared memory, the groups' float32 partial
-sums are added there.
+N columns and all of K: 8 lanes across the slab with a 16-byte load a row
+each, 32 groups of lanes over the rows, two batches of 8 rows a thread in
+flight and no barrier inside the stream; the groups' float32 sums are added
+in group order (no atomics: the same bits on every call).
 """
 from __future__ import annotations
 
@@ -33,12 +34,9 @@ def _lib():
     return fn
 
 
-def jacquard_gemv_raw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (M, K) with M <= 16, w: (K, N), contiguous CUDA tensors of one
-    dtype (float32 or bfloat16) -> (M, N) in that dtype, summed in
-    float32."""
-    if not (x.is_cuda and w.is_cuda):
-        raise ValueError("jacquard_gemv_raw takes CUDA tensors")
+def check_gemv_args(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: dtypes, shapes, more than
+    :data:`MAX_ROWS` rows of x, layouts other than contiguous."""
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"dtypes {x.dtype}/{w.dtype}: need one of float32, "
                         f"bfloat16 for x and w")
@@ -51,6 +49,15 @@ def jacquard_gemv_raw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{MAX_ROWS}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("jacquard_gemv_raw needs contiguous inputs")
+
+
+def jacquard_gemv_raw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (M, K) with M <= 16, w: (K, N), contiguous CUDA tensors of one
+    dtype (float32 or bfloat16) -> (M, N) in that dtype, summed in
+    float32."""
+    check_gemv_args(x, w)
+    if not (x.is_cuda and w.is_cuda):
+        raise ValueError("jacquard_gemv_raw takes CUDA tensors")
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)

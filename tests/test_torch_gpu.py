@@ -85,7 +85,11 @@ def cuda():
     (4, 256, 16, 8, 128, 0), (2, 100, 4, 2, 64, 0), (2, 64, 4, 1, 256, 16),
     (1, 48, 2, 2, 16, 0),
     (2, 256, 10, 1, 256, 2048),     # recurrentgemma's local layers: MQA
-    (1, 512, 10, 1, 256, 128)])     # ... with a window that binds
+    (1, 512, 10, 1, 256, 128),      # ... with a window that binds
+    # serving's prefill buckets at qwen3's heads (2 q heads a kv head)
+    (4, 16, 16, 8, 128, 0), (4, 32, 16, 8, 128, 0), (2, 64, 16, 8, 128, 0),
+    (1, 128, 16, 8, 128, 0),
+    (2, 40, 10, 1, 256, 2048)])     # MQA, ragged within a packed tile
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, b, s, h, kvh,
                                             hd, window):
     gen = torch.Generator(device=cuda).manual_seed(s + hd)
@@ -96,6 +100,29 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, b, s, h, kvh,
     out = fa.flash_attention(q, k, v, causal=True, window=window)
     assert fa.launches.n == before + 1
     ref = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,kvh,hd", [(16, 8, 128), (10, 1, 256)])
+def test_flash_kernel_takes_projection_views_on_card(cuda, dtype, tol, h,
+                                                     kvh, hd):
+    """q, k and v as the model could hand them over: views of one fused
+    (B, S, (H + 2 KVH) hd) projection, with its row stride, not copies."""
+    b, s = 2, 80
+    gen = torch.Generator(device=cuda).manual_seed(h + hd)
+    qkv = torch.randn(b, s, (h + 2 * kvh) * hd, generator=gen,
+                      device=cuda).to(dtype)
+    q = qkv[..., :h * hd].unflatten(-1, (h, hd))
+    k = qkv[..., h * hd:(h + kvh) * hd].unflatten(-1, (kvh, hd))
+    v = qkv[..., (h + kvh) * hd:].unflatten(-1, (kvh, hd))
+    assert not q.is_contiguous() and q.stride(1) == (h + 2 * kvh) * hd
+    out = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
@@ -252,6 +279,26 @@ def test_jacquard_kernel_matches_plain_on_card(cuda, dtype, m, k, n):
     ref = jg.jacquard_gemv_ref(x, w)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (m, n)
+    assert _sum_close(out, ref, k, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,m,k,n", [
+    (torch.bfloat16, 1, 1280, 8192),     # LSTM1's output FC: 128 slabs
+    (torch.bfloat16, 1, 640, 4096),      # TR1's joint_out: 64 slabs
+    (torch.bfloat16, 4, 640, 4096),
+    (torch.float32, 4, 1024, 300),       # ragged N
+    (torch.float32, 16, 20000, 64)])     # the most rows: x in chunks
+def test_jacquard_gemv_is_deterministic_on_card(cuda, dtype, m, k, n):
+    """The groups' sums are added in a fixed order, with no atomics:
+    within the sum's tolerance, and the same bits on every call."""
+    x, w = _gemm_inputs(np.random.RandomState(m + k), (m,), k, n, dtype,
+                        cuda)
+    out = jg.jacquard_gemv(x, w)
+    again = jg.jacquard_gemv(x, w)
+    ref = jg.jacquard_gemv_ref(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
     assert _sum_close(out, ref, k, dtype)
 
 
