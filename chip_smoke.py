@@ -13,10 +13,12 @@ Phases, one line or block of output each; any failure exits non-zero:
    also at recurrentgemma's hd=256, 10 q heads over 1 kv head, and with a
    window that binds; the selective scan with a carried state and ragged
    lengths that include a frozen row; the Pascal matmul at the edge zoo's
-   TR1 hoisted input GEMMs, the Jacquard GEMV at its FC widths, the LSTM
-   recurrence at H=2048 and the ragged H=2900, with and without a carried
-   state); then times (CUDA events, L2 flushed before each launch, the
-   median of 21 calls, min and max on the line before the row): kernel,
+   TR1 hoisted input GEMMs, in bf16 on its tensor-core route and at a
+   ragged shape on its SIMT route, the Jacquard GEMV at its FC widths, the
+   LSTM recurrence (one cooperative launch a call) at H=2048 and the
+   ragged H=2900, with and without a carried state); then times (CUDA
+   events, L2 flushed before each launch, the median of 21 calls, min and
+   max on the line before the row): kernel,
    plain version, a PyTorch call as a yardstick (``scaled_dot_product_
    attention`` for flash, ``torch.matmul`` for the GEMM and GEMV, cuDNN's
    ``torch.nn.LSTM`` for a whole LSTM layer), and the least time the card
@@ -564,9 +566,16 @@ def pascal_kernel(gen, flush, card: str) -> dict:
         say(f"[kernel] on {card}: pascal {str(dtype)[6:]} {m} x {k} @ {k} x "
             f"{n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
             f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        times = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                     bound_by=by)
         if dtype == torch.float32:
-            row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                       bound_by=by)
+            row.update(times)
+        else:
+            row["bfloat16"] = times
+    row["routes"] = {
+        "bfloat16": "tensor cores: wgmma from a TMA ring (K, N multiples of "
+                    "8, 16-byte aligned), else SIMT",
+        "float32": "SIMT: 8 x 8 float32 FMA micro-tiles, cp.async ring"}
     return row
 
 
@@ -712,12 +721,15 @@ def lstm_kernel(gen, flush, card: str) -> dict:
         bnd, by = bound_ms(nbytes, 2.0 * b * t * hd * 4 * hd, str(dtype)[6:])
         every = 1e3 * item * t * hd * 4 * hd / PEAK_BYTES_S
         say(f"[kernel] on {card}: lstm {str(dtype)[6:]} B={b} T={t} H={hd}: "
-            f"kernel {ms:.4f} ms ({t} step launches), plain {plain:.4f} ms, "
+            f"kernel {ms:.4f} ms (one launch), plain {plain:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}; W_h read once), {every:.4f} ms with "
             f"W_h read from device memory every step")
+        times = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                     bound_every_step_ms=every)
         if dtype == torch.float32:
-            row.update(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                       bound_every_step_ms=every)
+            row.update(times)
+        else:
+            row["bfloat16"] = times
     # the whole layer, 2048 -> 2048 at T=200, float32: the port's route and
     # cuDNN's on the same weights (a random bias so the +1 placement shows)
     params = init_lstm_layer(hd, hd, gen)
@@ -961,8 +973,7 @@ def launch_counters():
             "ssm_decode": pavlov_ssm.decode_launches,
             "pascal": pascal_matmul.launches,
             "jacquard": jacquard_gemv.launches,
-            "lstm": pavlov_lstm.launches,
-            "lstm_steps": pavlov_lstm.step_launches}
+            "lstm": pavlov_lstm.launches}
 
 
 def release() -> None:
@@ -1215,8 +1226,7 @@ def main() -> None:
         {"name": "pavlov_lstm", "route": "cuda",
          "source": "src/repro_torch/csrc/pavlov_lstm.cu",
          "replaces": "src/repro/kernels/pavlov_lstm/kernel.py:26",
-         "launches": launches["lstm"],
-         "step_launches": launches["lstm_steps"], **rows["lstm"]},
+         "launches": launches["lstm"], **rows["lstm"]},
     ]
     for row in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

@@ -6,7 +6,8 @@ Pallas interpret mode off the TPU, the port compiles each source with
 interface and loads it with ``ctypes``.  Nothing here runs at import: a
 library is built on first use (or ahead of time by :func:`build`), into
 ``build/kernels/`` at the root of the checkout, named by the hash of its
-source so an edited kernel never loads a stale binary.
+source and of the headers beside it (``csrc/*.cuh``), so an edited kernel
+never loads a stale binary.
 
 Every C entry takes its pointers and the stream as ``void*`` and returns the
 ``cudaError_t`` of ``cudaGetLastError()`` after the launch; :func:`check`
@@ -55,9 +56,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: list[str]) -> dict[str, str]:

@@ -250,15 +250,39 @@ def test_pascal_kernel_matches_plain_on_card(cuda, dtype, lead, k, n):
     assert _sum_close(out, ref, k, dtype)
 
 
+#: Pascal shapes by route: K and N multiples of 8 take the tensor cores in
+#: bf16 (16-byte copies in float32); K = 300 the SIMT route in bf16; K = 37
+#: and N = 33 element loads in both dtypes
+PASCAL_ROUTES = [(640, 8192), (300, 1000), (37, 33)]
+
+
 @pytest.mark.gpu
-def test_pascal_kernel_rows_do_not_depend_on_m(cuda):
-    """One row's product is that row of the many-row product, bit for bit:
-    the LSTM layer's carried single steps rely on it."""
-    x, w = _gemm_inputs(np.random.RandomState(3), (20,), 640, 8192,
-                        torch.float32, cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", PASCAL_ROUTES)
+def test_pascal_kernel_rows_do_not_depend_on_m(cuda, dtype, k, n):
+    """One row's product is that row of the many-row product, bit for bit,
+    on every route: the LSTM layer's carried single steps rely on it."""
+    x, w = _gemm_inputs(np.random.RandomState(3), (20,), k, n, dtype, cuda)
     full = pm.pascal_matmul(x, w)
     assert all(torch.equal(full[i:i + 1], pm.pascal_matmul(x[i:i + 1], w))
                for i in range(20))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(200, 2048, 8192), (130, 300, 1000),
+                                   (7, 37, 33)])
+def test_pascal_kernel_is_deterministic_on_card(cuda, dtype, m, k, n):
+    """No split of K and no atomics: two calls give the same bits, within
+    the sum's tolerance of the plain version."""
+    x, w = _gemm_inputs(np.random.RandomState(m + k), (m,), k, n, dtype,
+                        cuda)
+    out = pm.pascal_matmul(x, w)
+    again = pm.pascal_matmul(x, w)
+    ref = pm.pascal_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert _sum_close(out, ref, k, dtype)
 
 
 @pytest.mark.gpu
@@ -311,6 +335,15 @@ def _lstm_inputs(rng, b, t, hd):
                 c0=_randn(rng, b, hd))
 
 
+def _lstm_on_card(dtype, b, t, hd, device, seed):
+    """``_lstm_inputs`` on the card: xg and W_h in ``dtype``, the state in
+    float32."""
+    c = {k: torch.from_numpy(v).to(device)
+         for k, v in _lstm_inputs(np.random.RandomState(seed), b, t,
+                                  hd).items()}
+    return c["xg"].to(dtype), c["wh"].to(dtype), c["h0"], c["c0"]
+
+
 #: the recurrence on the card vs its plain loop, float32: dot products in
 #: another order each step, |h| < 1, |c| a few units
 LSTM_TOL = 1e-4
@@ -327,15 +360,12 @@ def test_lstm_kernel_matches_plain_on_card(cuda, dtype, b, t, hd, carry):
     """The cell update rounds as the plain loop does and the dot products
     are float32 FMA chains in another order: h, h_T and c_T within
     ``LSTM_TOL``; a bf16 h is one rounding of that."""
-    c = {k: torch.from_numpy(v).to(cuda)
-         for k, v in _lstm_inputs(np.random.RandomState(t + hd), b, t,
-                                  hd).items()}
-    xg, wh = c["xg"].to(dtype), c["wh"].to(dtype)
-    h0, c0 = (c["h0"], c["c0"]) if carry else (None, None)
-    before, steps = pl.launches.n, pl.step_launches.n
+    xg, wh, h0, c0 = _lstm_on_card(dtype, b, t, hd, cuda, t + hd)
+    if not carry:
+        h0 = c0 = None
+    before = pl.launches.n
     y, h_t, c_t = pl.lstm_recurrence(xg, wh, h0, c0)
     assert pl.launches.n == before + 1
-    assert pl.step_launches.n == steps + t
     y_ref, h_ref, c_ref = pl.pavlov_lstm_ref(xg, wh, h0, c0)
     torch.cuda.synchronize()
     assert y.dtype == dtype and y.shape == (b, t, hd)
@@ -348,6 +378,39 @@ def test_lstm_kernel_matches_plain_on_card(cuda, dtype, b, t, hd, carry):
     else:
         assert bool((err <= y_ref.float().abs() * 2.0 ** -7
                      + LSTM_TOL).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_kernel_carried_steps_equal_one_call_on_card(cuda, dtype):
+    """At TR1's H = 2048: 20 calls at T = 1 that carry (h, c) give the bits
+    of one call over T = 20 (a sum's order never depends on T)."""
+    xg, wh, h0, c0 = _lstm_on_card(dtype, 1, 20, 2048, cuda, 0)
+    y, h_t, c_t = pl.pavlov_lstm_raw(xg, wh, h0, c0)
+    state, ys = (h0, c0), []
+    for t in range(20):
+        yt, h, c = pl.pavlov_lstm_raw(xg[:, t:t + 1].contiguous(), wh, *state)
+        state = (h, c)
+        ys.append(yt)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(ys, dim=1), y)
+    assert torch.equal(state[0], h_t) and torch.equal(state[1], c_t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,hd", [
+    (1, 200, 2048),                 # float32 re-reads part of W_h from L2
+    (4, 80, 2900),                  # a batch group of 4, off-chip rows
+    (5, 7, 100)])                   # two batch groups
+def test_lstm_kernel_is_deterministic_on_card(cuda, dtype, b, t, hd):
+    """The grid barrier between steps leaves no race: two calls give the
+    same bits."""
+    xg, wh, h0, c0 = _lstm_on_card(dtype, b, t, hd, cuda, b + t + hd)
+    first = pl.pavlov_lstm_raw(xg, wh, h0, c0)
+    again = pl.pavlov_lstm_raw(xg, wh, h0, c0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, z) for a, z in zip(first, again))
 
 
 @pytest.mark.gpu

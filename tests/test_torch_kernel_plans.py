@@ -1,9 +1,11 @@
 """What the redesigned kernels' wrappers take and refuse, checked on the
 CPU before they look for a card: dtypes, shapes, head dims, strides and
 alignment for flash (its bf16 route copies 16 bytes at a time), rows and
-layouts for the GEMV.  Each kernel's launch geometry lives in its C entry
-(the shared memory of every flash instantiation is checked against 227 KB
-when it compiles); the gpu tests cover its rows on the card."""
+layouts for the GEMV, dtypes, shapes and layouts for the Pascal matmul and
+the LSTM recurrence.  Each kernel's launch geometry lives in its C entry
+(the shared memory of every flash and Pascal tensor-core instantiation is
+checked against 227 KB when it compiles; the LSTM's layout is planned per
+call from the card's SM count); the gpu tests cover them on the card."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -12,6 +14,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import jacquard_gemv as jg  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.jacquard_gemv import kernel as gk  # noqa: E402
+from repro_torch.kernels.pascal_matmul import kernel as pk  # noqa: E402
+from repro_torch.kernels.pavlov_lstm import kernel as lk  # noqa: E402
 
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -171,3 +175,75 @@ def test_gemv_on_cpu_tensors_is_the_plain_version(dtype, lead):
     out = jg.jacquard_gemv(x, w)
     ref = jg.jacquard_gemv_ref(x.reshape(-1, 96), w).reshape(*lead, 37)
     assert out.shape == (*lead, 37) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("x,w,exc,match", [
+    (torch.zeros(2, 8, dtype=torch.half),
+     torch.zeros(8, 4, dtype=torch.half), TypeError, "dtypes"),
+    (torch.zeros(2, 8, dtype=torch.bfloat16), torch.zeros(8, 4), TypeError,
+     "dtypes"),
+    (torch.zeros(2, 8), torch.zeros(9, 4), ValueError, "shapes"),
+    (torch.zeros(8), torch.zeros(8, 4), ValueError, "shapes"),
+    (torch.zeros(0, 8), torch.zeros(8, 4), ValueError, "shapes"),
+    (torch.zeros(2, 16)[:, ::2], torch.zeros(8, 4), ValueError,
+     "contiguous"),
+    (torch.zeros(2, 8), torch.zeros(4, 8).T, ValueError, "contiguous"),
+])
+def test_pascal_refuses_shapes_dtypes_and_layouts(x, w, exc, match):
+    """Refused on the CPU, before the wrapper looks for a card."""
+    with pytest.raises(exc, match=match):
+        pk.pascal_matmul_raw(x, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(200, 2048, 8192), (1, 640, 8192),
+                                   (111, 300, 1000), (1, 64, 33)])
+def test_pascal_takes_both_routes_shapes(dtype, m, k, n):
+    """Aligned shapes (the tensor-core route in bf16) and ragged ones (the
+    SIMT route) pass every check, and fail only for want of a card."""
+    x = torch.empty(m, k, dtype=dtype)
+    w = torch.empty(k, n, dtype=dtype)
+    pk.check_pascal_args(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.pascal_matmul_raw(x, w)
+
+
+def _lstm_args(dtype=torch.float32, b=2, t=3, hd=8):
+    return (torch.zeros(b, t, 4 * hd, dtype=dtype),
+            torch.zeros(hd, 4 * hd, dtype=dtype),
+            torch.zeros(b, hd), torch.zeros(b, hd))
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    (lambda xg, wh, h, c: (xg.half(), wh.half(), h, c), TypeError, "dtypes"),
+    (lambda xg, wh, h, c: (xg, wh.bfloat16(), h, c), TypeError, "dtypes"),
+    (lambda xg, wh, h, c: (xg, wh, h.double(), c), TypeError, "float32"),
+    (lambda xg, wh, h, c: (xg, wh, h, c.bfloat16()), TypeError, "float32"),
+    (lambda xg, wh, h, c: (xg[..., :30], wh, h, c), ValueError, "4H"),
+    (lambda xg, wh, h, c: (xg[0], wh, h, c), ValueError, "4H"),
+    (lambda xg, wh, h, c: (xg[:, :0], wh, h, c), ValueError, "4H"),
+    (lambda xg, wh, h, c: (xg, wh[:4], h, c), ValueError, "w_h"),
+    (lambda xg, wh, h, c: (xg, wh, h[:1], c), ValueError, "h0/c0"),
+    (lambda xg, wh, h, c: (xg, wh, h, c[:, :4]), ValueError, "h0/c0"),
+    (lambda xg, wh, h, c: (xg.transpose(0, 1).contiguous().transpose(0, 1),
+                           wh, h, c), ValueError, "contiguous"),
+    (lambda xg, wh, h, c: (xg, wh.T.contiguous().T, h, c), ValueError,
+     "contiguous"),
+])
+def test_lstm_refuses_shapes_dtypes_and_layouts(bad, exc, match):
+    """Refused on the CPU, before the wrapper looks for a card."""
+    with pytest.raises(exc, match=match):
+        lk.pavlov_lstm_raw(*bad(*_lstm_args()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,hd,state", [(1, 2048, False), (4, 2900, True),
+                                        (5, 100, True), (2, 37, False)])
+def test_lstm_takes_every_width_and_batch_it_serves(dtype, b, hd, state):
+    """TR1's and LSTM4's widths, a batch past one group of 4, odd H: every
+    check passes, and the call fails only for want of a card."""
+    xg, wh, h, c = _lstm_args(dtype, b, 2, hd)
+    args = (xg, wh, h, c) if state else (xg, wh)
+    lk.check_lstm_args(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        lk.pavlov_lstm_raw(*args)
