@@ -24,8 +24,11 @@ Phases, one line or block of output each; any failure exits non-zero:
    ``torch.nn.LSTM`` for a whole LSTM layer), and the least time the card
    could take (bytes and operations against the published H100 SXM peaks);
    flash in bf16 (its tensor-core route) at S=64, 256 and 1024 and at
-   recurrentgemma's local layer, and in float32 (its SIMT route); the
-   GEMV at M=1 1280 -> 8192 and M=4 640 -> 4096 in both dtypes;
+   recurrentgemma's local layer, and in float32 (its SIMT route); paged
+   decode at 8 slots of up to 1024 tokens and at 16 slots of up to 8192
+   (a byte bound clear of the timing floor); the RG-LRU and the selective
+   scan at their prefill and decode (T=1) shapes; the GEMV at M=1
+   1280 -> 8192 and M=4 640 -> 4096 in both dtypes;
 4. layer parity — full-width qwen3-0.6b cut to 2 layers, full-width
    recurrentgemma-2b cut to 3 (rec, rec, local) and full-width
    falcon-mamba-7b cut to 2, float32: prefill and 4 decode steps on the CPU
@@ -272,7 +275,8 @@ def phase_kernels(seed: int, card: str):
     rows["flash"] = flash_times(b, 256, h, kvh, hd, 0, "bfloat16")
     rows["flash"]["routes"] = {
         "bfloat16": "tensor cores: wgmma, TMA K/V ring, packed GQA heads",
-        "float32": "SIMT: scalar float32 FMAs"}
+        "float32": "SIMT: register-tiled float32 FMAs (4 x 4 S micro-tiles, "
+                   "packed GQA heads), cp.async K/V ring"}
     rows["flash"]["more_bfloat16"] = {
         "S=1024": flash_times(b, 1024, h, kvh, hd, 0, "bfloat16"),
         "S=64": flash_times(b, 64, h, kvh, hd, 0, "bfloat16"),
@@ -346,9 +350,10 @@ def phase_kernels(seed: int, card: str):
             bnd, by = bound_ms(nbytes, flops, "bfloat16")
             say(f"[kernel] on {card}: paged bf16 ({live} live tokens): kernel "
                 f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
-                f"({by})")
+                f"({by}), timing floor {floor:.4f} ms")
             rows["paged"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                  library_ms=None, bound_ms=bnd, bound_by=by)
+    rows["paged"]["long"] = paged_long(gen, flush, card, floor)
 
     # ---- flash at recurrentgemma's local layers: hd=256, 10 q heads over 1
     # kv head; the serving window of 2048 (not binding at S=256) and one of
@@ -403,18 +408,67 @@ def phase_kernels(seed: int, card: str):
                         flush)
         bnd, by = bound_ms(3.0 * b * t * e * 4, 2.0 * b * t * e, "float32")
         say(f"[kernel] on {card}: rglru float32 B={b} T={t} E={e}: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.5f} ms ({by}), "
+            f"timing floor {floor:.4f} ms")
         if t == 256:
             rows["rglru"].update(ms=ms, plain_ms=plain, library_ms=None,
                                  bound_ms=bnd, bound_by=by)
-    rows["ssm"] = ssm_kernel(gen, flush, card)
+        else:       # the decode launches' shape
+            rows["rglru"]["decode_T1"] = dict(ms=ms, plain_ms=plain,
+                                              bound_ms=bnd, bound_by=by)
+    rows["ssm"] = ssm_kernel(gen, flush, card, floor)
     rows["pascal"] = pascal_kernel(gen, flush, card)
     rows["jacquard"] = jacquard_kernel(gen, flush, card)
     rows["lstm"] = lstm_kernel(gen, flush, card)
     return rows
 
 
-def ssm_kernel(gen, flush, card: str) -> dict:
+def paged_long(gen, flush, card: str, floor: float) -> dict:
+    """Paged decode, bf16, at a shape whose byte bound stands clear of the
+    timing floor: 16 slots, H=16, KVH=8, hd=128 (qwen3's heads), blocks of
+    16, lengths spread over 0..8191 (the pool holds 16 x 512 blocks, about
+    0.54 GB); checked against the plain version, then timed."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_ref, paged_decode_attention_raw)
+    slots, h, kvh, hd, bs, nb = 16, 16, 8, 128, 16, 8192 // 16
+    n_blocks = slots * nb
+    lengths = torch.linspace(0, 8191, slots, device="cuda").round().int()
+    table = torch.randperm(n_blocks, generator=gen, device="cuda").int() \
+        .reshape(slots, nb)
+    dt = torch.bfloat16
+    q = torch.randn((slots, h, hd), generator=gen, device="cuda").to(dt)
+    kp = torch.randn((n_blocks, bs, kvh, hd), generator=gen,
+                     device="cuda").to(dt)
+    vp = torch.randn((n_blocks, bs, kvh, hd), generator=gen,
+                     device="cuda").to(dt)
+    got = paged_decode_attention_raw(q, kp, vp, table, lengths)
+    ref = paged_attention_ref(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    del ref
+    live = int((lengths.long() + 1).sum())
+    nbytes = (2.0 * live * kvh * hd * 2 + 2 * q.numel() * 2
+              + 4 * (slots * nb + slots))
+    what = f"paged bf16 long ({slots} slots, {live} live tokens)"
+    ms = time_ms(f"{what}, kernel", lambda: paged_decode_attention_raw(
+        q, kp, vp, table, lengths), flush)
+    plain = time_ms(f"{what}, plain", lambda: paged_attention_ref(
+        q, kp, vp, table, lengths), flush)
+    bnd, by = bound_ms(nbytes, 4.0 * h * hd * live, "bfloat16")
+    say(f"[kernel] on {card}: {what}, lengths 0..{int(lengths.max())}: "
+        f"kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e9 / 3.35:.1%} of 3.35 TB/s), plain {plain:.4f} "
+        f"ms, bound {bnd:.4f} ms ({by}), timing floor {floor:.4f} ms; "
+        f"max|kernel-plain|={err:.3e} (tol {PAGED_TOL['bfloat16']})")
+    if not err <= PAGED_TOL["bfloat16"]:
+        fail(f"paged kernel disagrees with its plain version at the long "
+             f"shape ({err})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, live_tokens=live)
+
+
+def ssm_kernel(gen, flush, card: str, floor: float) -> dict:
     """The selective scan at falcon-mamba's d_inner 8192 and d_state 16, in
     float32 as ``mamba_ssm`` builds its inputs (and once in bf16): B=4
     slots at T=256 (a prefill bucket), 1 (decode) and a ragged 100, B=1 at
@@ -491,11 +545,15 @@ def ssm_kernel(gen, flush, card: str) -> dict:
                         flush)
         bnd, by = bound_ms(nbytes, 7.0 * b * t * d * n, "float32")
         say(f"[kernel] on {card}: ssm float32 B={b} T={t} D={d} N={n}: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
-            f"({by}; {b * t * d * n / 1e6:.1f} M expf)")
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.5f} ms "
+            f"({by}; {b * t * d * n / 1e6:.1f} M expf), timing floor "
+            f"{floor:.4f} ms")
         if (b, t) == (4, 256):
             row.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
                        bound_by=by)
+        elif t == 1:        # the decode launches' shape
+            row["decode_T1"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                    bound_by=by)
     return row
 
 

@@ -7,7 +7,8 @@
 // float32 m / l / acc, output acc / max(l, 1e-30) in the input dtype, and the
 // 1/sqrt(hd) scale applied in float32 (never to a q rounded to bf16).
 //
-// Two routes, chosen by dtype (not a fallback: each dtype has exactly one):
+// Two routes, chosen by dtype (not a fallback: each dtype has exactly one;
+// float32's copies are 16-byte or element loads, by alignment):
 //
 // bfloat16 -> tc::flash_tc_kernel, on the tensor cores.  A CTA is one
 // consumer warpgroup (128 threads) and one producer warp, and owns one
@@ -42,17 +43,37 @@
 // a warpgroup, 128 registers a thread at hd = 256); the shared memory each
 // instantiation needs is checked against Hopper's 227 KB when it compiles.
 //
-// float32 -> simt::flash_fwd_kernel, the first version (scalar FMAs from
-// shared memory): wgmma has no full-float32 mode, and TF32 would not hold
-// float32's tolerance.  A block owns a (32-row q tile, batch*head) pair and
-// loops over 32-row KV tiles, staged in shared memory as float32; four
-// threads share each q row.
+// float32 -> simt::flash_f32_kernel, exact float32 FMAs on the CUDA cores.
+// wgmma has no full-float32 mode, and plain TF32 keeps 10 mantissa bits,
+// too few for float32's 1e-4; a 3xTF32 split (hi and lo parts, three
+// products, as PyTorch's memory-efficient attention runs float32) would
+// hold it.  Here the work is register-tiled instead, as the Pascal SIMT
+// GEMM is: a CTA of 128 threads owns (batch, kv head) and 64 packed rows,
+// packed as the bf16 route packs them, so every K/V tile serves the
+// group's q heads; Q sits in shared memory, scaled once by 1/sqrt(hd) ·
+// log2(e); K/V tiles of 32 rows arrive through a 2-stage cp.async ring
+// (16-byte copies where every base and stride allow, else element loads:
+// the route is the C entry's, by alignment).  A thread holds a 4 x 4
+// micro-tile of S (rows ty + 16 i, keys tx + 8 j) and 4 rows of O across
+// hd / 32 16-byte chunks in registers; every shared-memory read is 16
+// bytes (8 FMAs a read in S, about 13 in P.V), and a warp's reads fall in
+// distinct bank groups (odd row pitches in 16-byte chunks).  A row's
+// softmax is reduced over the 8 lanes that hold its columns; P goes
+// through shared memory to the same warp.  Row tiles are ordered to pair
+// a long causal row tile with a short one on an SM (the longer half
+// first); tiles past the horizon or before the window stay skipped; each
+// output is one thread's fixed-order sum, so two calls give the same
+// bits.  Shared memory: 107 KB at hd = 128 (two CTAs an SM), 203 KB at
+// hd = 256.
 //
 // What bounds it.  A causal prefill's intensity grows with S (qwen3-0.6b in
 // bf16: about (S+1)/3 operations per byte against the H100's ~295), so it is
 // bound by bytes below S of about 900 and by operations above.  The bf16
 // kernel sits between: with one warpgroup a CTA and two CTAs an SM, each
-// tile's chain (S, softmax, P.V) waits on latency (PERF.md).
+// tile's chain (S, softmax, P.V) waits on latency (PERF.md).  In float32
+// the operations bound it from short S on (1.08 GFLOP at B=4, S=256, H=16,
+// hd=128 is 16 us at the 67 TFLOP/s of the CUDA cores); the SIMT route
+// spends about 12% more on the diagonal tiles' masked half.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -72,143 +93,294 @@ struct Strides {
 // ------------------------------------------------ float32: the SIMT kernel
 namespace simt {
 
-constexpr int BQ = 32;
-constexpr int BK = 32;
-constexpr int NT = 128;             // 4 threads per q row
+using namespace hopper;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
+constexpr int ROWS = 64;            // packed rows a CTA (as the bf16 route)
+constexpr int BK = 32;              // KV rows a tile
+constexpr int NT = 128;
+constexpr int TX = 8;               // threads across S columns / O chunks
+constexpr int TY = NT / TX;         // threads across rows: rows ty + 16 i
+constexpr int RPT = ROWS / TY;      // rows a thread (4)
+constexpr int SPT = BK / TX;        // S columns a thread: tx + 8 j (4)
 
+// shared memory, in floats: Q (ROWS x LDQ), 2 stages of K (BK x LDQ) and
+// V (BK x HD), P (ROWS x LDP).  Q and K rows hold an odd number of 16-byte
+// chunks, so a warp's 4 consecutive Q rows and 8 consecutive K rows sit in
+// distinct bank groups; P rows likewise
 template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((BQ + 2 * BK) * (HD + 1) + BQ * (BK + 1));
+struct Smem {
+  static constexpr int LDQ = HD + 4;
+  static constexpr int LDP = BK + 4;
+  static constexpr int K_OFF = ROWS * LDQ;
+  static constexpr int V_OFF = K_OFF + 2 * BK * LDQ;
+  static constexpr int P_OFF = V_OFF + 2 * BK * HD;
+  static constexpr size_t BYTES = sizeof(float) * (P_OFF + ROWS * LDP);
+  static_assert(BYTES <= 232448, "more than a Hopper block's 227 KB");
+};
+
+// 16 bytes of row data into shared memory: cp.async where VEC, else four
+// element loads (the caller's strides allow no 16-byte copy); zeros when
+// !ok.  `mul` scales an element load (Q), 1 elsewhere
+template <bool VEC>
+__device__ __forceinline__ void load16(float* dst, const float* src, bool ok,
+                                       float mul) {
+  if (VEC) {
+    cp_async16(smem_u32(dst), src, ok);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[e] = ok ? src[e] * mul : 0.f;
+  }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
-                 Strides ks, Strides vs, Strides os, int H, int group, int sq,
-                 int skv, int causal, int window, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int PER = HD / 4;       // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* s_q = smem;                // BQ x LD
-  float* s_k = s_q + BQ * LD;       // BK x LD
-  float* s_v = s_k + BK * LD;       // BK x LD
-  float* s_p = s_v + BK * LD;       // BQ x (BK + 1)
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(NT, HD <= 128 ? 2 : 1)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 Strides qs, Strides ks, Strides vs, Strides os, int KVH,
+                 int group, int sq, int skv, int causal, int window,
+                 float scale_log2) {
+  using L = Smem<HD>;
+  constexpr int LDQ = L::LDQ, LDP = L::LDP;
+  constexpr int CH = HD / 4;                 // 16-byte chunks a row
+  constexpr int CPT = (CH + TX - 1) / TX;    // O chunks a thread: tx + 8 c
+  extern __shared__ __align__(16) float sm[];
+  float* s_q = sm;
+  float* s_k = sm + L::K_OFF;
+  float* s_v = sm + L::V_OFF;
+  float* s_p = sm + L::P_OFF;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, kh = h / group;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;           // q row within the tile
-  const int c = tid & 3;            // lane within the row's four
-  const int shift = skv - sq;       // q aligned to the KV end
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kh * ks.h;
-  const T* vb = v + b * vs.b + kh * vs.h;
-  for (int i = tid; i < BQ * HD; i += NT) {
-    const int rr = i / HD, d = i % HD, qi = q0 + rr;
-    s_q[rr * LD + d] = qi < sq ? to_f(qb[qi * qs.s + d]) * scale : 0.f;
-  }
-
-  // KV tiles that hold a visible key for at least one real row of the tile
-  const int q_lo = q0 + shift;
-  const int q_hi = min(q0 + BQ, sq) - 1 + shift;
-  const int kv_end = causal ? min(skv, q_hi + 1) : skv;
-  int kv_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int b = blockIdx.x / KVH, kh = blockIdx.x % KVH;
+  // row tiles: the longer half first, longest first, then the shorter
+  // half, shortest first, so an SM's two CTAs tend to pair a long causal
+  // row tile with a short one
+  const int nty = gridDim.y, hy = (nty + 1) / 2;
+  const int row0 =
+      (blockIdx.y < hy ? nty - 1 - blockIdx.y : blockIdx.y - hy) * ROWS;
+  const int rows_total = sq * group;
+  const int shift = skv - sq;               // q aligned to the KV end
+  const int row_hi = min(row0 + ROWS, rows_total) - 1;
+  const int p_lo = row0 / group + shift, p_hi = row_hi / group + shift;
+  // KV tiles that hold a visible key for at least one row of the CTA
+  const int kv_end = causal ? min(skv, p_hi + 1) : skv;
+  int kv_begin = window > 0 ? max(0, p_lo - window + 1) : 0;
   kv_begin = (kv_begin / BK) * BK;
+  const int n_t = kv_end > kv_begin ? (kv_end - kv_begin + BK - 1) / BK : 0;
 
-  const int qpos = q0 + r + shift;
-  float m = NEG_INF, l = 0.f;
-  float acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BK) {
-    __syncthreads();                // the previous tile is consumed
-    for (int i = tid; i < BK * HD; i += NT) {
-      const int rr = i / HD, d = i % HD, kp = kv0 + rr;
-      const bool in = kp < skv;
-      s_k[rr * LD + d] = in ? to_f(kb[kp * ks.s + d]) : 0.f;
-      s_v[rr * LD + d] = in ? to_f(vb[kp * vs.s + d]) : 0.f;
+  // Q: packed row pr is (position pr / group, q head kh * group + pr %
+  // group), scaled by 1/sqrt(hd) · log2(e) in float32
+  const float* qb = q + b * qs.b + (int64_t)kh * group * qs.h;
+  for (int i = tid; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = i % CH, pr = row0 + r;
+    const int pos = pr / group, hq = pr - pos * group;
+    const bool ok = pr < rows_total;
+    load16<VEC>(s_q + r * LDQ + 4 * c,
+                ok ? qb + pos * qs.s + hq * qs.h + 4 * c : q, ok, scale_log2);
+  }
+  cp_async_commit();
+  const float* kb = k + b * ks.b + kh * ks.h;
+  const float* vb = v + b * vs.b + kh * vs.h;
+  auto load_tile = [&](int t) {
+    const int st = t & 1, kv0 = kv_begin + t * BK;
+    for (int i = tid; i < BK * CH; i += NT) {
+      const int r = i / CH, c = i % CH, kp = kv0 + r;
+      const bool ok = kp < skv;
+      load16<VEC>(s_k + (st * BK + r) * LDQ + 4 * c,
+                  ok ? kb + kp * ks.s + 4 * c : k, ok, 1.f);
+      load16<VEC>(s_v + (st * BK + r) * HD + 4 * c,
+                  ok ? vb + kp * vs.s + 4 * c : v, ok, 1.f);
     }
-    __syncthreads();
-
-    float s[BK / 4];
-#pragma unroll
-    for (int j = 0; j < BK / 4; ++j) s[j] = 0.f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = s_q[r * LD + d];
-#pragma unroll
-      for (int j = 0; j < BK / 4; ++j) s[j] += qd * s_k[(c + 4 * j) * LD + d];
-    }
-    float mt = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < BK / 4; ++j) {
-      const int kp = kv0 + c + 4 * j;
-      bool ok = kp < skv;
-      if (causal) ok = ok && kp <= qpos;
-      if (window > 0) ok = ok && kp > qpos - window;
-      s[j] = ok ? s[j] : NEG_INF;
-      mt = fmaxf(mt, s[j]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    const float corr = expf(m - m_new);
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 4; ++j) {
-      const float p = expf(s[j] - m_new);
-      s_p[r * (BK + 1) + c + 4 * j] = p;
-      ps += p;
-    }
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-    l = l * corr + ps;
-    m = m_new;
-    __syncwarp();                   // a row's p comes from its own warp
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[i] *= corr;
-    for (int j = 0; j < BK; ++j) {
-      const float p = s_p[r * (BK + 1) + j];
-#pragma unroll
-      for (int i = 0; i < PER; ++i) acc[i] += p * s_v[j * LD + c + 4 * i];
+    cp_async_commit();
+  };
+  if (n_t > 0) load_tile(0);
+  else cp_async_commit();           // an empty group: the wait below holds
+  if (VEC) {                        // this thread's Q copies are in: scale
+    cp_async_wait<1>();
+    for (int i = tid; i < ROWS * CH; i += NT) {
+      float4* x = reinterpret_cast<float4*>(s_q + (i / CH) * LDQ +
+                                            4 * (i % CH));
+      float4 y = *x;
+      y.x *= scale_log2;
+      y.y *= scale_log2;
+      y.z *= scale_log2;
+      y.w *= scale_log2;
+      *x = y;
     }
   }
 
-  const int qi = q0 + r;
-  if (qi < sq) {
-    T* ob = o + b * os.b + h * os.h + qi * os.s;
-    const float den = fmaxf(l, 1e-30f);
+  // this thread's rows ty + 16 i: the keys each may see, kp in (lo, hi]
+  int hi[RPT], lo[RPT];
 #pragma unroll
-    for (int i = 0; i < PER; ++i) ob[c + 4 * i] = from_f<T>(acc[i] / den);
+  for (int i = 0; i < RPT; ++i) {
+    const int pos = (row0 + ty + 16 * i) / group + shift;
+    hi[i] = causal ? min(pos, skv - 1) : skv - 1;
+    lo[i] = window > 0 ? pos - window : -1;
+  }
+  float m[RPT], l[RPT], acc[RPT][CPT][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_t; ++t) {
+    const int st = t & 1, kv0 = kv_begin + t * BK;
+    if (t + 1 < n_t) {
+      load_tile(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                // tile t (and Q) visible to all
+    const float* kt = s_k + st * BK * LDQ;
+    const float* vt = s_v + st * BK * HD;
+
+    // S = Q . K^T: a 4 x 4 micro-tile, 16-byte reads along hd
+    float s[RPT][SPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < CH; ++c) {
+      float4 qa[RPT], ka[SPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(s_q + (ty + 16 * i) * LDQ +
+                                                 4 * c);
+#pragma unroll
+      for (int j = 0; j < SPT; ++j)
+        ka[j] = *reinterpret_cast<const float4*>(kt + (tx + 8 * j) * LDQ +
+                                                 4 * c);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
+        }
+    }
+
+    // online softmax of the rows (a row's 32 columns lie in the 8 lanes
+    // of one tx group); masks only on tiles at the diagonal, the window
+    // edge or the ragged end.  P to shared memory for P . V
+    const bool edge = kv0 + BK > skv || (causal && kv0 + BK - 1 > p_lo) ||
+                      (window > 0 && kv0 <= p_hi - window);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      bool vis[SPT];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        const int kp = kv0 + tx + 8 * j;
+        vis[j] = !edge || (kp <= hi[i] && kp > lo[i]);
+        if (vis[j]) mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = exp2_approx(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        // a masked key's p is 0, also while the row has seen no key
+        const float p = vis[j] ? exp2_approx(s[i][j] - m_new) : 0.f;
+        s_p[(ty + 16 * i) * LDP + tx + 8 * j] = p;
+        sum += p;
+      }
+      l[i] = fmaf(l[i], corr, sum);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][c][e] *= corr;
+    }
+    __syncwarp();                   // a row's P comes from its own warp
+
+    // O += P . V: 4 rows x CPT chunks, 4 keys a step
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pa[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(s_p + (ty + 16 * i) * LDP +
+                                                 kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          if (tx + 8 * c >= CH) continue;   // hd = 16: 4 chunks a row
+          const float4 vv = *reinterpret_cast<const float4*>(
+              vt + (kk + u) * HD + 4 * (tx + 8 * c));
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const float pu = u == 0   ? pa[i].x
+                             : u == 1 ? pa[i].y
+                             : u == 2 ? pa[i].z
+                                      : pa[i].w;
+            acc[i][c][0] = fmaf(pu, vv.x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(pu, vv.y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(pu, vv.z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(pu, vv.w, acc[i][c][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();                // stage st and P are free again
+  }
+
+  // O / max(l, 1e-30); rows past the last position not written
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    float den = l[i];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    den += __shfl_xor_sync(0xffffffffu, den, 4);
+    const int pr = row0 + ty + 16 * i;
+    if (pr >= rows_total) continue;
+    const int pos = pr / group, h = kh * group + pr - pos * group;
+    float* ob = o + b * os.b + pos * os.s + h * os.h;
+    const float inv = 1.f / fmaxf(den, 1e-30f);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      if (tx + 8 * c >= CH) continue;
+      float* dst = ob + 4 * (tx + 8 * c);
+      const float4 y = make_float4(acc[i][c][0] * inv, acc[i][c][1] * inv,
+                                   acc[i][c][2] * inv, acc[i][c][3] * inv);
+      if (VEC) {
+        *reinterpret_cast<float4*>(dst) = y;
+      } else {
+        dst[0] = y.x;
+        dst[1] = y.y;
+        dst[2] = y.z;
+        dst[3] = y.w;
+      }
+    }
   }
 }
 
-template <typename T, int HD>
+template <int HD, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    Strides qs, Strides ks, Strides vs, Strides os, int B,
-                   int H, int KVH, int sq, int skv, int causal, int window,
-                   float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, HD>;
-  constexpr size_t smem = smem_bytes<HD>();
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid((sq + BQ - 1) / BQ, B * H);
+                   int KVH, int group, int sq, int skv, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  auto kern = flash_f32_kernel<HD, VEC>;
+  constexpr size_t smem = Smem<HD>::BYTES;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (set != cudaSuccess) return set;
+  const dim3 grid(B * KVH, (sq * group + ROWS - 1) / ROWS);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, H,
-      H / KVH, sq, skv, causal, window, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
+      KVH, group, sq, skv, causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -751,29 +923,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
+// 16-byte copies where every base is 16-byte aligned and every stride a
+// multiple of 4 floats (the models' layouts), else element loads
+bool aligned16(const void* p, Strides st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 &&
+         st.s % 4 == 0 && st.h % 4 == 0;
+}
+
 cudaError_t launch_simt(int hd, const void* q, const void* k, const void* v,
                         void* o, Strides qs, Strides ks, Strides vs,
-                        Strides os, int B, int H, int KVH, int sq, int skv,
-                        int causal, int window, float scale,
+                        Strides os, int B, int KVH, int group, int sq,
+                        int skv, int causal, int window, float scale,
                         cudaStream_t st) {
-  switch (hd) {
-    case 16:
-      return simt::launch<float, 16>(q, k, v, o, qs, ks, vs, os, B, H, KVH,
-                                     sq, skv, causal, window, scale, st);
-    case 64:
-      return simt::launch<float, 64>(q, k, v, o, qs, ks, vs, os, B, H, KVH,
-                                     sq, skv, causal, window, scale, st);
-    case 128:
-      return simt::launch<float, 128>(q, k, v, o, qs, ks, vs, os, B, H,
-                                      KVH, sq, skv, causal, window, scale,
-                                      st);
-    case 256:
-      return simt::launch<float, 256>(q, k, v, o, qs, ks, vs, os, B, H,
-                                      KVH, sq, skv, causal, window, scale,
-                                      st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const bool vec = aligned16(q, qs) && aligned16(k, ks) &&
+                   aligned16(v, vs) && aligned16(o, os);
+#define FLASH_SIMT(D)                                                        \
+  if (hd == D)                                                               \
+    return vec ? simt::launch<D, true>(q, k, v, o, qs, ks, vs, os, B, KVH,   \
+                                       group, sq, skv, causal, window,       \
+                                       scale, st)                            \
+               : simt::launch<D, false>(q, k, v, o, qs, ks, vs, os, B, KVH,  \
+                                        group, sq, skv, causal, window,      \
+                                        scale, st);
+  FLASH_SIMT(16)
+  FLASH_SIMT(64)
+  FLASH_SIMT(128)
+  FLASH_SIMT(256)
+#undef FLASH_SIMT
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_tc(int hd, const void* q, const void* k, const void* v,
@@ -810,8 +987,8 @@ extern "C" int flash_attention_fwd(
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_simt(hd, q, k, v, o, qs, ks, vs, os, B, H, KVH, sq, skv,
-                       causal, window, scale, st);
+    return launch_simt(hd, q, k, v, o, qs, ks, vs, os, B, KVH, H / KVH, sq,
+                       skv, causal, window, scale, st);
   if (dtype == 1)
     return launch_tc(hd, q, k, v, o, qs, ks, vs, os, B, KVH, H / KVH, sq,
                      skv, causal, window, scale, st);

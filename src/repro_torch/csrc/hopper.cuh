@@ -103,6 +103,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(c3), "r"(bar)
       : "memory");
 }
+// `bytes` contiguous bytes from global to shared memory by the bulk-copy
+// engine, completion on bar; both addresses 16-byte aligned, bytes a
+// multiple of 16
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// 2^x on the special-function unit (ex2.approx: 2 ulp; no range fixups,
+// which x <= 0 never needs; a large negative x gives 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 // one box of a 2-D tensor map into shared memory, completion on bar
 __device__ __forceinline__ void tma_load_2d(uint32_t dst,
                                             const CUtensorMap* map, int c0,

@@ -11,8 +11,10 @@ to ``(B·H, S, hd)`` is materialized.
 Two routes, by dtype, each dtype exactly one: bfloat16 runs on the tensor
 cores (``wgmma``; K/V tiles by TMA from a producer warp through a 3-stage
 ring; the q heads of a kv head packed into one tile's 64 rows); float32
-runs the SIMT kernel, since ``wgmma`` has no full-float32 mode.  Each
-route's launch geometry lives in the C entry; the wrapper passes shapes.
+runs a register-tiled SIMT kernel (exact float32 FMAs, the same packed
+rows, a ``cp.async`` K/V ring), since ``wgmma`` has no full-float32 mode.
+Each route's launch geometry lives in the C entry; the wrapper passes
+shapes.
 """
 from __future__ import annotations
 

@@ -128,6 +128,38 @@ def test_flash_kernel_takes_projection_views_on_card(cuda, dtype, tol, h,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,hd,window", [(16, 8, 128, 0),
+                                             (10, 1, 256, 128)])
+def test_flash_float32_is_deterministic_on_card(cuda, h, kvh, hd, window):
+    """Each output is one thread's fixed-order sum: two calls give the
+    same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn(2, 300, h, hd, generator=gen, device=cuda)
+    k = torch.randn(2, 300, kvh, hd, generator=gen, device=cuda)
+    v = torch.randn(2, 300, kvh, hd, generator=gen, device=cuda)
+    first = fa.flash_attention(q, k, v, causal=True, window=window)
+    again = fa.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 128])
+def test_flash_float32_takes_unaligned_strides_on_card(cuda, hd):
+    """Rows hd + 1 floats apart allow no 16-byte copy: the float32 route
+    loads element by element there, to the same tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + 1)
+    wide = [torch.randn(2, 70, heads, hd + 1, generator=gen,
+                        device=cuda)[..., :hd] for heads in (4, 2, 2)]
+    q, k, v = wide
+    out = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_paged_kernel_matches_plain_on_card(cuda, dtype, tol):
@@ -144,6 +176,137 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype, tol):
         *(cpu[x] for x in ("q", "nk", "nv", "kp", "vp", "table", "lengths")))
     assert torch.equal(kp.cpu(), kpc) and torch.equal(vp.cpu(), vpc)
     assert (out.cpu().float() - outc.float()).abs().max().item() <= tol
+
+
+#: paged decode's tolerance against its plain version, by dtype
+PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _paged_raw_case(rng, lengths, h, kvh, hd, bs, nb, dtype, device):
+    """q, pools and a table that gives each slot its own scattered blocks
+    for positions 0..lengths[b] (the rest of its row points anywhere in
+    the pool, as the ops' clamp leaves it), on the card in ``dtype``."""
+    b = len(lengths)
+    own = [ln // bs + 1 for ln in lengths]
+    n = sum(own)
+    perm = rng.permutation(n)
+    table = rng.randint(0, n, (b, nb)).astype(np.int32)
+    at = 0
+    for i, k in enumerate(own):
+        table[i, :k] = perm[at:at + k]
+        at += k
+    t = dict(q=_randn(rng, b, h, hd), kp=_randn(rng, n, bs, kvh, hd),
+             vp=_randn(rng, n, bs, kvh, hd))
+    t = {x: torch.from_numpy(v).to(device).to(dtype) for x, v in t.items()}
+    t["table"] = torch.from_numpy(table).to(device)
+    t["lengths"] = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return t
+
+
+def _paged_raw(t, rows=slice(None)):
+    return pa.paged_decode_attention_raw(
+        t["q"][rows].contiguous(), t["kp"], t["vp"],
+        t["table"][rows].contiguous(), t["lengths"][rows].contiguous())
+
+
+def _paged_err(t):
+    out = _paged_raw(t)
+    ref = pa.paged_attention_ref(t["q"], t["kp"], t["vp"], t["table"],
+                                 t["lengths"])
+    torch.cuda.synchronize()
+    return (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("h,kvh", [(8, 8), (16, 8), (14, 2)])  # groups 1 2 7
+def test_paged_kernel_matches_plain_at_every_width_on_card(cuda, dtype, hd,
+                                                           h, kvh):
+    rng = np.random.RandomState(hd + h)
+    lengths = [int(x) for x in rng.randint(0, 16 * 12, 8)]
+    t = _paged_raw_case(rng, lengths, h, kvh, hd, 16, 12, dtype, cuda)
+    assert _paged_err(t) <= PAGED_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,bs", [
+    (10, 1, 16),        # recurrentgemma's MQA: group 10
+    (18, 2, 16),        # group 9: a CTA spans one of two kv heads
+    (40, 8, 16),        # llama4-scout: group 5, three kv heads a CTA
+    (32, 1, 16),        # a group wider than a CTA's q heads
+    (16, 8, 8),         # the reduced configs' block size
+    (16, 8, 48)])       # a block larger than a stage, not a power of two
+def test_paged_kernel_matches_plain_at_every_group_on_card(cuda, dtype, h,
+                                                           kvh, bs):
+    rng = np.random.RandomState(h + bs)
+    lengths = [int(x) for x in rng.randint(0, bs * 9, 6)]
+    t = _paged_raw_case(rng, lengths, h, kvh, 128, bs, 9, dtype, cuda)
+    assert _paged_err(t) <= PAGED_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_block_edges_and_many_splits_on_card(cuda, dtype):
+    """Lengths of 0 (one visible position), at a block's end (15) and
+    start (16), and long enough (>= 4000 of 4096) to span many splits."""
+    t = _paged_raw_case(np.random.RandomState(1), [0, 15, 16, 17, 4000, 4095],
+                        16, 8, 128, 16, 256, dtype, cuda)
+    assert _paged_err(t) <= PAGED_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_drops_the_sentinel_write_on_card(cuda, dtype):
+    """A slot whose write block is the sentinel (= N) writes nothing, and
+    every slot attends as the CPU's plain version does."""
+    c = _paged_case(np.random.RandomState(8), 6, 16, 8, 128, 80, 16, 10)
+    n, bs = c["kp"].shape[0], c["kp"].shape[1]
+    c["table"][2, c["lengths"][2] // bs] = n        # slot 2: a dropped write
+    kept = sum(int(c["table"][b, c["lengths"][b] // bs] < n)
+               for b in range(6))
+    t = {x: torch.from_numpy(v).to(cuda) for x, v in c.items()}
+    for x in ("q", "nk", "nv", "kp", "vp"):
+        t[x] = t[x].to(dtype)
+    cpu = {x: v.cpu() for x, v in t.items()}
+    kp0 = t["kp"].clone()
+    names = ("q", "nk", "nv", "kp", "vp", "table", "lengths")
+    out, kp, vp = pa.paged_decode_attention(*(t[x] for x in names))
+    outc, kpc, vpc = pa.paged_decode_attention(*(cpu[x] for x in names))
+    written = (kp != kp0).flatten(1).any(1).sum().item()
+    assert written == kept < 6           # one block for each kept write
+    assert torch.equal(kp.cpu(), kpc) and torch.equal(vp.cpu(), vpc)
+    assert (out.cpu().float() - outc.float()).abs().max().item() \
+        <= PAGED_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_deterministic_on_card(cuda, dtype):
+    """The splits merge in a fixed order, with no atomics: two calls give
+    the same bits."""
+    t = _paged_raw_case(np.random.RandomState(2),
+                        [3, 600, 1023, 40, 2047, 0, 16, 900], 16, 8, 128, 16,
+                        128, dtype, cuda)
+    first, again = _paged_raw(t), _paged_raw(t)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_slot_bits_do_not_depend_on_the_batch_on_card(cuda, dtype):
+    """A slot's output is the same bits alone (B = 1, its own table row)
+    as inside a batch of 8: its splits depend on its length, the table's
+    width and the card only."""
+    t = _paged_raw_case(np.random.RandomState(3),
+                        [0, 15, 16, 300, 1023, 2000, 2047, 77], 16, 8, 128,
+                        16, 128, dtype, cuda)
+    batch = _paged_raw(t)
+    alone = [_paged_raw(t, slice(i, i + 1)) for i in range(8)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(batch[i:i + 1], a) for i, a in enumerate(alone))
 
 
 @pytest.mark.gpu

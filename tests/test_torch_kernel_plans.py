@@ -2,18 +2,22 @@
 CPU before they look for a card: dtypes, shapes, head dims, strides and
 alignment for flash (its bf16 route copies 16 bytes at a time), rows and
 layouts for the GEMV, dtypes, shapes and layouts for the Pascal matmul and
-the LSTM recurrence.  Each kernel's launch geometry lives in its C entry
-(the shared memory of every flash and Pascal tensor-core instantiation is
-checked against 227 KB when it compiles; the LSTM's layout is planned per
-call from the card's SM count); the gpu tests cover them on the card."""
+the LSTM recurrence, and dtypes, shapes, head dims, layouts and alignment
+for paged decode (its blocks are bulk copies).  Each kernel's launch
+geometry lives in its C entry (the shared memory of every flash and Pascal
+tensor-core instantiation is checked against 227 KB when it compiles; the
+LSTM's layout and paged decode's splits are planned per call from the
+card's SM count); the gpu tests cover them on the card."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import jacquard_gemv as jg  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.jacquard_gemv import kernel as gk  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as pgk  # noqa: E402
 from repro_torch.kernels.pascal_matmul import kernel as pk  # noqa: E402
 from repro_torch.kernels.pavlov_lstm import kernel as lk  # noqa: E402
 
@@ -247,3 +251,96 @@ def test_lstm_takes_every_width_and_batch_it_serves(dtype, b, hd, state):
     lk.check_lstm_args(*args)
     with pytest.raises(ValueError, match="CUDA"):
         lk.pavlov_lstm_raw(*args)
+
+
+def _paged_args(dtype=torch.bfloat16, b=3, h=4, kvh=2, hd=64, n=6, bs=4,
+                nb=2):
+    return (torch.zeros(b, h, hd, dtype=dtype),
+            torch.zeros(n, bs, kvh, hd, dtype=dtype),
+            torch.zeros(n, bs, kvh, hd, dtype=dtype),
+            torch.zeros(b, nb, dtype=torch.int32),
+            torch.zeros(b, dtype=torch.int32))
+
+
+def test_paged_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        pgk.paged_decode_attention_raw(*_paged_args())
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    (lambda q, k, v, t, n: (q.half(), k.half(), v.half(), t, n), TypeError,
+     "dtypes"),
+    (lambda q, k, v, t, n: (q, k.float(), v, t, n), TypeError, "dtypes"),
+    (lambda q, k, v, t, n: (q.float(), k, v, t, n), TypeError, "dtypes"),
+    (lambda q, k, v, t, n: (q, k, v, t.long(), n), TypeError, "int32"),
+    (lambda q, k, v, t, n: (q, k, v, t, n.long()), TypeError, "int32"),
+    (lambda q, k, v, t, n: (q, k, v[:3], t, n), ValueError, "shapes"),
+    (lambda q, k, v, t, n: (q, k[..., :32], v[..., :32], t, n), ValueError,
+     "shapes"),
+    (lambda q, k, v, t, n: (q[:, :3], k, v, t, n), ValueError, "shapes"),
+    (lambda q, k, v, t, n: (q, k, v, t[:2], n), ValueError, "shapes"),
+    (lambda q, k, v, t, n: (q, k, v, t, n[:2]), ValueError, "shapes"),
+    (lambda q, k, v, t, n: (q, k, v, t[0], n), ValueError, "shapes"),
+    (lambda q, k, v, t, n: (q[0], k, v, t, n), ValueError, "shapes"),
+    (lambda q, k, v, t, n: (q, k, v, t[:, :0], n), ValueError, "shapes"),
+    (lambda q, k, v, t, n: (q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                            v, t, n), ValueError, "contiguous"),
+    (lambda q, k, v, t, n: (q, k, v.transpose(2, 3).contiguous().transpose(
+        2, 3), t, n), ValueError, "contiguous"),
+    (lambda q, k, v, t, n: (q, k, v, t.T.contiguous().T, n), ValueError,
+     "contiguous"),
+    (lambda q, k, v, t, n: (q.transpose(0, 1).contiguous().transpose(0, 1),
+                            k, v, t, n), ValueError, "contiguous"),
+])
+def test_paged_refuses_shapes_dtypes_and_layouts(bad, exc, match):
+    """Refused on the CPU, before the wrapper looks for a card."""
+    with pytest.raises(exc, match=match):
+        pgk.paged_decode_attention_raw(*bad(*_paged_args()))
+
+
+def test_paged_refuses_unaligned_pools():
+    """Blocks are bulk copies: a pool must start on 16 bytes."""
+    q, k, v, t, n = _paged_args()
+    off = torch.zeros(k.numel() + 1, dtype=k.dtype)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pgk.paged_decode_attention_raw(q, off, v, t, n)
+    with pytest.raises(ValueError, match="16-byte"):
+        pgk.paged_decode_attention_raw(q, k, off, t, n)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [8, 32, 48, 96, 100, 512])
+def test_paged_refuses_head_dims_without_an_instantiation(dtype, hd):
+    with pytest.raises(ValueError, match="head_dim"):
+        pgk.paged_decode_attention_raw(*_paged_args(dtype, hd=hd))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", pgk.HEAD_DIMS)
+@pytest.mark.parametrize("h,kvh,bs", [(16, 8, 16), (14, 2, 16), (8, 8, 8),
+                                      (10, 1, 16), (40, 8, 48), (9, 3, 1)])
+def test_paged_takes_every_head_dim_group_and_block_size(dtype, hd, h, kvh,
+                                                         bs):
+    """Every head dim, the configs' GQA groups and any block size pass
+    every check, and fail only for want of a card."""
+    args = _paged_args(dtype, b=2, h=h, kvh=kvh, hd=hd, n=5, bs=bs, nb=3)
+    pgk.check_paged_args(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        pgk.paged_decode_attention_raw(*args)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,kvh,hd", [(4, 2, 16), (14, 2, 64), (10, 1, 256)])
+def test_paged_on_cpu_tensors_is_the_plain_version(dtype, h, kvh, hd):
+    """The public op runs the plain version for CPU tensors, and only
+    because they lie on the CPU: the same bits as calling it directly."""
+    gen = torch.Generator().manual_seed(h * hd)
+    n, bs, nb, b = 12, 8, 4, 3
+    q = torch.randn(b, h, hd, generator=gen).to(dtype)
+    kp = torch.randn(n, bs, kvh, hd, generator=gen).to(dtype)
+    vp = torch.randn(n, bs, kvh, hd, generator=gen).to(dtype)
+    table = torch.randperm(n, generator=gen)[:b * nb].reshape(b, nb).int()
+    lengths = torch.tensor([0, 9, 31], dtype=torch.int32)
+    out = pa.paged_attention(q, kp, vp, table, lengths)
+    ref = pa.paged_attention_ref(q, kp, vp, table, lengths)
+    assert out.dtype == dtype and torch.equal(out, ref)
