@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
 
 Phases, one line or block of output each; any failure exits non-zero:
 
@@ -27,8 +27,11 @@ Phases, one line or block of output each; any failure exits non-zero:
    recurrentgemma's local layer, and in float32 (its SIMT route); paged
    decode at 8 slots of up to 1024 tokens and at 16 slots of up to 8192
    (a byte bound clear of the timing floor); the RG-LRU and the selective
-   scan at their prefill and decode (T=1) shapes; the GEMV at M=1
-   1280 -> 8192 and M=4 640 -> 4096 in both dtypes;
+   scan at their prefill shapes (B=4 and B=1, T=256) and decode shape (B=4,
+   T=1, also with the L2 left warm); the GEMV at M=1 1280 -> 8192 and M=4
+   640 -> 4096 in both dtypes.  With ``--parent DIR`` (an unpacked checkout
+   of an earlier commit) phase 2 also builds that tree's two scan kernels
+   and phase 3 times them beside these, in the same run;
 4. layer parity — full-width qwen3-0.6b cut to 2 layers, full-width
    recurrentgemma-2b cut to 3 (rec, rec, local) and full-width
    falcon-mamba-7b cut to 2, float32: prefill and 4 decode steps on the CPU
@@ -78,13 +81,16 @@ PEAK_FLOPS = {"bfloat16": 989.4 * TERA, "float32": 67.0 * TERA}
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PAGED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the RG-LRU kernel rounds a*h, then +b, as its plain loop does: float32
-# agrees to the bit; a bf16 output may differ by one ulp of |h| < 8
+# agrees to the bit (checked with torch.equal as well); a bf16 output may
+# differ by one ulp of |h| < 8
 RGLRU_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -4}
-# the selective scan rounds its update where its plain loop does (h_T
-# agrees to float32 rounding, to the bit in practice), but y is a 17-term
-# sum taken in another order: it agrees to a few float32 ulps of the
-# output's scale (|y| reaches ~80 here), so SSM_Y_ULPS of max|y|; a bf16 y
-# is one more rounding of that (one bf16 ulp, 2^-7 of |y|)
+# the selective scan takes ex2.approx of a pre-scaled a and one FMA for the
+# decay and the add, where its plain loop takes the accurate exp and rounds
+# them apart; the recurrence contracts, so h_T agrees to a few float32
+# roundings.  y is a 17-term sum taken in another order: it agrees to a few
+# float32 ulps of the output's scale (|y| reaches ~80 here), so SSM_Y_ULPS
+# of max|y|; a bf16 y is one more rounding of that (one bf16 ulp, 2^-7 of
+# |y|)
 SSM_TOL = 1e-5
 SSM_Y_ULPS = 8 * 2.0 ** -23
 SSM_BF16_ULP = 2.0 ** -7
@@ -132,12 +138,45 @@ def phase_device():
 
 
 # ---------------------------------------------------------------- 2. build
-def phase_build():
+#: the kernels whose earlier versions ``--parent`` times beside these
+PARENT_KERNELS = ("pavlov_rglru", "pavlov_ssm")
+
+
+def phase_build(parent: Path | None) -> dict:
+    """Build the seven kernels (and, with ``parent``, that tree's two scans,
+    compiled at the same time into ``build/kernels/parent/``); return the
+    parent's loaded libraries by kernel name."""
+    import ctypes
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["flash_attention", "paged_attention", "pavlov_rglru",
-                        "pavlov_ssm", "pascal_matmul", "jacquard_gemv",
-                        "pavlov_lstm"])
+    procs = {}
+    try:
+        if parent is not None:
+            csrc = parent / "src" / "repro_torch" / "csrc"
+            out = build.BUILD_DIR / "parent"
+            out.mkdir(parents=True, exist_ok=True)
+            for name in PARENT_KERNELS:
+                so = out / f"{name}.so"
+                cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                       str(so), str(csrc / f"{name}.cu")]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), so)
+        logs = build.build(["flash_attention", "paged_attention",
+                            "pavlov_rglru", "pavlov_ssm", "pascal_matmul",
+                            "jacquard_gemv", "pavlov_lstm"])
+        parent_libs = {}
+        for name, (proc, so) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                fail(f"the parent's {name} did not build:\n{log[-3000:]}")
+            logs[f"parent {name}"] = log
+            parent_libs[name] = ctypes.CDLL(str(so))
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     say(f"[build] {len(logs)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s (sm_90a, into {build.BUILD_DIR})")
     for name, log in logs.items():
@@ -145,6 +184,7 @@ def phase_build():
             if "Compiling entry" in line or "Used" in line \
                     or "spill" in line:
                 say(f"[build] {name}: {line.strip()}")
+    return parent_libs
 
 
 # -------------------------------------------------------------- 3. kernels
@@ -184,6 +224,17 @@ def time_ms(what: str, fn, flush) -> float:
     return med
 
 
+def time_parent(what: str, module, lib, fn, flush) -> float:
+    """``fn`` timed with ``module``'s kernel library swapped for the parent
+    tree's ``lib`` (the same C entry), then the module's own restored."""
+    own = module.load
+    module.load = lambda name: lib
+    try:
+        return time_ms(f"{what}, parent kernel", fn, flush)
+    finally:
+        module.load = own
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / PEAK_BYTES_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -206,7 +257,7 @@ def flash_case(b, s, h, kvh, hd, window, dtype, gen):
     return (q, k, v), err
 
 
-def phase_kernels(seed: int, card: str):
+def phase_kernels(seed: int, card: str, parent: dict):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_raw,
@@ -373,14 +424,15 @@ def phase_kernels(seed: int, card: str):
     # ---- RG-LRU: B=4 slots, E = d_rnn = 2560; T=256 (a prefill bucket or
     # chunk), T=1 (decode) and a ragged T=100.  a in [0.9, 0.999] and
     # b ~ N(0, 1 - a^2), the ranges rglru_core gives them
-    from repro_torch.kernels.pavlov_rglru import (pavlov_rglru_raw,
+    from repro_torch.kernels.pavlov_rglru import (kernel as rglru_kernel,
+                                                  pavlov_rglru_raw,
                                                   pavlov_rglru_ref)
     b, e = 4, 2560
 
-    def rglru_inputs(t, dtype):
-        a = torch.empty((b, t, e), device="cuda").uniform_(
+    def rglru_inputs(t, dtype, bb=b):
+        a = torch.empty((bb, t, e), device="cuda").uniform_(
             0.9, 0.999, generator=gen)
-        drive = torch.randn((b, t, e), generator=gen, device="cuda") \
+        drive = torch.randn((bb, t, e), generator=gen, device="cuda") \
             * torch.sqrt(1.0 - a * a)
         return a.to(getattr(torch, dtype)), drive.to(getattr(torch, dtype))
 
@@ -392,31 +444,41 @@ def phase_kernels(seed: int, card: str):
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             tol = RGLRU_TOL[dtype]
+            same = torch.equal(out, ref)
             say(f"[kernel] rglru {dtype} B={b} T={t} E={e}: "
-                f"max|kernel-plain|={err:.3e} (tol {tol})")
-            if not err <= tol:
+                f"max|kernel-plain|={err:.3e} (tol {tol}), bit for bit: "
+                f"{same}")
+            if not err <= tol or (dtype == "float32" and not same):
                 fail(f"RG-LRU kernel disagrees with its plain version "
-                     f"({err} > {tol})")
+                     f"({err} > {tol}, or float32 not bit for bit)")
             if dtype == "float32" and t == 256:
                 rows["rglru"] = {"max_abs_err": err}
-    for t in (256, 1):          # float32: rglru_core builds a and b in f32
-        a, drive = rglru_inputs(t, "float32")
-        what = f"rglru float32 B={b} T={t} E={e}"
-        ms = time_ms(f"{what}, kernel", lambda: pavlov_rglru_raw(a, drive),
-                     flush)
-        plain = time_ms(f"{what}, plain", lambda: pavlov_rglru_ref(a, drive),
-                        flush)
-        bnd, by = bound_ms(3.0 * b * t * e * 4, 2.0 * b * t * e, "float32")
-        say(f"[kernel] on {card}: rglru float32 B={b} T={t} E={e}: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.5f} ms ({by}), "
-            f"timing floor {floor:.4f} ms")
-        if t == 256:
-            rows["rglru"].update(ms=ms, plain_ms=plain, library_ms=None,
-                                 bound_ms=bnd, bound_by=by)
-        else:       # the decode launches' shape
-            rows["rglru"]["decode_T1"] = dict(ms=ms, plain_ms=plain,
-                                              bound_ms=bnd, bound_by=by)
-    rows["ssm"] = ssm_kernel(gen, flush, card, floor)
+    # float32 (rglru_core builds a and b in f32): serving's prefill bucket,
+    # a decode step and one row's prefill chunk
+    for bb, t in ((4, 256), (4, 1), (1, 256)):
+        a, drive = rglru_inputs(t, "float32", bb)
+        what = f"rglru float32 B={bb} T={t} E={e}"
+        run = lambda: pavlov_rglru_raw(a, drive)  # noqa: E731
+        times = dict(ms=time_ms(f"{what}, kernel", run, flush))
+        if "pavlov_rglru" in parent:
+            times["parent_ms"] = time_parent(
+                what, rglru_kernel, parent["pavlov_rglru"], run, flush)
+        times["plain_ms"] = time_ms(f"{what}, plain",
+                                    lambda: pavlov_rglru_ref(a, drive), flush)
+        if t == 1:
+            times["warm_l2_ms"] = time_ms(f"{what}, kernel, L2 not flushed",
+                                          run, lambda: None)
+        bnd, by = bound_ms(3.0 * bb * t * e * 4, 2.0 * bb * t * e, "float32")
+        times.update(bound_ms=bnd, bound_by=by)
+        say(f"[kernel] on {card}: {what}: {scan_times(times)}, bound "
+            f"{bnd:.5f} ms ({by}), timing floor {floor:.4f} ms")
+        if (bb, t) == (4, 256):
+            rows["rglru"].update(library_ms=None, **times)
+        elif t == 1:        # the decode launches' shape
+            rows["rglru"]["decode_T1"] = times
+        else:               # recurrentgemma's prefill chunks of one row
+            rows["rglru"]["prefill_B1"] = times
+    rows["ssm"] = ssm_kernel(gen, flush, card, floor, parent)
     rows["pascal"] = pascal_kernel(gen, flush, card)
     rows["jacquard"] = jacquard_kernel(gen, flush, card)
     rows["lstm"] = lstm_kernel(gen, flush, card)
@@ -468,7 +530,17 @@ def paged_long(gen, flush, card: str, floor: float) -> dict:
                 bound_by=by, live_tokens=live)
 
 
-def ssm_kernel(gen, flush, card: str, floor: float) -> dict:
+def scan_times(t: dict) -> str:
+    """A scan's times for its ``[kernel]`` line."""
+    out = f"kernel {t['ms']:.4f} ms"
+    if "parent_ms" in t:
+        out += f" (parent's kernel {t['parent_ms']:.4f})"
+    if "warm_l2_ms" in t:
+        out += f", {t['warm_l2_ms']:.4f} with the L2 not flushed"
+    return out + f", plain {t['plain_ms']:.4f} ms"
+
+
+def ssm_kernel(gen, flush, card: str, floor: float, parent: dict) -> dict:
     """The selective scan at falcon-mamba's d_inner 8192 and d_state 16, in
     float32 as ``mamba_ssm`` builds its inputs (and once in bf16): B=4
     slots at T=256 (a prefill bucket), 1 (decode) and a ragged 100, B=1 at
@@ -478,7 +550,8 @@ def ssm_kernel(gen, flush, card: str, floor: float) -> dict:
     scaled by U[0.5, 1.5]."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.pavlov_ssm import pavlov_ssm_raw, pavlov_ssm_ref
+    from repro_torch.kernels.pavlov_ssm import (kernel as ssm_module,
+                                                pavlov_ssm_raw, pavlov_ssm_ref)
     d, n = 8192, 16
 
     def randn(*shape):
@@ -540,20 +613,27 @@ def ssm_kernel(gen, flush, card: str, floor: float) -> dict:
         nbytes = 4.0 * (3 * b * t * d + 2 * b * t * n + d * n + d
                         + 2 * b * d * n + b)
         what = f"ssm float32 B={b} T={t} D={d} N={n}"
-        ms = time_ms(f"{what}, kernel", lambda: pavlov_ssm_raw(*args), flush)
-        plain = time_ms(f"{what}, plain", lambda: pavlov_ssm_ref(*args),
-                        flush)
+        run = lambda: pavlov_ssm_raw(*args)  # noqa: E731
+        times = dict(ms=time_ms(f"{what}, kernel", run, flush))
+        if "pavlov_ssm" in parent:
+            times["parent_ms"] = time_parent(
+                what, ssm_module, parent["pavlov_ssm"], run, flush)
+        times["plain_ms"] = time_ms(f"{what}, plain",
+                                    lambda: pavlov_ssm_ref(*args), flush)
+        if t == 1:
+            times["warm_l2_ms"] = time_ms(f"{what}, kernel, L2 not flushed",
+                                          run, lambda: None)
         bnd, by = bound_ms(nbytes, 7.0 * b * t * d * n, "float32")
-        say(f"[kernel] on {card}: ssm float32 B={b} T={t} D={d} N={n}: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.5f} ms "
-            f"({by}; {b * t * d * n / 1e6:.1f} M expf), timing floor "
-            f"{floor:.4f} ms")
+        times.update(bound_ms=bnd, bound_by=by)
+        say(f"[kernel] on {card}: {what}: {scan_times(times)}, bound "
+            f"{bnd:.5f} ms ({by}; {b * t * d * n / 1e6:.1f} M exponentials),"
+            f" timing floor {floor:.4f} ms")
         if (b, t) == (4, 256):
-            row.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                       bound_by=by)
+            row.update(library_ms=None, **times)
         elif t == 1:        # the decode launches' shape
-            row["decode_T1"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
-                                    bound_by=by)
+            row["decode_T1"] = times
+        else:               # a prefill chunk of one row
+            row["prefill_B1"] = times
     return row
 
 
@@ -1235,6 +1315,9 @@ def phase_serve_mamba(seed: int, card: str):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="an unpacked checkout of an earlier commit: time "
+                         "its two scan kernels beside these in phase 3")
     args = ap.parse_args()
     name, count, smi = phase_device()
     src = ROOT / "src"
@@ -1242,8 +1325,11 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"a checkout of the repository")
     sys.path.insert(0, str(src))
-    phase_build()
-    rows = phase_kernels(args.seed, smi)
+    parent = None if args.parent is None else args.parent.resolve()
+    if parent is not None and not (parent / "src" / "repro_torch"
+                                   / "csrc").is_dir():
+        fail(f"--parent {parent}: no src/repro_torch/csrc there")
+    rows = phase_kernels(args.seed, smi, phase_build(parent))
     phase_parity(args.seed, "qwen3-0.6b", 2, kv_block_size=16)
     phase_parity(args.seed, "recurrentgemma-2b", 3, kv_block_size=None)
     phase_parity(args.seed, "falcon-mamba-7b", 2, kv_block_size=None)

@@ -3,8 +3,9 @@
 // Asynchronous copies into shared memory (cp.async, and TMA boxes whose
 // completion an mbarrier counts), the warpgroup matrix-multiply fences
 // and the 128-byte-swizzle shared-memory descriptor, and the host's
-// lookup of cuTensorMapEncodeTiled.  Included by flash_attention.cu and
-// pascal_matmul.cu; nvcc finds it beside them.
+// lookup of cuTensorMapEncodeTiled and 2-D tensor maps.  Included by
+// flash_attention.cu, pascal_matmul.cu, paged_attention.cu and the two
+// scans; nvcc finds it beside them.
 
 #pragma once
 
@@ -157,6 +158,33 @@ inline EncodeTiled encoder() {
                : nullptr;
   }();
   return fn;
+}
+
+// a row-major (rows, cols) array of elem-byte values as a 2-D tensor map:
+// boxes of box_cols x box_rows, stored unswizzled, zero-filled past either
+// edge.  TMA needs a 16-byte aligned base and a row pitch (cols * elem)
+// that is a multiple of 16 bytes: see aligned_rows
+inline cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr,
+                                 CUtensorMapDataType type, int elem,
+                                 int64_t cols, int64_t rows, int box_cols,
+                                 int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(cols * elem)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(
+      map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// whether a row-major array of rows `row_bytes` long at p can be moved by
+// TMA boxes or bulk copies: a 16-byte aligned base and a 16-byte pitch
+inline bool aligned_rows(const void* p, int64_t row_bytes) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && row_bytes % 16 == 0;
 }
 
 }  // namespace hopper

@@ -4,8 +4,9 @@ Replaces ``repro/kernels/pavlov_rglru/kernel.py::_rglru_kernel``.  What
 bounds it on the card: it reads a and b once and writes h once,
 3·B·T·E elements, for two operations per element — bound by bytes (at the
 serving prefill shape B=4, T=256, E=2560 in float32, 31.5 MB, about
-9.4 µs at 3.35 TB/s).  One thread walks one (b, e) channel through T with
-h in a register; warps lie along E, so every access is coalesced.
+9.4 µs at 3.35 TB/s).  One lane walks one (b, e) channel through T with
+h in a register; a warp's strip of 32 channels streams its a and b through
+a ring of TMA boxes in shared memory, so enough bytes are in flight.
 """
 from __future__ import annotations
 
@@ -33,19 +34,28 @@ def _lib():
     return fn
 
 
-def pavlov_rglru_raw(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a, b: contiguous (B, T, E) CUDA tensors of one dtype (float32 or
-    bfloat16) -> h: (B, T, E) in that dtype."""
-    if not (a.is_cuda and b.is_cuda):
-        raise ValueError("pavlov_rglru_raw takes CUDA tensors")
+def check_rglru_args(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: dtypes, shapes, empty or
+    non-contiguous inputs.  The C entry picks the route (a TMA ring, or
+    element loads at T = 1 and for unaligned rows)."""
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"dtypes {a.dtype}/{b.dtype}: need one of float32, "
                         f"bfloat16 for a and b")
     if a.dim() != 3 or tuple(b.shape) != tuple(a.shape) or a.numel() == 0:
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}: "
                          f"need two equal non-empty (B, T, E)")
+    if a.shape[0] > 65535:
+        raise ValueError(f"batch {a.shape[0]} > 65535")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("pavlov_rglru_raw needs contiguous inputs")
+
+
+def pavlov_rglru_raw(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: contiguous (B, T, E) CUDA tensors of one dtype (float32 or
+    bfloat16) -> h: (B, T, E) in that dtype."""
+    check_rglru_args(a, b)
+    if not (a.is_cuda and b.is_cuda):
+        raise ValueError("pavlov_rglru_raw takes CUDA tensors")
     bb, t, e = a.shape
     h = torch.empty_like(a)
     stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -315,7 +315,8 @@ def test_paged_slot_bits_do_not_depend_on_the_batch_on_card(cuda, dtype):
 @pytest.mark.parametrize("t", [1, 100, 256])
 def test_rglru_kernel_matches_plain_on_card(cuda, dtype, tol, t):
     """The kernel rounds a*h and then +b, as the plain loop does, so float32
-    agrees to the bit in practice; bf16 outputs are a rounding of those."""
+    agrees to the bit (asserted by the test below); bf16 outputs are a
+    rounding of those."""
     a, b = _rglru_inputs(np.random.RandomState(t), 4, t, 2560)
     a = torch.from_numpy(a).to(cuda).to(dtype)
     b = torch.from_numpy(b).to(cuda).to(dtype)
@@ -343,13 +344,15 @@ Y_ULPS = 8 * 2.0 ** -23
     (3, 37, 200, 4, True),          # N < 16, D not a multiple of a block
     (2, 40, 96, 32, True)])         # the largest N
 def test_ssm_kernel_matches_plain_on_card(cuda, dtype, b, t, d, n, carry):
-    """The update rounds where the plain loop rounds (no FMA, accurate
-    expf), so h_T agrees to float32 rounding (to the bit in practice).  y
-    is a 17-term sum taken in another order: it agrees to a few float32
-    ulps of the output's scale (|y| reaches ~80 at T=256; both sides are
-    ~1e-5 from a float64 loop there), hence ``Y_ULPS`` of max|y|.  A
-    0-length row keeps h0 bit for bit.  bf16 inputs are widened to float32
-    on both sides; y is one bf16 rounding of that."""
+    """The plain loop takes the accurate exp and rounds the decay and the
+    add apart; the kernel takes ex2.approx of a pre-scaled a (2 ulp) and
+    one FMA for the decay and the add.  The recurrence contracts, so h_T
+    agrees to a few float32 roundings, within 1e-5.  y is a 17-term sum
+    taken in another order: it agrees to a few float32 ulps of the output's
+    scale (|y| reaches ~80 at T=256; both sides are ~1e-5 from a float64
+    loop there), hence ``Y_ULPS`` of max|y|.  A 0-length row keeps h0 bit
+    for bit.  bf16 inputs are widened to float32 on both sides; y is one
+    bf16 rounding of that."""
     c = _ssm_inputs(np.random.RandomState(t + n), b, t, d, n)
     g = {k: torch.from_numpy(v).to(cuda) for k, v in c.items()}
     ins = [g[k].to(dtype) for k in ("delta", "x", "bc", "cc")]
@@ -371,6 +374,148 @@ def test_ssm_kernel_matches_plain_on_card(cuda, dtype, b, t, d, n, carry):
         assert bool((err <= y_ref.float().abs() * 2.0 ** -7 + scale).all())
     if carry and b > 1:
         assert torch.equal(h_t[1], h0[1])               # the 0-length row
+
+
+def _rglru_on_card(seed, b, t, e, device):
+    a, drive = _rglru_inputs(np.random.RandomState(seed), b, t, e)
+    return torch.from_numpy(a).to(device), torch.from_numpy(drive).to(device)
+
+
+def _unaligned(x):
+    """A copy of x whose data starts one element past a 16-byte boundary:
+    no TMA box or bulk copy can take it, so the kernels take their element
+    / direct routes."""
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    out = flat[1:1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,e", [
+    (4, 1, 2560),       # a decode step (the element route)
+    (4, 100, 2560),     # a ragged chunk count (the ring)
+    (4, 256, 2560),     # recurrentgemma's prefill bucket
+    (1, 256, 2560),     # a prefill chunk of one row
+    (4, 256, 2600),     # E past the last 32-channel strip
+    (3, 50, 37)])       # rows no TMA box takes (the element route)
+def test_rglru_kernel_equals_plain_bitwise_on_card(cuda, b, t, e):
+    """float32: the same two roundings a step as the plain loop, in t
+    order, on either route: the same bits."""
+    a, drive = _rglru_on_card(t + e, b, t, e, cuda)
+    out = pr.pavlov_rglru(a, drive)
+    ref = pr.pavlov_rglru_ref(a, drive)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_rglru_chunks_carry_bitwise_on_card(cuda):
+    """One call over T=256 equals a call over the first 100 steps and one
+    over the other 156 whose b[:, 0] carries the state as the caller folds
+    it (``b[:, 0] += a[:, 0] * h``), bit for bit."""
+    a, drive = _rglru_on_card(5, 4, 256, 2560, cuda)
+    whole = pr.pavlov_rglru(a, drive)
+    first = pr.pavlov_rglru(a[:, :100].contiguous(),
+                            drive[:, :100].contiguous())
+    rest = drive[:, 100:].contiguous()
+    rest[:, 0] += a[:, 100] * first[:, -1]
+    second = pr.pavlov_rglru(a[:, 100:].contiguous(), rest)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([first, second], dim=1), whole)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_routes_and_calls_agree_bitwise_on_card(cuda, dtype):
+    """The ring (aligned rows) and the element route (an input one element
+    off 16 bytes) give the same bits, and two calls the same bits."""
+    a, drive = _rglru_on_card(6, 4, 256, 2560, cuda)
+    a, drive = a.to(dtype), drive.to(dtype)
+    ring, again = pr.pavlov_rglru(a, drive), pr.pavlov_rglru(a, drive)
+    element = pr.pavlov_rglru(_unaligned(a), drive)
+    torch.cuda.synchronize()
+    assert torch.equal(ring, again) and torch.equal(ring, element)
+
+
+def _ssm_on_card(seed, b, t, d, n, device, lengths=None):
+    """float32 inputs on the card as (delta, x, bc, cc, a, d_skip, h0,
+    length), ``lengths`` in place of the random ones when given."""
+    c = _ssm_inputs(np.random.RandomState(seed), b, t, d, n)
+    if lengths is not None:
+        c["length"] = np.asarray(lengths, np.int32)
+    return [torch.from_numpy(c[k]).to(device) for k in
+            ("delta", "x", "bc", "cc", "a", "d_skip", "h0", "length")]
+
+
+def _steps(args, lo, hi):
+    """The inputs of steps lo..hi-1, lengths counted from lo, with h0."""
+    delta, x, bc, cc, a, d_skip, h0, length = args
+    part = [z[:, lo:hi].contiguous() for z in (delta, x, bc, cc)]
+    return part + [a, d_skip, h0, (length - lo).clamp(0, hi - lo).int()]
+
+
+@pytest.mark.gpu
+def test_ssm_chunks_carry_bitwise_on_card(cuda):
+    """One call over T=256 equals a call over the first 100 steps and one
+    over the other 156 from its h_T, bit for bit in y and h_T, with
+    lengths that end in either chunk, at one of them, and at 0."""
+    args = _ssm_on_card(7, 4, 256, 8192, 16, cuda, [256, 0, 100, 180])
+    y, h_t = ps.pavlov_ssm(*args)
+    y1, h1 = ps.pavlov_ssm(*_steps(args, 0, 100))
+    part = _steps(args, 100, 256)
+    part[6] = h1
+    y2, h2 = ps.pavlov_ssm(*part)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], dim=1), y)
+    assert torch.equal(h2, h_t)
+    assert torch.equal(h_t[1], args[6][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 256])
+def test_ssm_row_bits_do_not_depend_on_the_batch_on_card(cuda, t):
+    """Each row's y and h_T are the same bits alone (B=1) as inside B=4:
+    a channel's lanes and sum order come from N only."""
+    args = _ssm_on_card(8 + t, 4, t, 8192, 16, cuda,
+                        [t, 0, max(1, t // 3), t])
+    y, h_t = ps.pavlov_ssm(*args)
+    delta, x, bc, cc, a, d_skip, h0, length = args
+    for i in range(4):
+        row = [z[i:i + 1].contiguous() for z in (delta, x, bc, cc)]
+        y_i, h_i = ps.pavlov_ssm(*row, a, d_skip, h0[i:i + 1].contiguous(),
+                                 length[i:i + 1].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(y_i, y[i:i + 1]) and torch.equal(h_i, h_t[i:i + 1])
+
+
+@pytest.mark.gpu
+def test_ssm_decode_step_equals_first_step_bitwise_on_card(cuda):
+    """A T=1 call (the direct route) equals the first step of a T=256
+    call (the ring): y[:, 0] unmasked, and h_T where the long call's
+    lengths stop its state after that step."""
+    args = _ssm_on_card(9, 4, 256, 8192, 16, cuda, [256] * 4)
+    y_long, _ = ps.pavlov_ssm(*args[:6], args[6], None)
+    _, h_one_step = ps.pavlov_ssm(*args[:7], torch.ones_like(args[7]))
+    y_1, h_1 = ps.pavlov_ssm(*_steps(args, 0, 1)[:7], None)
+    torch.cuda.synchronize()
+    assert torch.equal(y_1[:, 0], y_long[:, 0])
+    assert torch.equal(h_1, h_one_step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_routes_and_calls_agree_bitwise_on_card(cuda, dtype):
+    """The ring (aligned rows) and the direct route (delta one element off
+    16 bytes) give the same bits in y and h_T, and two calls the same
+    bits."""
+    args = _ssm_on_card(10, 4, 100, 8192, 16, cuda)
+    args[:4] = [z.to(dtype) for z in args[:4]]
+    ring, again = ps.pavlov_ssm(*args), ps.pavlov_ssm(*args)
+    direct = ps.pavlov_ssm(_unaligned(args[0]), *args[1:])
+    torch.cuda.synchronize()
+    for got in (again, direct):
+        assert torch.equal(got[0], ring[0]) and torch.equal(got[1], ring[1])
 
 
 # ------------------------------------------------------ the Mensa dataflows

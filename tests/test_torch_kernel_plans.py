@@ -15,11 +15,15 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import jacquard_gemv as jg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import pavlov_rglru as pr  # noqa: E402
+from repro_torch.kernels import pavlov_ssm as ps  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.jacquard_gemv import kernel as gk  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pgk  # noqa: E402
 from repro_torch.kernels.pascal_matmul import kernel as pk  # noqa: E402
 from repro_torch.kernels.pavlov_lstm import kernel as lk  # noqa: E402
+from repro_torch.kernels.pavlov_rglru import kernel as rk  # noqa: E402
+from repro_torch.kernels.pavlov_ssm import kernel as sk  # noqa: E402
 
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -344,3 +348,162 @@ def test_paged_on_cpu_tensors_is_the_plain_version(dtype, h, kvh, hd):
     out = pa.paged_attention(q, kp, vp, table, lengths)
     ref = pa.paged_attention_ref(q, kp, vp, table, lengths)
     assert out.dtype == dtype and torch.equal(out, ref)
+
+
+# ------------------------------------------------------ the recurrent scans
+def test_rglru_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.pavlov_rglru_raw(torch.zeros(2, 3, 8), torch.zeros(2, 3, 8))
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    (lambda a, b: (a.half(), b.half()), TypeError, "dtypes"),
+    (lambda a, b: (a.double(), b.double()), TypeError, "dtypes"),
+    (lambda a, b: (a, b.bfloat16()), TypeError, "dtypes"),
+    (lambda a, b: (a.bfloat16(), b), TypeError, "dtypes"),
+    (lambda a, b: (a, b[:, :2]), ValueError, "shapes"),
+    (lambda a, b: (a[..., :4], b), ValueError, "shapes"),
+    (lambda a, b: (a[0], b[0]), ValueError, "shapes"),
+    (lambda a, b: (a[:, :0], b[:, :0]), ValueError, "shapes"),
+    (lambda a, b: (a.transpose(1, 2).contiguous().transpose(1, 2), b),
+     ValueError, "contiguous"),
+    (lambda a, b: (a, b.transpose(0, 1).contiguous().transpose(0, 1)),
+     ValueError, "contiguous"),
+    (lambda a, b: (torch.zeros(2, 3, 16)[..., ::2], b), ValueError,
+     "contiguous"),
+])
+def test_rglru_refuses_shapes_dtypes_and_layouts(bad, exc, match):
+    """Refused on the CPU, before the wrapper looks for a card."""
+    with pytest.raises(exc, match=match):
+        rk.pavlov_rglru_raw(*bad(torch.zeros(2, 3, 8), torch.zeros(2, 3, 8)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,e", [(4, 256, 2560), (4, 1, 2560),
+                                   (1, 256, 2560), (3, 100, 2600),
+                                   (2, 7, 37)])
+def test_rglru_takes_every_shape_it_serves(dtype, b, t, e):
+    """Prefill chunks, decode steps, an E past the ring's 32-channel strips
+    and rows no TMA box can take (the element route): every check passes,
+    and the call fails only for want of a card."""
+    a = torch.zeros(b, t, e, dtype=dtype)
+    rk.check_rglru_args(a, a.clone())
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.pavlov_rglru_raw(a, a.clone())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,e", [(2, 1, 40), (3, 17, 33), (1, 64, 8)])
+def test_rglru_on_cpu_tensors_is_the_plain_version(dtype, b, t, e):
+    """The public wrapper runs the plain version for CPU tensors, and only
+    because they lie on the CPU: the same bits as calling it directly."""
+    gen = torch.Generator().manual_seed(b * 100 + t)
+    a = torch.rand(b, t, e, generator=gen).to(dtype)
+    drive = torch.randn(b, t, e, generator=gen).to(dtype)
+    out = pr.pavlov_rglru(a, drive)
+    ref = pr.pavlov_rglru_ref(a, drive)
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
+def _ssm_args(dtype=torch.float32, b=2, t=3, d=8, n=4):
+    return [torch.zeros(b, t, d, dtype=dtype),
+            torch.zeros(b, t, d, dtype=dtype),
+            torch.zeros(b, t, n, dtype=dtype),
+            torch.zeros(b, t, n, dtype=dtype),
+            torch.zeros(d, n), torch.zeros(d), torch.zeros(b, d, n),
+            torch.zeros(b, dtype=torch.int32)]
+
+
+def test_ssm_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.pavlov_ssm_raw(*_ssm_args())
+
+
+def _bad_ssm(i, f):
+    """_ssm_args with argument i replaced by f(it)."""
+    def make(args):
+        args[i] = f(args[i])
+        return args
+    return make
+
+
+def _strided(x):
+    return x.transpose(0, -1).contiguous().transpose(0, -1)
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    (_bad_ssm(0, lambda t: t.half()), TypeError, "dtypes"),
+    (_bad_ssm(1, lambda t: t.bfloat16()), TypeError, "dtypes"),
+    (_bad_ssm(2, lambda t: t.double()), TypeError, "dtypes"),
+    (_bad_ssm(3, lambda t: t.bfloat16()), TypeError, "dtypes"),
+    (_bad_ssm(4, lambda t: t.bfloat16()), TypeError, "float32"),
+    (_bad_ssm(5, lambda t: t.double()), TypeError, "float32"),
+    (_bad_ssm(6, lambda t: t.bfloat16()), TypeError, "float32"),
+    (_bad_ssm(7, lambda t: t.long()), TypeError, "int32"),
+    (_bad_ssm(0, lambda t: t[0]), ValueError, "delta"),
+    (_bad_ssm(0, lambda t: t[:, :0]), ValueError, "delta"),
+    (_bad_ssm(1, lambda t: t[..., :4]), ValueError, "x"),
+    (_bad_ssm(2, lambda t: t[:, :2]), ValueError, "bc"),
+    (_bad_ssm(3, lambda t: t[..., :2]), ValueError, "bc"),
+    (_bad_ssm(4, lambda t: t[:4]), ValueError, "need"),
+    (_bad_ssm(5, lambda t: t[:4]), ValueError, "d_skip"),
+    (_bad_ssm(6, lambda t: t[:1]), ValueError, "h0"),
+    (_bad_ssm(7, lambda t: t[:1]), ValueError, "length"),
+    (_bad_ssm(0, _strided), ValueError, "contiguous"),
+    (_bad_ssm(1, _strided), ValueError, "contiguous"),
+    (_bad_ssm(2, _strided), ValueError, "contiguous"),
+    (_bad_ssm(3, _strided), ValueError, "contiguous"),
+    (_bad_ssm(4, _strided), ValueError, "contiguous"),
+    (_bad_ssm(6, _strided), ValueError, "contiguous"),
+    (_bad_ssm(5, lambda t: torch.zeros(16)[::2]), ValueError, "contiguous"),
+])
+def test_ssm_refuses_shapes_dtypes_and_layouts(bad, exc, match):
+    """Refused on the CPU, before the wrapper looks for a card."""
+    with pytest.raises(exc, match=match):
+        sk.pavlov_ssm_raw(*bad(_ssm_args()))
+
+
+@pytest.mark.parametrize("n", [0, 33, 64])
+def test_ssm_refuses_state_sizes_outside_1_to_32(n):
+    with pytest.raises(ValueError, match="N <= 32"):
+        sk.pavlov_ssm_raw(*_ssm_args(n=n))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 3, 4, 8, 12, 16, 32])
+@pytest.mark.parametrize("t,state", [(1, True), (256, True), (37, False)])
+def test_ssm_takes_every_state_size_and_step_count(dtype, n, t, state):
+    """Every N up to 32 (the ring's 4, 8, 16, 32 and the direct route's
+    others), decode steps and prefill chunks, with and without a carried
+    state: every check passes, and the call fails only for want of a
+    card."""
+    args = _ssm_args(dtype, b=2, t=t, d=40, n=n)
+    if not state:
+        args[6:] = [None, None]
+    sk.check_ssm_args(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.pavlov_ssm_raw(*args)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,d,n,state", [(3, 9, 24, 16, True),
+                                           (2, 1, 40, 4, True),
+                                           (1, 12, 17, 5, False)])
+def test_ssm_on_cpu_tensors_is_the_plain_version(dtype, b, t, d, n, state):
+    """The public wrapper runs the plain version for CPU tensors, and only
+    because they lie on the CPU: the same bits as calling it directly."""
+    gen = torch.Generator().manual_seed(b * 1000 + t * 10 + n)
+    args = [torch.rand(b, t, d, generator=gen).to(dtype) * 0.1,
+            torch.randn(b, t, d, generator=gen).to(dtype),
+            torch.randn(b, t, n, generator=gen).to(dtype),
+            torch.randn(b, t, n, generator=gen).to(dtype),
+            -torch.rand(d, n, generator=gen) * n,
+            torch.randn(d, generator=gen),
+            torch.randn(b, d, n, generator=gen),
+            torch.tensor([t, 0, 1][:b], dtype=torch.int32)]
+    if not state:
+        args[6:] = [None, None]
+    y, h_t = ps.pavlov_ssm(*args)
+    y_ref, h_ref = ps.pavlov_ssm_ref(*args)
+    assert y.dtype == dtype and torch.equal(y, y_ref)
+    assert h_t.dtype == torch.float32 and torch.equal(h_t, h_ref)
