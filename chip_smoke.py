@@ -44,9 +44,22 @@ Phases, one line or block of output each; any failure exits non-zero:
    the launch counters set to 0 just before, the whole 8-layer encoder over
    T=200 and the 2-layer prediction network over U=20, once as one call and
    once as 20 single steps carrying (h, c), which must agree bit for bit;
-6. serve — three paths through ``ServeEngine``, random weights from the
-   seed, each run with every kernel's launch counter set to 0 just before
-   it and read just after, each model released before the next is built:
+6. placement and serve — first the paper's Mensa pipeline on the port's
+   copies (``repro_torch.core``): the 24 edge models characterized,
+   clustered, scheduled and evaluated (every number of the paper's modeled
+   accelerators, none of the card), and each served arch's rule clusters
+   held against a seeded k-means; then three paths through
+   ``launch.serve.build_engine``, random weights from the seed, each served
+   twice over one model: with ``policy="auto"`` (the placement oracle's
+   plan: characterize -> cluster -> cost; its buckets and chunk) and with
+   ``policy="fixed"``, the first engine released before the second is
+   built.  Each run's launch counters are set to 0 just before it and read
+   just after; the two runs must serve the same tokens, the sampled request
+   too, with the same launches, which are the path's own (flash 168 and
+   paged 924; flash 32 and RG-LRU 1350, 1116 of them decode; SSM 4480, 3968
+   of them decode).  Each prints its plan, the predicted (modeled) and
+   measured (the card's) phase times and their drift; each model is
+   released before the next is built:
    a. full-width qwen3-0.6b, all 28 layers: paged KV, prefix cache,
       bucketed and chunked prefill, greedy and sampled decode;
    b. full-width recurrentgemma-2b, all 26 layers: dense KV (2048-token
@@ -1144,66 +1157,206 @@ def check_all(what: str, checks: dict) -> None:
             fail(f"{what}: {claim} does not hold")
 
 
+#: each serving path's launches, counted from 0 just before its run: fixed
+#: by its requests and geometry (flash: layers x prefill calls; paged
+#: decode: layers x decode steps; the scans: layers x (prefill calls +
+#: chunks + decode steps)), and the same under both policies, since a plan
+#: picks geometry only and both resolve to the same one here
+SERVE_LAUNCHES = {
+    "qwen3-0.6b": {"flash": 168, "paged": 924},
+    "recurrentgemma-2b": {"flash": 32, "rglru": 1350, "rglru_decode": 1116},
+    "falcon-mamba-7b": {"ssm": 4480, "ssm_decode": 3968},
+}
+#: what the plan's predicted times are of: never the card
+MODELED = "modeled: the paper's Mensa accelerators, not the card"
+
+
+def phase_mensa() -> None:
+    """The paper's pipeline on the port's copies: the 24 edge models
+    characterized, clustered, scheduled and evaluated against the Baseline,
+    Base+HB and Eyeriss v2, and each served arch's rule clusters held
+    against a seeded k-means at its serving geometry."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import (agreement, characterize_zoo, evaluate_zoo,
+                                  summarize)
+    from repro_torch.edge import edge_zoo
+    from repro_torch.serve.placement import verify_kmeans_agreement
+    t0 = time.perf_counter()
+    zoo = edge_zoo()
+    results = evaluate_zoo(zoo)
+    summary = summarize(results)
+    costs = [c for r in results
+             for c in (r.baseline, r.base_hb, r.eyeriss, r.mensa)]
+    check_all("mensa", {
+        "24 models evaluated": len(zoo) == len(results) == 24,
+        "latency, energy and throughput finite and positive": all(
+            math.isfinite(v) and v > 0 for c in costs
+            for v in (c.latency_s, c.energy.total, c.throughput_flops)),
+        "summary finite": all(math.isfinite(v)
+                              for v in dataclasses.astuple(summary)),
+    })
+    scores = {}
+    for arch, max_len, floor in (("qwen3-0.6b", 1024, 0.9),
+                                 ("recurrentgemma-2b", 4096, 0.6),
+                                 ("falcon-mamba-7b", 4096, 0.9)):
+        try:
+            scores[arch] = verify_kmeans_agreement(
+                get_config(arch), max_len=max_len, min_agreement=floor)
+        except AssertionError as e:
+            fail(f"mensa: {e}")
+    zoo_agreement = agreement(characterize_zoo(zoo))
+    say(f"[mensa] 24 edge models, {sum(len(g.layers) for g in zoo)} layers "
+        f"({MODELED}), {time.perf_counter() - t0:.1f} s on the host: "
+        + ", ".join(f"{f.name} {getattr(summary, f.name):.4f}"
+                    for f in dataclasses.fields(summary)))
+    say(f"[mensa] rule-vs-k-means agreement (seed 0): the zoo "
+        f"{zoo_agreement:.4f}; served archs at their serving max_len "
+        + ", ".join(f"{a} {v:.4f}" for a, v in scores.items()))
+
+
+def serve_both(what: str, cfg, model, card: str, engine_kw: dict,
+               make_requests, drive) -> dict:
+    """Serve ``make_requests()`` through ``drive`` on an engine built by
+    ``build_engine(policy="auto")`` and again on a ``policy="fixed"`` one
+    over the same model, the first engine released before the second is
+    built; each run's launches counted from 0 just before it.  Fails
+    unless both serve the same tokens with the same launches, the plan is
+    the card's, and the launches are the path's (``SERVE_LAUNCHES``)."""
+    import torch
+    from repro_torch.launch.serve import build_engine
+    runs = {}
+    for policy in ("auto", "fixed"):
+        t0 = time.perf_counter()
+        engine = build_engine(cfg, model, policy=policy, **engine_kw)
+        engine.warmup()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        reqs = make_requests()
+        reset_counts()
+        drive(engine, reqs)
+        counts = read_counts()
+        runs[policy] = dict(reqs=reqs, counts=counts, plan=engine.policy,
+                            s=engine.stats.summary(), warm=warm,
+                            geometry=(engine.buckets, engine.prefill_chunk))
+        del engine
+        release()
+    auto, fixed = runs["auto"], runs["fixed"]
+    plan, s = auto["plan"], auto["s"]
+    say(f"[serve] {what} plan (auto, backend {plan.backend}): clusters "
+        f"{sorted(set(plan.layer_clusters))} over {len(plan.layer_clusters)}"
+        f" layers, chunk {plan.prefill_chunk}, buckets {list(plan.buckets)}, "
+        f"rule-vs-k-means {plan.rule_kmeans_agreement:.4f}; policies "
+        + "; ".join(f"cluster {p.cluster} {list(p.kinds)} -> {p.accelerator}"
+                    f", kernel {p.kernel} {list(p.variants)}"
+                    for p in plan.policies))
+    for policy, run in runs.items():
+        r = run["s"]
+        say(f"[serve] {what} --policy {policy}: engine + warmup "
+            f"{run['warm']:.1f} s; buckets {list(run['geometry'][0])}, chunk "
+            f"{run['geometry'][1]}; completed {r['requests_completed']}, "
+            f"tokens {r['tokens_generated']}, prefill calls "
+            f"{r['prefill_calls']}, chunks {r['prefill_chunks']}, "
+            f"non-finite logit rows {r['nonfinite_logits']}, launches "
+            f"{run['counts']}")
+        say(f"[serve] {what} --policy {policy} {serve_line(r, card)}")
+    pl = s["placement"]
+    meas = pl["measured"]
+    say(f"[serve] {what} placement, predicted ({MODELED}): prefill chunk "
+        f"{pl['predicted']['prefill_chunk_s']:.6g} s, decode step "
+        f"{pl['predicted']['decode_step_s']:.6g} s; measured on {card} "
+        f"(--policy auto): prefill call {meas['prefill_call_s']:.6g} s, "
+        f"prefill token {meas['prefill_token_s']:.6g} s, decode step "
+        f"{meas['decode_step_s']:.6g} s; drift (measured / predicted) "
+        + ", ".join(f"{ph} {d['ratio']:.4g}"
+                    for ph, d in pl["drift"].get("phases", {}).items()))
+    want = SERVE_LAUNCHES[what]
+    check_all(f"serve {what}", {
+        "tokens identical under --policy auto and fixed": [
+            r.generated for r in auto["reqs"]]
+            == [r.generated for r in fixed["reqs"]],
+        "launches equal under both policies":
+            auto["counts"] == fixed["counts"],
+        f"launches are {want}": {k: n for k, n in auto["counts"].items()
+                                 if n} == want,
+        "the plan is the card's": plan.source == "auto"
+            and plan.backend == "cuda"
+            and all(p.kernel == "cuda" for p in plan.policies),
+        "the fixed run records a fixed plan":
+            fixed["s"]["placement"]["source"] == "fixed",
+        "the placement drift is reported": bool(pl["drift"]),
+    })
+    return auto
+
+
+def serve_checks(what: str, cfg, run: dict, new: int, checks: dict) -> None:
+    s = run["s"]
+    check_all(f"serve {what}", {
+        "every request finished": all(r.done and len(r.generated) == new
+                                      for r in run["reqs"]),
+        "all logits finite": s["nonfinite_logits"] == 0,
+        "tokens in vocab": all(0 <= t < cfg.vocab_size
+                               for r in run["reqs"] for t in r.generated),
+        **checks,
+    })
+
+
 def phase_serve(seed: int, card: str):
+    """Full-width qwen3-0.6b through the paged engine: bucketed and chunked
+    prefill, a prefix hit with a copy-on-write clone, a sampled request."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serve.engine import Request, ServeEngine, prefill_buckets
+    from repro_torch.serve.engine import Request
     cfg = get_config("qwen3-0.6b")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=seed)
-    engine = ServeEngine(model, slots=4, max_len=1024, kv_block_size=16,
-                         buckets=prefill_buckets(256), prefill_chunk=256)
-    engine.warmup()
     torch.cuda.synchronize()
     say(f"[serve] qwen3-0.6b full width ({cfg.num_layers} layers, "
         f"{cfg.param_count() / 1e6:.0f} M parameters, bf16 compute), "
-        f"model + warmup {time.perf_counter() - t0:.1f} s")
-    rng = np.random.RandomState(seed)
-    prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
-    shared = prompt(70)
-    reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=16)
-            for i, n in enumerate((5, 17, 40, 90, 180))]
-    reqs.append(Request(rid=5, prompt=prompt(600), max_new_tokens=16))
-    reqs.append(Request(rid=6, prompt=shared + prompt(10), max_new_tokens=16,
-                        temperature=0.8, top_k=50, top_p=0.9, seed=seed))
-    late = Request(rid=7, prompt=shared + prompt(12), max_new_tokens=16)
+        f"model {time.perf_counter() - t0:.1f} s")
 
-    reset_counts()
-    for r in reqs:
-        engine.submit(r)
-    while not reqs[6].generated:        # the shared prefix is published at
-        engine.step()                   # the first request's prefill
-    engine.submit(late)
-    engine.run([])
-    counts = read_counts()
+    def make_requests():
+        rng = np.random.RandomState(seed)
+        prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
+        shared = prompt(70)
+        reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=16)
+                for i, n in enumerate((5, 17, 40, 90, 180))]
+        reqs.append(Request(rid=5, prompt=prompt(600), max_new_tokens=16))
+        reqs.append(Request(rid=6, prompt=shared + prompt(10),
+                            max_new_tokens=16, temperature=0.8, top_k=50,
+                            top_p=0.9, seed=seed))
+        reqs.append(Request(rid=7, prompt=shared + prompt(12),
+                            max_new_tokens=16))
+        return reqs
 
-    s = engine.stats.summary()
-    reqs.append(late)
-    say(f"[serve] {len(reqs)} requests: completed "
-        f"{s['requests_completed']}, tokens {s['tokens_generated']}, "
-        f"prefill calls {s['prefill_calls']}, chunks {s['prefill_chunks']}, "
-        f"prefix hits {s['kv']['prefix_hits']} "
+    def drive(engine, reqs):
+        for r in reqs[:7]:
+            engine.submit(r)
+        while not reqs[6].generated:    # the shared prefix is published at
+            engine.step()               # the first request's prefill
+        engine.submit(reqs[7])
+        engine.run([])
+
+    run = serve_both("qwen3-0.6b", cfg, model, card,
+                     dict(slots=4, max_len=1024, kv_block_size=16,
+                          max_bucket=256), make_requests, drive)
+    s = run["s"]
+    say(f"[serve] qwen3-0.6b prefix hits {s['kv']['prefix_hits']} "
         f"({s['kv']['prefix_tokens_reused']} tokens, "
         f"{s['kv']['blocks_copied']} COW), blocks peak "
-        f"{s['kv']['blocks_peak']}, decode stalls "
-        f"{s['kv']['decode_stalls']}, non-finite logit rows "
-        f"{s['nonfinite_logits']}, launches {counts}")
-    say(f"[serve] qwen3-0.6b {serve_line(s, card)}")
-    check_all("serve qwen3-0.6b", {
-        "every request finished": all(r.done and len(r.generated) == 16
-                                      for r in reqs),
+        f"{s['kv']['blocks_peak']}, decode stalls {s['kv']['decode_stalls']}")
+    serve_checks("qwen3-0.6b", cfg, run, 16, {
         "prefill_chunks >= 3": s["prefill_chunks"] >= 3,
         "prefix_hits >= 1": s["kv"]["prefix_hits"] >= 1,
         "decode_stalls == 0": s["kv"]["decode_stalls"] == 0,
-        "flash kernel launched": counts["flash"] > 0,
-        "paged kernel launched": counts["paged"] > 0,
-        "all logits finite": s["nonfinite_logits"] == 0,
-        "tokens in vocab": all(0 <= t < cfg.vocab_size
-                               for r in reqs for t in r.generated),
     })
-    return counts
+    return run["counts"]
+
+
+def run_all(engine, reqs) -> None:
+    engine.run(reqs, on_truncate="raise")
 
 
 def phase_serve_recurrent(seed: int, card: str):
@@ -1214,50 +1367,37 @@ def phase_serve_recurrent(seed: int, card: str):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serve.engine import Request, ServeEngine, prefill_buckets
+    from repro_torch.serve.engine import Request
     cfg = get_config("recurrentgemma-2b")
     n_rec = cfg.layer_kinds.count("rec")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=seed)
-    engine = ServeEngine(model, slots=4, max_len=4096,
-                         buckets=prefill_buckets(256), prefill_chunk=256)
-    engine.warmup()
     torch.cuda.synchronize()
     say(f"[serve] recurrentgemma-2b full width ({cfg.num_layers} layers: "
         f"{n_rec} rec, {cfg.num_layers - n_rec} local, window "
         f"{cfg.window}; {cfg.param_count() / 1e9:.2f} B parameters, bf16 "
-        f"compute, dense KV), model + warmup "
-        f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.RandomState(seed + 1)
-    prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
+        f"compute, dense KV), model {time.perf_counter() - t0:.1f} s")
     new = 32
-    reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=new)
-            for i, n in enumerate((5, 40, 180, 2300))]
-    reqs.append(Request(rid=4, prompt=prompt(60), max_new_tokens=new,
-                        temperature=0.8, top_k=50, top_p=0.9, seed=seed))
-    reset_counts()
-    engine.run(reqs, on_truncate="raise")
-    counts = read_counts()
-    s = engine.stats.summary()
-    say(f"[serve] {len(reqs)} requests over {engine.slots} slots "
-        f"(prompts {[len(r.prompt) for r in reqs]}): completed "
-        f"{s['requests_completed']}, tokens {s['tokens_generated']}, "
-        f"prefill calls {s['prefill_calls']}, chunks {s['prefill_chunks']}, "
-        f"non-finite logit rows {s['nonfinite_logits']}, launches {counts}")
-    say(f"[serve] recurrentgemma-2b {serve_line(s, card)}")
-    check_all("serve recurrentgemma-2b", {
-        "every request finished": all(r.done and len(r.generated) == new
-                                      for r in reqs),
+
+    def make_requests():
+        rng = np.random.RandomState(seed + 1)
+        prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
+        reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=new)
+                for i, n in enumerate((5, 40, 180, 2300))]
+        reqs.append(Request(rid=4, prompt=prompt(60), max_new_tokens=new,
+                            temperature=0.8, top_k=50, top_p=0.9, seed=seed))
+        return reqs
+
+    run = serve_both("recurrentgemma-2b", cfg, model, card,
+                     dict(slots=4, max_len=4096, max_bucket=256),
+                     make_requests, run_all)
+    s = run["s"]
+    serve_checks("recurrentgemma-2b", cfg, run, new, {
         "prefill_chunks >= 9": s["prefill_chunks"] >= 9,
-        "RG-LRU kernel launched": counts["rglru"] > 0,
-        "flash kernel launched": counts["flash"] > 0,
         f"decode steps x {n_rec} <= RG-LRU decode launches":
-            s["decode_steps"] * n_rec <= counts["rglru_decode"],
-        "all logits finite": s["nonfinite_logits"] == 0,
-        "tokens in vocab": all(0 <= t < cfg.vocab_size
-                               for r in reqs for t in r.generated),
+            s["decode_steps"] * n_rec <= run["counts"]["rglru_decode"],
     })
-    return counts
+    return run["counts"]
 
 
 def phase_serve_mamba(seed: int, card: str):
@@ -1268,48 +1408,37 @@ def phase_serve_mamba(seed: int, card: str):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serve.engine import Request, ServeEngine, prefill_buckets
+    from repro_torch.serve.engine import Request
     cfg = get_config("falcon-mamba-7b")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=seed)
-    engine = ServeEngine(model, slots=4, max_len=4096,
-                         buckets=prefill_buckets(256), prefill_chunk=256)
-    engine.warmup()
     torch.cuda.synchronize()
     say(f"[serve] falcon-mamba-7b full width ({cfg.num_layers} ssm layers, "
         f"d_inner {cfg.d_inner}, d_state {cfg.d_state}; "
         f"{cfg.param_count() / 1e9:.2f} B parameters, bf16 compute, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card), "
-        f"model + warmup {time.perf_counter() - t0:.1f} s")
-    rng = np.random.RandomState(seed + 2)
-    prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
+        f"model {time.perf_counter() - t0:.1f} s")
     new = 32
-    reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=new)
-            for i, n in enumerate((5, 40, 180, 1000))]
-    reqs.append(Request(rid=4, prompt=prompt(60), max_new_tokens=new,
-                        temperature=0.8, top_k=50, top_p=0.9, seed=seed))
-    reset_counts()
-    engine.run(reqs, on_truncate="raise")
-    counts = read_counts()
-    s = engine.stats.summary()
-    say(f"[serve] {len(reqs)} requests over {engine.slots} slots "
-        f"(prompts {[len(r.prompt) for r in reqs]}): completed "
-        f"{s['requests_completed']}, tokens {s['tokens_generated']}, "
-        f"prefill calls {s['prefill_calls']}, chunks {s['prefill_chunks']}, "
-        f"non-finite logit rows {s['nonfinite_logits']}, launches {counts}")
-    say(f"[serve] falcon-mamba-7b {serve_line(s, card)}")
-    check_all("serve falcon-mamba-7b", {
-        "every request finished": all(r.done and len(r.generated) == new
-                                      for r in reqs),
+
+    def make_requests():
+        rng = np.random.RandomState(seed + 2)
+        prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
+        reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=new)
+                for i, n in enumerate((5, 40, 180, 1000))]
+        reqs.append(Request(rid=4, prompt=prompt(60), max_new_tokens=new,
+                            temperature=0.8, top_k=50, top_p=0.9, seed=seed))
+        return reqs
+
+    run = serve_both("falcon-mamba-7b", cfg, model, card,
+                     dict(slots=4, max_len=4096, max_bucket=256),
+                     make_requests, run_all)
+    s = run["s"]
+    serve_checks("falcon-mamba-7b", cfg, run, new, {
         "prefill_chunks >= 4": s["prefill_chunks"] >= 4,
-        "SSM kernel launched": counts["ssm"] > 0,
         f"decode steps x {cfg.num_layers} <= SSM decode launches":
-            s["decode_steps"] * cfg.num_layers <= counts["ssm_decode"],
-        "all logits finite": s["nonfinite_logits"] == 0,
-        "tokens in vocab": all(0 <= t < cfg.vocab_size
-                               for r in reqs for t in r.generated),
+            s["decode_steps"] * cfg.num_layers <= run["counts"]["ssm_decode"],
     })
-    return counts
+    return run["counts"]
 
 
 def main() -> None:
@@ -1336,6 +1465,7 @@ def main() -> None:
     release()
     paths = [phase_edge_lstm(args.seed, smi)]
     release()
+    phase_mensa()
     for serve in (phase_serve, phase_serve_recurrent, phase_serve_mamba):
         paths.append(serve(args.seed, smi))
         release()

@@ -1,6 +1,7 @@
 """The 10 assigned architecture configs (exact dims from the assignment table)
 plus ``reduced_config`` for CPU tests — a copy of ``repro.configs.archs``
-without the JAX package's execution knobs.
+without the JAX package's execution knobs (``scan_chunk`` aside, which the
+placement oracle reads).
 
 Sources ([source; verified-tier] per assignment):
   recurrentgemma-2b   [arXiv:2402.19427; hf]   hybrid RG-LRU + local attn, 1:2
@@ -124,6 +125,7 @@ def reduced_config(name: str) -> ArchConfig:
         d_model=64,
         d_ff=128 if c.d_ff else 0,
         vocab_size=512,
+        scan_chunk=16,
         window=16 if c.window else 0,
     )
     if c.num_heads:

@@ -1,5 +1,5 @@
-"""Serving entry point of the port: random weights from a seed -> engine -> a
-batch of requests -> the stats summary as JSON.
+"""Serving entry point of the port: a placement plan -> random weights from a
+seed -> engine -> a batch of requests -> the stats summary as JSON.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --requests 8 --slots 4 --max-len 1024 --kv-block-size 16
@@ -7,12 +7,24 @@ batch of requests -> the stats summary as JSON.
       --arch recurrentgemma-2b --max-len 4096 --kv-block-size 0
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch falcon-mamba-7b --max-len 4096 --kv-block-size 0
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --max-len 4096 --max-bucket 256 --policy-dump
 
 Runs on the card; ``--device cpu`` runs the plain versions on the CPU.
-``--kv-block-size 0`` keeps every KV cache dense per slot (falcon-mamba
-has no KV cache: its conv and scan states are per slot either way).  The
-options of ``repro.launch.serve`` that the port does not have yet are
-accepted by name only to fail with that message.
+``--policy auto`` (the default) resolves the placement oracle's plan for the
+arch's full-size config (characterize -> cluster -> cost,
+``serve/placement.py``) and serves at its bucket ladder and prefill chunk;
+``--policy fixed`` keeps the engine's own knobs; ``--policy-dump`` prints
+the plan as JSON and exits.  The plan's predicted times are those of the
+paper's modeled accelerators, not of the card.  ``--max-new``,
+``--min-bucket``, ``--max-prefill-per-step``, ``--max-prefill-batch``,
+``--long-prompts`` and ``--warmup`` are the JAX CLI's.  ``--kv-block-size``
+defaults to paged blocks of 16 tokens (the JAX CLI's default is dense KV);
+0 keeps every KV cache dense per slot (falcon-mamba has no KV cache: its
+conv and scan states are per slot either way).  The options of
+``repro.launch.serve`` that the port does not have yet (meshes, roles, the
+trace and metrics files) are accepted by name only to fail with that
+message.
 """
 from __future__ import annotations
 
@@ -25,20 +37,61 @@ from ..configs import get_config, reduced_config
 from ..models import build_model
 from ..obs import profile_trace
 from ..serve.engine import Request, ServeEngine, prefill_buckets
+from ..serve.placement import ExecutionOracle, PlacementPlan
 
 #: options of the JAX package's serving CLI that are not ported yet
-NOT_PORTED = ("--max-new", "--min-bucket", "--max-prefill-per-step",
-              "--max-prefill-batch", "--long-prompts", "--warmup", "--mesh",
-              "--dp", "--mp", "--roles", "--param-strategy", "--trace",
-              "--metrics-json", "--metrics-prom",
-              "--program-memory", "--no-program-memory", "--policy",
-              "--policy-dump")
+NOT_PORTED = ("--mesh", "--dp", "--mp", "--roles", "--param-strategy",
+              "--trace", "--metrics-json", "--metrics-prom",
+              "--program-memory", "--no-program-memory")
 
 
 class _NotPorted(argparse.Action):
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is an option of repro.launch.serve "
                      f"that the port does not have yet")
+
+
+def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
+                 min_bucket: int = 16, max_bucket: int | None = None,
+                 max_prefill_per_step: int = 1, max_prefill_batch: int = 4,
+                 prefill_chunk: int | None = None,
+                 kv_block_size: int | None = None,
+                 kv_blocks: int | None = None,
+                 prefix_cache: bool = True, device: str = "cuda",
+                 seed: int = 0, policy="auto") -> ServeEngine:
+    """An engine for ``cfg`` over ``model`` (default: a model with random
+    weights from ``seed`` on ``device``).  ``max_bucket`` caps the prefill
+    buckets below max_len so longer prompts run the chunked path;
+    ``kv_block_size``/``kv_blocks``/``prefix_cache`` select the paged pool.
+
+    ``policy``: "auto" (default) resolves a ``PlacementPlan`` through the
+    ExecutionOracle (characterize -> cluster -> cost) for the model's device
+    type; "fixed" keeps the engine's own knobs; a ``PlacementPlan`` is used
+    as it is.  A plan picks the bucket ladder and the prefill chunk, which
+    explicit ``prefill_chunk`` still beats; every geometry serves the same
+    tokens."""
+    if not isinstance(policy, PlacementPlan) and policy not in ("auto",
+                                                                "fixed"):
+        raise ValueError(f"policy must be 'auto', 'fixed', or a "
+                         f"PlacementPlan, got {policy!r}")
+    if model is None:
+        model = build_model(cfg, device=device, seed=seed)
+    plan = None
+    if isinstance(policy, PlacementPlan):
+        plan = policy
+    elif policy == "auto":
+        plan = ExecutionOracle(
+            cfg, slots=slots, max_len=max_len, min_bucket=min_bucket,
+            max_bucket=max_bucket, backend=model.device.type).resolve()
+    buckets = None
+    if max_bucket is not None:
+        buckets = prefill_buckets(min(max_bucket, max_len), min_bucket)
+    return ServeEngine(
+        model, slots=slots, max_len=max_len, buckets=buckets,
+        min_bucket=min_bucket, max_prefill_per_step=max_prefill_per_step,
+        max_prefill_batch=max_prefill_batch, prefill_chunk=prefill_chunk,
+        kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+        prefix_cache=prefix_cache, policy=plan)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,13 +101,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the arch's reduced (test-size) config")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--min-bucket", type=int, default=16)
     ap.add_argument("--max-bucket", type=int, default=None,
                     help="cap prefill buckets below max-len; longer prompts "
                          "run the chunked path")
+    ap.add_argument("--max-prefill-per-step", type=int, default=1,
+                    help="admissions per engine tick")
+    ap.add_argument("--max-prefill-batch", type=int, default=4,
+                    help="same-bucket admissions stacked into one batched "
+                         "prefill call")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunk width for prompts longer than the largest "
                          "bucket (default: the largest bucket)")
+    ap.add_argument("--long-prompts", type=int, default=0,
+                    help="also submit this many prompts longer than the "
+                         "largest bucket (chunked prefill)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="run every engine shape once before serving")
     ap.add_argument("--kv-block-size", type=int, default=16,
                     help="tokens per paged KV block (must divide max-len); "
                          "0 keeps every KV cache dense per slot")
@@ -77,32 +142,76 @@ def build_parser() -> argparse.ArgumentParser:
                     help="profile the served run with torch.profiler: a "
                          "Chrome trace, ops by device time and a summary "
                          "(card busy / idle, top kernels) in this directory")
+    ap.add_argument("--policy", default="auto", choices=("auto", "fixed"),
+                    help="'auto': the placement oracle characterizes and "
+                         "clusters the served layers and picks chunk / "
+                         "buckets per cluster; 'fixed': the engine's own "
+                         "knobs only")
+    ap.add_argument("--policy-dump", action="store_true",
+                    help="print the resolved PlacementPlan as JSON and exit "
+                         "without building the engine")
     for opt in NOT_PORTED:
         ap.add_argument(opt, nargs="?", action=_NotPorted,
                         help=argparse.SUPPRESS)
     return ap
 
 
-def main(argv=None) -> dict:
+def main(argv=None) -> dict | None:
     args = build_parser().parse_args(argv)
+    plan = None
+    if args.policy == "auto" or args.policy_dump:
+        # planned at the arch's full size, as the JAX CLI plans
+        plan = ExecutionOracle(
+            get_config(args.arch), slots=args.slots, max_len=args.max_len,
+            min_bucket=args.min_bucket, max_bucket=args.max_bucket,
+            backend=args.device).resolve()
+    if args.policy_dump:
+        print(plan.dumps())
+        return None
+    if plan is not None:
+        print(f"[serve] placement plan ({plan.source}, backend "
+              f"{plan.backend}): clusters {list(plan.layer_clusters)} "
+              f"chunk={plan.prefill_chunk} buckets={list(plan.buckets)}")
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    model = build_model(cfg, device=args.device, seed=args.seed)
-    buckets = None
-    if args.max_bucket is not None:
-        buckets = prefill_buckets(min(args.max_bucket, args.max_len))
-    engine = ServeEngine(model, slots=args.slots, max_len=args.max_len,
-                         buckets=buckets, prefill_chunk=args.prefill_chunk,
-                         kv_block_size=args.kv_block_size or None,
-                         kv_blocks=args.kv_blocks,
-                         prefix_cache=args.prefix_cache)
-    engine.warmup()
+    engine = build_engine(
+        cfg, slots=args.slots, max_len=args.max_len,
+        min_bucket=args.min_bucket, max_bucket=args.max_bucket,
+        max_prefill_per_step=args.max_prefill_per_step,
+        max_prefill_batch=args.max_prefill_batch,
+        prefill_chunk=args.prefill_chunk,
+        kv_block_size=args.kv_block_size or None, kv_blocks=args.kv_blocks,
+        prefix_cache=args.prefix_cache, device=args.device, seed=args.seed,
+        policy=plan if plan is not None else "fixed")
+    if args.warmup:
+        engine.warmup()
     rng = np.random.RandomState(args.seed)
     reqs = [Request(rid=i,
                     prompt=rng.randint(1, cfg.vocab_size, 4 + i % 6).tolist(),
-                    max_new_tokens=16, temperature=args.temperature,
-                    top_k=args.top_k, top_p=args.top_p)
+                    max_new_tokens=args.max_new,
+                    temperature=args.temperature, top_k=args.top_k,
+                    top_p=args.top_p)
             for i in range(args.requests)]
-    with profile_trace(args.profile_dir, device=model.device) as prof:
+    if args.long_prompts:
+        long_len = min(engine.buckets[-1] + engine.prefill_chunk,
+                       args.max_len - 1)
+        if long_len <= engine.buckets[-1]:
+            raise SystemExit(
+                f"--long-prompts needs prompts longer than the largest "
+                f"bucket ({engine.buckets[-1]}), but max_len {args.max_len} "
+                f"leaves no admissible length above it — pass --max-bucket "
+                f"below max_len (e.g. --max-bucket {args.max_len // 4})")
+        reqs += [Request(rid=args.requests + i,
+                         prompt=rng.randint(1, cfg.vocab_size,
+                                            long_len).tolist(),
+                         max_new_tokens=args.max_new,
+                         temperature=args.temperature, top_k=args.top_k,
+                         top_p=args.top_p)
+                 for i in range(args.long_prompts)]
+    with profile_trace(args.profile_dir, device=engine.device) as prof:
+        if prof is not None:
+            # without --warmup the window also holds first-call costs (lazy
+            # library loads, each bucket's first call)
+            prof["warmed_up"] = bool(args.warmup)
         engine.run(reqs)
     summary = engine.stats.summary()
     if prof is not None:

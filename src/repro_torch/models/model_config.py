@@ -5,6 +5,8 @@ from the JAX package).  The JAX package's execution knobs (remat, scan
 unrolling, flash block size, and the ``*_impl`` kernel-variant switches) are
 left out: the port has no tracer to unroll for, and its kernel wrappers pick
 the kernel or the plain version from the device of the tensors they get.
+``scan_chunk`` stays, for the placement oracle alone: it bounds a recurrent
+cluster's prefill chunk (``serve/placement.py``); no model code reads it.
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ class ArchConfig:
     tie_embeddings: bool = True
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    scan_chunk: int = 512             # a recurrent cluster's chunk bound
 
     @property
     def layer_kinds(self) -> tuple[str, ...]:

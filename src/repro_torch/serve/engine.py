@@ -22,8 +22,14 @@ slot pool in place; rows frozen by ``active`` keep every bit.  A fresh
 prefill state starts at zero, and a chunk at offset 0 zeroes the carried
 recurrent state, so a recycled slot never sees its last request.
 
-Not in this slice: meshes, prefill/decode roles, the placement policy, the
-program registry and the tracer — the constructor takes none of them.
+Every engine carries a placement plan (``serve/placement.py``): the
+placement oracle's (``policy=``), whose bucket ladder and prefill chunk it
+adopts unless the constructor is given its own, or a "fixed" record of the
+constructor's knobs.  ``EngineStats.summary()`` reports the plan beside the
+measured phase times and their drift from its predictions.
+
+Not ported yet: meshes, prefill/decode roles, the program registry and the
+tracer — the constructor takes none of them.
 """
 from __future__ import annotations
 
@@ -37,18 +43,14 @@ import torch
 
 from ..models.attention import KVCache, PagedKVCache
 from ..models.transformer import BlockState, Model
-from ..obs import Timed
+from ..obs import Timed, drift_report, plan_predictions
 from .kvpool import PagedKVManager
+from .placement import PlacementPlan, fixed_plan
 from .sampling import sample_tokens
-
-MIN_BUCKET = 16             # smallest prompt bucket
-MAX_PREFILL_PER_STEP = 1    # queued requests admitted per tick
-MAX_PREFILL_BATCH = 4       # rows of one batched prefill (capped at slots)
 
 
 # ------------------------------------------------------------------- buckets
-def prefill_buckets(max_len: int,
-                    min_bucket: int = MIN_BUCKET) -> tuple[int, ...]:
+def prefill_buckets(max_len: int, min_bucket: int = 16) -> tuple[int, ...]:
     """Power-of-two prompt buckets up to max_len.  When max_len is not
     itself a power of two, a final max_len-sized bucket covers the gap so no
     prompt below the cache size is rejected."""
@@ -101,10 +103,12 @@ class EngineStats:
     prefix_tokens_reused: int = 0
     blocks_copied: int = 0              # copy-on-write clones
     decode_stalls: int = 0              # slot-ticks frozen waiting for blocks
+    # ---- placement (the plan's summary; set by the engine) ----
+    placement: dict = field(default_factory=dict)
 
     def summary(self) -> dict:
         ttft = np.asarray(self.ttft_s, np.float64)
-        return {
+        out = {
             "requests_completed": self.requests_completed,
             "requests_aborted": self.requests_aborted,
             "tokens_generated": self.tokens_generated,
@@ -139,6 +143,20 @@ class EngineStats:
                 "decode_stalls": self.decode_stalls,
             },
         }
+        if self.placement:
+            # the plan (predicted) + measured + drift, side by side
+            p = dict(self.placement)
+            p["measured"] = {
+                "prefill_call_s": self.prefill_time_s
+                / max(self.prefill_calls + self.prefill_chunks, 1),
+                "prefill_token_s": self.prefill_time_s
+                / max(self.prefill_tokens_computed, 1),
+                "decode_step_s": self.decode_time_s
+                / max(self.decode_steps, 1),
+            }
+            p["drift"] = drift_report(plan_predictions(p), p["measured"])
+            out["placement"] = p
+        return out
 
 
 @dataclass
@@ -164,33 +182,60 @@ class Request:
 class ServeEngine:
     def __init__(self, model: Model, *, slots: int = 4, max_len: int = 512,
                  buckets: tuple[int, ...] | None = None,
+                 min_bucket: int = 16,
+                 max_prefill_per_step: int = 1,
+                 max_prefill_batch: int = 4,
                  prefill_chunk: int | None = None,
                  kv_block_size: int | None = None,
                  kv_blocks: int | None = None,
-                 prefix_cache: bool = True):
-        """``kv_block_size``: tokens per KV block of the paged pool that
+                 prefix_cache: bool = True,
+                 policy: PlacementPlan | None = None):
+        """``min_bucket``: the smallest prompt bucket of the default ladder.
+        ``max_prefill_per_step``: queued requests admitted per tick.
+        ``max_prefill_batch``: rows of one batched prefill (capped at
+        ``slots``).
+
+        ``kv_block_size``: tokens per KV block of the paged pool that
         ``attn`` layers keep their KV in; None keeps every cache dense per
         slot.  ``kv_blocks``: physical blocks in the pool (default: the
         dense equivalent, slots * max_len / block_size).  ``prefix_cache``:
         share same-prefix KV blocks across requests through the radix tree
         (paged, and only when every layer is ``attn``: window rings and
-        recurrent states are not block-addressable)."""
+        recurrent states are not block-addressable).
+
+        ``policy``: a ``serve.placement.PlacementPlan`` from the
+        ExecutionOracle.  It supplies the bucket ladder and the prefill
+        chunk (explicit ``buckets``/``prefill_chunk`` still win) and is
+        recorded in ``EngineStats.placement``; without one the engine
+        records a "fixed" plan of its own knobs."""
         self.model = model
         self.device = model.device
         self.slots = slots
         self.max_len = max_len
+        if not buckets and policy is not None and policy.buckets:
+            buckets = policy.buckets
         self.buckets = tuple(sorted(buckets)) if buckets \
-            else prefill_buckets(max_len)
+            else prefill_buckets(max_len, min_bucket)
         if self.buckets[-1] > max_len:
             raise ValueError(f"bucket {self.buckets[-1]} > max_len {max_len}")
-        self.max_prefill_batch = min(MAX_PREFILL_BATCH, slots)
+        self.max_prefill_per_step = max(1, max_prefill_per_step)
+        # batch-bucket the admission group size, so a prefill runs at one of
+        # a few batch shapes
+        self.max_prefill_batch = max(1, min(max_prefill_batch, slots))
         self.batch_buckets = prefill_buckets(self.max_prefill_batch,
                                              min_bucket=1)
+        if not prefill_chunk and policy is not None and policy.prefill_chunk:
+            prefill_chunk = policy.prefill_chunk
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk \
             else self.buckets[-1]
         if not 1 <= self.prefill_chunk <= max_len:
             raise ValueError(f"prefill_chunk {self.prefill_chunk} outside "
                              f"[1, max_len {max_len}]")
+        if policy is None:
+            policy = fixed_plan(model.cfg, buckets=self.buckets,
+                                prefill_chunk=self.prefill_chunk,
+                                backend=self.device.type)
+        self.policy = policy
         self.kv: PagedKVManager | None = None
         self._state_kw: dict = {}
         if kv_block_size is not None:
@@ -223,7 +268,8 @@ class ServeEngine:
         self._bt_cache: torch.Tensor | None = None
         self._bt_version = -1
         self.stats = EngineStats(kv_pool_blocks=kv_blocks or 0,
-                                 kv_block_size=kv_block_size or 0)
+                                 kv_block_size=kv_block_size or 0,
+                                 placement=self.policy.summary())
 
     # ------------------------------------------------------------- plumbing
     @staticmethod
@@ -518,14 +564,14 @@ class ServeEngine:
 
     def step(self) -> None:
         """One engine tick: advance each in-flight chunked prefill by one
-        chunk, admit up to ``MAX_PREFILL_PER_STEP`` queued requests, then one
+        chunk, admit up to ``max_prefill_per_step`` queued requests, then one
         lockstep decode step over the decoding slots.  With a paged pool each
         slot's table is extended before its write; a slot the pool cannot
         extend stalls."""
         t_tick = self._now()
         for slot in list(self._prefilling):
             self._advance_chunk(slot)
-        self._admit(MAX_PREFILL_PER_STEP)
+        self._admit(self.max_prefill_per_step)
         busy = [i for i, r in enumerate(self.requests) if r is not None]
         active = [i for i in busy if i not in self._prefilling]
         if self.kv is not None and active:

@@ -2,6 +2,8 @@
 paged KV, the prefix cache on (a mid-block hit with a copy-on-write
 clone), one prompt long enough for the chunked path, float32.  Greedy
 tokens must be identical and the engines' counters equal."""
+import json
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -81,8 +83,8 @@ def test_sampled_requests_reproduce_and_warmup_resets(engines):
 
 def test_engine_refuses_what_this_slice_leaves_out(engines):
     _, _, tm = engines
-    for kw in ({"mesh": None}, {"role": "decode"}, {"policy": None},
-               {"tracer": None}):
+    # the placement policy is in (tests/test_torch_placement.py)
+    for kw in ({"mesh": None}, {"role": "decode"}, {"tracer": None}):
         with pytest.raises(TypeError):
             ServeEngine(tm, kv_block_size=8, max_len=64, **kw)
     with pytest.raises(ValueError, match="kv_blocks"):
@@ -207,5 +209,8 @@ def test_cli_profile_dir_writes_a_trace_and_a_summary(tmp_path, capsys):
     prof = s["profile"]
     assert prof["device"] == "cpu" and prof["wall_ms"] > 0
     assert prof["device_busy_ms"] is None and prof["kernel_launches"] == 0
+    assert prof["warmed_up"] is False
+    assert json.loads((tmp_path / "summary.json").read_text())[
+        "warmed_up"] is False
     for name in ("trace.json", "ops.txt", "summary.json"):
         assert (tmp_path / name).stat().st_size > 0

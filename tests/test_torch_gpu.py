@@ -735,3 +735,43 @@ def test_lstm_layer_carried_steps_equal_one_call_on_card(cuda):
         ys.append(yt)
     assert torch.equal(torch.cat(ys, dim=1), y)
     assert torch.equal(st[0], h) and torch.equal(st[1], c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kv_block_size", [("qwen3-0.6b", 8),
+                                                ("recurrentgemma-2b", None),
+                                                ("falcon-mamba-7b", None)])
+def test_policy_auto_serves_the_fixed_tokens_on_card(cuda, arch,
+                                                     kv_block_size):
+    """Reduced size, float32: the auto plan is the card's (every policy's
+    kernel "cuda"), and it serves the fixed engine's greedy and sampled
+    tokens.  The recurrent archs' auto chunk (``scan_chunk`` 16) is
+    narrower than the fixed one (the 32-token top bucket), so their
+    70-token prompt runs in other chunks."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request
+    cfg = reduced_config(arch).replace(compute_dtype="float32")
+    model = build_model(cfg, device=cuda, seed=0)
+    samp = dict(temperature=0.8, top_k=20, top_p=0.9, seed=5)
+
+    def serve(policy):
+        eng = build_engine(cfg, model, slots=2, max_len=128, max_bucket=32,
+                           kv_block_size=kv_block_size, policy=policy)
+        rng = np.random.RandomState(3)
+        reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size,
+                                                  n).tolist(),
+                        max_new_tokens=6, **(samp if i == 2 else {}))
+                for i, n in enumerate((5, 70, 20))]
+        eng.run(reqs, on_truncate="raise")
+        return eng, [r.generated for r in reqs]
+
+    auto, auto_tokens = serve("auto")
+    fixed, fixed_tokens = serve("fixed")
+    plan = auto.policy
+    assert plan.source == "auto" and plan.backend == "cuda"
+    assert plan.policies and all(p.kernel == "cuda" for p in plan.policies)
+    assert auto.prefill_chunk == (32 if arch == "qwen3-0.6b" else 16)
+    assert fixed.prefill_chunk == 32
+    assert auto_tokens == fixed_tokens
