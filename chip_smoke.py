@@ -11,32 +11,37 @@ Phases, one line or block of output each; any failure exits non-zero:
 3. kernels — each kernel against its plain PyTorch version on the card at
    the paths' shapes, bf16 and float32, with the stated tolerance (flash
    also at recurrentgemma's hd=256, 10 q heads over 1 kv head, and with a
-   window that binds; the selective scan with a carried state and ragged
-   lengths that include a frozen row; the Pascal matmul at the edge zoo's
-   TR1 hoisted input GEMMs, in bf16 on its tensor-core route and at a
-   ragged shape on its SIMT route, the Jacquard GEMV at its FC widths, the
-   LSTM recurrence (one cooperative launch a call) at H=2048 and the
-   ragged H=2900, with and without a carried state); then times (CUDA
-   events, L2 flushed before each launch, the median of 21 calls, min and
-   max on the line before the row): kernel,
-   plain version, a PyTorch call as a yardstick (``scaled_dot_product_
-   attention`` for flash, ``torch.matmul`` for the GEMM and GEMV, cuDNN's
-   ``torch.nn.LSTM`` for a whole LSTM layer), and the least time the card
-   could take (bytes and operations against the published H100 SXM peaks);
-   flash in bf16 (its tensor-core route) at S=64, 256 and 1024 and at
-   recurrentgemma's local layer, and in float32 (its SIMT route); paged
-   decode at 8 slots of up to 1024 tokens and at 16 slots of up to 8192
-   (a byte bound clear of the timing floor); the RG-LRU and the selective
-   scan at their prefill shapes (B=4 and B=1, T=256) and decode shape (B=4,
-   T=1, also with the L2 left warm); the GEMV at M=1 1280 -> 8192 and M=4
-   640 -> 4096 in both dtypes.  With ``--parent DIR`` (an unpacked checkout
-   of an earlier commit) phase 2 also builds that tree's two scan kernels
-   and phase 3 times them beside these, in the same run;
+   window that binds, and flash and paged decode at the heads of
+   qwen2-0.5b, smollm-135m, starcoder2-7b and internvl2-2b: GQA groups of
+   7, 3, 9 and 2 at hd 64 and 128, flash at serving's buckets 16-256; the
+   selective scan with a carried state and ragged lengths that include a
+   frozen row; the Pascal matmul at the edge zoo's TR1 hoisted input GEMMs,
+   in bf16 on its tensor-core route and at a ragged shape on its SIMT
+   route, the Jacquard GEMV at its FC widths, the LSTM recurrence (one
+   cooperative launch a call) at H=2048 and the ragged H=2900, with and
+   without a carried state); then times (CUDA events, L2 flushed before
+   each launch, the median of 21 calls, min and max on the line before the
+   row): kernel, plain version, a PyTorch call as a yardstick
+   (``scaled_dot_product_attention`` for flash, ``torch.matmul`` for the
+   GEMM and GEMV, cuDNN's ``torch.nn.LSTM`` for a whole LSTM layer), and
+   the least time the card could take (bytes and operations against the
+   published H100 SXM peaks); flash in bf16 (its tensor-core route) at
+   S=64, 256 and 1024 and at recurrentgemma's local layer and at each new
+   arch's heads (S=256, and S=64 at hd 64), and in float32 (its SIMT
+   route); paged decode at 8 slots of up to 1024 tokens (qwen3's heads and
+   each new arch's) and at 16 slots of up to 8192 (a byte bound clear of
+   the timing floor); the RG-LRU and the selective scan at their prefill
+   shapes (B=4 and B=1, T=256) and decode shape (B=4, T=1, also with the L2
+   left warm); the GEMV at M=1 1280 -> 8192 and M=4 640 -> 4096 in both
+   dtypes.  With ``--parent DIR`` (an unpacked checkout of an earlier
+   commit) phase 2 also builds that tree's two scan kernels and phase 3
+   times them beside these, in the same run;
 4. layer parity — full-width qwen3-0.6b cut to 2 layers, full-width
-   recurrentgemma-2b cut to 3 (rec, rec, local) and full-width
-   falcon-mamba-7b cut to 2, float32: prefill and 4 decode steps on the CPU
-   (plain versions) and on the card (kernels) from the same weights, logits
-   held within a stated tolerance;
+   recurrentgemma-2b cut to 3 (rec, rec, local), full-width falcon-mamba-7b
+   cut to 2, and full-width qwen2-0.5b, smollm-135m, starcoder2-7b and
+   internvl2-2b cut to 2 (paged KV), float32: prefill and 4 decode steps on
+   the CPU (plain versions) and on the card (kernels) from the same
+   weights, logits held within a stated tolerance;
 5. edge LSTM stack — the LSTM layers of the edge zoo's mobile RNN-T
    (``TR1_rnnt_mobile``) at full width, float32, random weights from the
    seed: its encoder cut to 2 layers on the CPU (plain versions) and on the
@@ -48,18 +53,17 @@ Phases, one line or block of output each; any failure exits non-zero:
    copies (``repro_torch.core``): the 24 edge models characterized,
    clustered, scheduled and evaluated (every number of the paper's modeled
    accelerators, none of the card), and each served arch's rule clusters
-   held against a seeded k-means; then three paths through
-   ``launch.serve.build_engine``, random weights from the seed, each served
-   twice over one model: with ``policy="auto"`` (the placement oracle's
-   plan: characterize -> cluster -> cost; its buckets and chunk) and with
-   ``policy="fixed"``, the first engine released before the second is
-   built.  Each run's launch counters are set to 0 just before it and read
-   just after; the two runs must serve the same tokens, the sampled request
-   too, with the same launches, which are the path's own (flash 168 and
-   paged 924; flash 32 and RG-LRU 1350, 1116 of them decode; SSM 4480, 3968
-   of them decode).  Each prints its plan, the predicted (modeled) and
-   measured (the card's) phase times and their drift; each model is
-   released before the next is built:
+   held against a seeded k-means; then seven paths through
+   ``launch.serve.build_engine`` with ``policy="auto"`` (the placement
+   oracle's plan: characterize -> cluster -> cost; its buckets and chunk),
+   random weights from the seed.  Each run's launch counters are set to 0
+   just before it and read just after, and must be the path's own (flash
+   168 and paged 924; flash 32 and RG-LRU 1350, 1116 of them decode; SSM
+   4480, 3968 of them decode; for every paged attention stack one flash
+   launch a layer and prefill call and one paged launch a layer and decode
+   step).  Each prints its plan, the predicted (modeled) and measured (the
+   card's) phase times and their drift, and its whole stats summary; each
+   model is released before the next is built:
    a. full-width qwen3-0.6b, all 28 layers: paged KV, prefix cache,
       bucketed and chunked prefill, greedy and sampled decode;
    b. full-width recurrentgemma-2b, all 26 layers: dense KV (2048-token
@@ -67,7 +71,12 @@ Phases, one line or block of output each; any failure exits non-zero:
       past it, a recycled slot, greedy and sampled decode;
    c. full-width falcon-mamba-7b, all 64 ssm layers: conv and scan states
       per slot, a 1000-token prompt in 4 chunks, a recycled slot, greedy
-      and sampled decode.
+      and sampled decode;
+   d. full-width qwen2-0.5b, smollm-135m and starcoder2-7b (7.17 B
+      parameters), all layers, as a.; and internvl2-2b, all 24 layers,
+      text only through its untied head, with a bucket ladder up to
+      max_len and no prefix cache: like the JAX package's, its model
+      cannot chunk a prompt.
 
 The last three lines: ``nvidia-smi``'s name and power limit, one JSON
 object with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -92,6 +101,10 @@ PEAK_BYTES_S = 3.35 * TERA
 PEAK_FLOPS = {"bfloat16": 989.4 * TERA, "float32": 67.0 * TERA}
 
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the dense decoders served beside qwen3: their GQA groups of 7, 3 and
+#: 9 do not divide flash's 64 packed rows a tile, and hd 64 runs its
+#: tensor-core route; internvl2-2b has qwen3's heads
+NEW_ARCHS = ("qwen2-0.5b", "smollm-135m", "starcoder2-7b", "internvl2-2b")
 PAGED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the RG-LRU kernel rounds a*h, then +b, as its plain loop does: float32
 # agrees to the bit (checked with torch.equal as well); a bf16 output may
@@ -434,6 +447,35 @@ def phase_kernels(seed: int, card: str, parent: dict):
                 fail(f"flash kernel disagrees with its plain version at "
                      f"hd={hd} ({err} > {tol})")
 
+    # ---- flash at the heads of slice 6's archs: serving's buckets 16-256
+    # and a ragged S, both routes; then timed in bf16 at S=256 (and S=64
+    # at hd 64)
+    b = 4
+    for arch in NEW_ARCHS:
+        h, kvh, hd = arch_heads(arch)
+        for dtype in ("bfloat16", "float32"):
+            errs = {}
+            for s in (16, 32, 64, 128, 256, 100):
+                _, errs[s] = flash_case(b, s, h, kvh, hd, 0, dtype, gen)
+            tol = FLASH_TOL[dtype]
+            say(f"[kernel] flash {dtype} {arch} heads B={b} H={h} KVH={kvh} "
+                f"hd={hd}: max|kernel-plain| by S "
+                + ", ".join(f"{s}: {e:.3e}" for s, e in errs.items())
+                + f" (tol {tol})")
+            if not max(errs.values()) <= tol:
+                fail(f"flash kernel disagrees with its plain version at "
+                     f"{arch}'s heads ({errs} > {tol})")
+    rows["flash"]["archs"] = {}
+    for arch in NEW_ARCHS:
+        h, kvh, hd = arch_heads(arch)
+        rows["flash"]["archs"][f"{arch} S=256"] = flash_times(
+            b, 256, h, kvh, hd, 0, "bfloat16")
+        if hd == 64:
+            rows["flash"]["archs"][f"{arch} S=64"] = flash_times(
+                b, 64, h, kvh, hd, 0, "bfloat16")
+    rows["paged"]["archs"] = {arch: paged_arch(gen, flush, card, floor, arch)
+                              for arch in NEW_ARCHS}
+
     # ---- RG-LRU: B=4 slots, E = d_rnn = 2560; T=256 (a prefill bucket or
     # chunk), T=1 (decode) and a ragged T=100.  a in [0.9, 0.999] and
     # b ~ N(0, 1 - a^2), the ranges rglru_core gives them
@@ -496,6 +538,67 @@ def phase_kernels(seed: int, card: str, parent: dict):
     rows["jacquard"] = jacquard_kernel(gen, flush, card)
     rows["lstm"] = lstm_kernel(gen, flush, card)
     return rows
+
+
+def arch_heads(arch: str) -> tuple:
+    """(H, KVH, hd) of ``arch``, read from its config."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+
+def paged_arch(gen, flush, card: str, floor: float, arch: str) -> dict:
+    """Paged decode at ``arch``'s heads (``arch_heads``): 8 slots, blocks
+    of 16, lengths over 0..1023 with one at a block's last position,
+    scattered blocks; checked against the plain version in both dtypes,
+    timed in bf16."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_ref, paged_decode_attention_raw)
+    h, kvh, hd = arch_heads(arch)
+    slots, bs, nb = 8, 16, 1024 // 16
+    n_blocks = slots * nb
+    lengths = torch.linspace(0, 1023, slots, device="cuda").round().int()
+    lengths[1] = 15
+    table = torch.randperm(n_blocks, generator=gen, device="cuda").int() \
+        .reshape(slots, nb)
+    row = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q = torch.randn((slots, h, hd), generator=gen, device="cuda").to(dt)
+        kp = torch.randn((n_blocks, bs, kvh, hd), generator=gen,
+                         device="cuda").to(dt)
+        vp = torch.randn((n_blocks, bs, kvh, hd), generator=gen,
+                         device="cuda").to(dt)
+        got = paged_decode_attention_raw(q, kp, vp, table, lengths)
+        ref = paged_attention_ref(q, kp, vp, table, lengths)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = PAGED_TOL[dtype]
+        say(f"[kernel] paged {dtype} {arch} heads slots={slots} bs={bs} "
+            f"H={h} KVH={kvh} hd={hd}: max|kernel-plain|={err:.3e} (tol "
+            f"{tol})")
+        if not err <= tol:
+            fail(f"paged kernel disagrees with its plain version at {arch}'s "
+                 f"heads ({err} > {tol})")
+        if dtype == "bfloat16":
+            live = int((lengths.long() + 1).sum())
+            nbytes = (2.0 * live * kvh * hd * 2 + 2 * q.numel() * 2
+                      + 4 * (table.numel() + slots))
+            what = f"paged bf16 {arch} heads ({live} live tokens)"
+            ms = time_ms(f"{what}, kernel", lambda: paged_decode_attention_raw(
+                q, kp, vp, table, lengths), flush)
+            plain = time_ms(f"{what}, plain", lambda: paged_attention_ref(
+                q, kp, vp, table, lengths), flush)
+            bnd, by = bound_ms(nbytes, 4.0 * h * hd * live, "bfloat16")
+            say(f"[kernel] on {card}: {what}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), timing floor "
+                f"{floor:.4f} ms")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                       bound_ms=bnd, bound_by=by)
+        else:
+            row["max_abs_err_float32"] = err
+    return row
 
 
 def paged_long(gen, flush, card: str, floor: float) -> dict:
@@ -1160,13 +1263,22 @@ def check_all(what: str, checks: dict) -> None:
 #: each serving path's launches, counted from 0 just before its run: fixed
 #: by its requests and geometry (flash: layers x prefill calls; paged
 #: decode: layers x decode steps; the scans: layers x (prefill calls +
-#: chunks + decode steps)), and the same under both policies, since a plan
-#: picks geometry only and both resolve to the same one here
+#: chunks + decode steps))
 SERVE_LAUNCHES = {
     "qwen3-0.6b": {"flash": 168, "paged": 924},
+    "qwen2-0.5b": {"flash": 144, "paged": 792},
+    "smollm-135m": {"flash": 180, "paged": 990},
+    "starcoder2-7b": {"flash": 192, "paged": 1056},
+    "internvl2-2b": {"flash": 192, "paged": 792},
     "recurrentgemma-2b": {"flash": 32, "rglru": 1350, "rglru_decode": 1116},
     "falcon-mamba-7b": {"ssm": 4480, "ssm_decode": 3968},
 }
+#: phase_serve's options where an arch departs from qwen3's: a modality
+#: model serves text only and cannot chunk, as the JAX package's cannot, so
+#: its ladder runs to max_len, every prompt fits a bucket, and its prefix
+#: cache is off (a hit resumes through a chunk)
+SERVE_OPTIONS = {"internvl2-2b": dict(engine_kw=dict(prefix_cache=False),
+                                      min_chunks=0, min_prefix_hits=0)}
 #: what the plan's predicted times are of: never the card
 MODELED = "modeled: the paper's Mensa accelerators, not the card"
 
@@ -1199,7 +1311,8 @@ def phase_mensa() -> None:
     scores = {}
     for arch, max_len, floor in (("qwen3-0.6b", 1024, 0.9),
                                  ("recurrentgemma-2b", 4096, 0.6),
-                                 ("falcon-mamba-7b", 4096, 0.9)):
+                                 ("falcon-mamba-7b", 4096, 0.9),
+                                 *((a, 1024, 0.9) for a in NEW_ARCHS)):
         try:
             scores[arch] = verify_kmeans_agreement(
                 get_config(arch), max_len=max_len, min_agreement=floor)
@@ -1215,34 +1328,29 @@ def phase_mensa() -> None:
         + ", ".join(f"{a} {v:.4f}" for a, v in scores.items()))
 
 
-def serve_both(what: str, cfg, model, card: str, engine_kw: dict,
+def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
                make_requests, drive) -> dict:
     """Serve ``make_requests()`` through ``drive`` on an engine built by
-    ``build_engine(policy="auto")`` and again on a ``policy="fixed"`` one
-    over the same model, the first engine released before the second is
-    built; each run's launches counted from 0 just before it.  Fails
-    unless both serve the same tokens with the same launches, the plan is
-    the card's, and the launches are the path's (``SERVE_LAUNCHES``)."""
+    ``build_engine(policy="auto")`` over ``model``, warmed up first; the
+    launch counters set to 0 just before the run and read just after.
+    Prints the plan, the run, the placement drift and the whole
+    ``summary()``; fails unless the plan is the card's, the launches are
+    ``SERVE_LAUNCHES[what]``, and, for paged attention layers, the engine's
+    own counts agree with them: one flash launch a layer and prefill call,
+    one paged launch a layer and decode step."""
     import torch
     from repro_torch.launch.serve import build_engine
-    runs = {}
-    for policy in ("auto", "fixed"):
-        t0 = time.perf_counter()
-        engine = build_engine(cfg, model, policy=policy, **engine_kw)
-        engine.warmup()
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-        reqs = make_requests()
-        reset_counts()
-        drive(engine, reqs)
-        counts = read_counts()
-        runs[policy] = dict(reqs=reqs, counts=counts, plan=engine.policy,
-                            s=engine.stats.summary(), warm=warm,
-                            geometry=(engine.buckets, engine.prefill_chunk))
-        del engine
-        release()
-    auto, fixed = runs["auto"], runs["fixed"]
-    plan, s = auto["plan"], auto["s"]
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, model, policy="auto", **engine_kw)
+    engine.warmup()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    reqs = make_requests()
+    reset_counts()
+    drive(engine, reqs)
+    counts = read_counts()
+    plan, s = engine.policy, engine.stats.summary()
+    run = dict(reqs=reqs, counts=counts, plan=plan, s=s)
     say(f"[serve] {what} plan (auto, backend {plan.backend}): clusters "
         f"{sorted(set(plan.layer_clusters))} over {len(plan.layer_clusters)}"
         f" layers, chunk {plan.prefill_chunk}, buckets {list(plan.buckets)}, "
@@ -1250,43 +1358,41 @@ def serve_both(what: str, cfg, model, card: str, engine_kw: dict,
         + "; ".join(f"cluster {p.cluster} {list(p.kinds)} -> {p.accelerator}"
                     f", kernel {p.kernel} {list(p.variants)}"
                     for p in plan.policies))
-    for policy, run in runs.items():
-        r = run["s"]
-        say(f"[serve] {what} --policy {policy}: engine + warmup "
-            f"{run['warm']:.1f} s; buckets {list(run['geometry'][0])}, chunk "
-            f"{run['geometry'][1]}; completed {r['requests_completed']}, "
-            f"tokens {r['tokens_generated']}, prefill calls "
-            f"{r['prefill_calls']}, chunks {r['prefill_chunks']}, "
-            f"non-finite logit rows {r['nonfinite_logits']}, launches "
-            f"{run['counts']}")
-        say(f"[serve] {what} --policy {policy} {serve_line(r, card)}")
+    say(f"[serve] {what} --policy auto: engine + warmup {warm:.1f} s; "
+        f"buckets {list(engine.buckets)}, chunk {engine.prefill_chunk}; "
+        f"completed {s['requests_completed']}, tokens "
+        f"{s['tokens_generated']}, prefill calls {s['prefill_calls']}, "
+        f"chunks {s['prefill_chunks']}, non-finite logit rows "
+        f"{s['nonfinite_logits']}, launches {counts}")
+    say(f"[serve] {what} {serve_line(s, card)}")
     pl = s["placement"]
     meas = pl["measured"]
     say(f"[serve] {what} placement, predicted ({MODELED}): prefill chunk "
         f"{pl['predicted']['prefill_chunk_s']:.6g} s, decode step "
-        f"{pl['predicted']['decode_step_s']:.6g} s; measured on {card} "
-        f"(--policy auto): prefill call {meas['prefill_call_s']:.6g} s, "
-        f"prefill token {meas['prefill_token_s']:.6g} s, decode step "
+        f"{pl['predicted']['decode_step_s']:.6g} s; measured on {card}: "
+        f"prefill call {meas['prefill_call_s']:.6g} s, prefill token "
+        f"{meas['prefill_token_s']:.6g} s, decode step "
         f"{meas['decode_step_s']:.6g} s; drift (measured / predicted) "
         + ", ".join(f"{ph} {d['ratio']:.4g}"
                     for ph, d in pl["drift"].get("phases", {}).items()))
+    say(f"[serve] {what} summary {json.dumps(s)}")
     want = SERVE_LAUNCHES[what]
+    paged = cfg.layer_kinds.count("attn") if "kv" in s else 0
     check_all(f"serve {what}", {
-        "tokens identical under --policy auto and fixed": [
-            r.generated for r in auto["reqs"]]
-            == [r.generated for r in fixed["reqs"]],
-        "launches equal under both policies":
-            auto["counts"] == fixed["counts"],
-        f"launches are {want}": {k: n for k, n in auto["counts"].items()
-                                 if n} == want,
+        f"launches are {want}": {k: n for k, n in counts.items() if n}
+            == want,
+        "flash = attn layers x prefill calls, paged = attn layers x decode "
+        "steps": not paged or (
+            counts["flash"] == paged * s["prefill_calls"]
+            and counts["paged"] == paged * s["decode_steps"]),
         "the plan is the card's": plan.source == "auto"
             and plan.backend == "cuda"
             and all(p.kernel == "cuda" for p in plan.policies),
-        "the fixed run records a fixed plan":
-            fixed["s"]["placement"]["source"] == "fixed",
         "the placement drift is reported": bool(pl["drift"]),
     })
-    return auto
+    del engine
+    release()
+    return run
 
 
 def serve_checks(what: str, cfg, run: dict, new: int, checks: dict) -> None:
@@ -1301,20 +1407,30 @@ def serve_checks(what: str, cfg, run: dict, new: int, checks: dict) -> None:
     })
 
 
-def phase_serve(seed: int, card: str):
-    """Full-width qwen3-0.6b through the paged engine: bucketed and chunked
-    prefill, a prefix hit with a copy-on-write clone, a sampled request."""
+def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
+                engine_kw: dict | None = None, min_chunks: int = 3,
+                min_prefix_hits: int = 1):
+    """A full-width dense decoder through the paged engine (blocks of 16,
+    max_len 1024, 4 slots, and ``engine_kw``, by default buckets up to
+    256): bucketed and chunked prefill, a prefix hit with a copy-on-write
+    clone, a sampled request.  Fails unless the run made at least
+    ``min_chunks`` prefill chunks and ``min_prefix_hits`` prefix hits, and
+    none of either where the minimum is 0."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=seed)
     torch.cuda.synchronize()
-    say(f"[serve] qwen3-0.6b full width ({cfg.num_layers} layers, "
-        f"{cfg.param_count() / 1e6:.0f} M parameters, bf16 compute), "
+    say(f"[serve] {arch} full width ({cfg.num_layers} layers, "
+        f"{cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads of "
+        f"{cfg.head_dim}, {cfg.norm} norm, {cfg.ffn_kind} FFN, "
+        f"{'tied' if cfg.tie_embeddings else 'untied'} head; "
+        f"{cfg.param_count() / 1e6:.0f} M parameters, bf16 compute, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card), "
         f"model {time.perf_counter() - t0:.1f} s")
 
     def make_requests():
@@ -1324,9 +1440,9 @@ def phase_serve(seed: int, card: str):
         reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=16)
                 for i, n in enumerate((5, 17, 40, 90, 180))]
         reqs.append(Request(rid=5, prompt=prompt(600), max_new_tokens=16))
-        reqs.append(Request(rid=6, prompt=shared + prompt(10),
-                            max_new_tokens=16, temperature=0.8, top_k=50,
-                            top_p=0.9, seed=seed))
+        reqs.append(Request(rid=6, prompt=shared
+                            + prompt(10), max_new_tokens=16,
+                            temperature=0.8, top_k=50, top_p=0.9, seed=seed))
         reqs.append(Request(rid=7, prompt=shared + prompt(12),
                             max_new_tokens=16))
         return reqs
@@ -1339,17 +1455,21 @@ def phase_serve(seed: int, card: str):
         engine.submit(reqs[7])
         engine.run([])
 
-    run = serve_both("qwen3-0.6b", cfg, model, card,
-                     dict(slots=4, max_len=1024, kv_block_size=16,
-                          max_bucket=256), make_requests, drive)
+    kw = dict(slots=4, max_len=1024, kv_block_size=16,
+              **(engine_kw or dict(max_bucket=256)))
+    run = serve_auto(arch, cfg, model, card, kw, make_requests, drive)
     s = run["s"]
-    say(f"[serve] qwen3-0.6b prefix hits {s['kv']['prefix_hits']} "
+    say(f"[serve] {arch} prefix hits {s['kv']['prefix_hits']} "
         f"({s['kv']['prefix_tokens_reused']} tokens, "
         f"{s['kv']['blocks_copied']} COW), blocks peak "
         f"{s['kv']['blocks_peak']}, decode stalls {s['kv']['decode_stalls']}")
-    serve_checks("qwen3-0.6b", cfg, run, 16, {
-        "prefill_chunks >= 3": s["prefill_chunks"] >= 3,
-        "prefix_hits >= 1": s["kv"]["prefix_hits"] >= 1,
+    serve_checks(arch, cfg, run, 16, {
+        f"prefill_chunks >= {min_chunks}, none if 0":
+            s["prefill_chunks"] >= min_chunks
+            and bool(s["prefill_chunks"]) == bool(min_chunks),
+        f"prefix_hits >= {min_prefix_hits}, none if 0":
+            s["kv"]["prefix_hits"] >= min_prefix_hits
+            and bool(s["kv"]["prefix_hits"]) == bool(min_prefix_hits),
         "decode_stalls == 0": s["kv"]["decode_stalls"] == 0,
     })
     return run["counts"]
@@ -1388,7 +1508,7 @@ def phase_serve_recurrent(seed: int, card: str):
                             temperature=0.8, top_k=50, top_p=0.9, seed=seed))
         return reqs
 
-    run = serve_both("recurrentgemma-2b", cfg, model, card,
+    run = serve_auto("recurrentgemma-2b", cfg, model, card,
                      dict(slots=4, max_len=4096, max_bucket=256),
                      make_requests, run_all)
     s = run["s"]
@@ -1429,7 +1549,7 @@ def phase_serve_mamba(seed: int, card: str):
                             temperature=0.8, top_k=50, top_p=0.9, seed=seed))
         return reqs
 
-    run = serve_both("falcon-mamba-7b", cfg, model, card,
+    run = serve_auto("falcon-mamba-7b", cfg, model, card,
                      dict(slots=4, max_len=4096, max_bucket=256),
                      make_requests, run_all)
     s = run["s"]
@@ -1462,12 +1582,18 @@ def main() -> None:
     phase_parity(args.seed, "qwen3-0.6b", 2, kv_block_size=16)
     phase_parity(args.seed, "recurrentgemma-2b", 3, kv_block_size=None)
     phase_parity(args.seed, "falcon-mamba-7b", 2, kv_block_size=None)
+    for arch in NEW_ARCHS:
+        phase_parity(args.seed, arch, 2, kv_block_size=16)
     release()
     paths = [phase_edge_lstm(args.seed, smi)]
     release()
     phase_mensa()
     for serve in (phase_serve, phase_serve_recurrent, phase_serve_mamba):
         paths.append(serve(args.seed, smi))
+        release()
+    for arch in NEW_ARCHS:
+        paths.append(phase_serve(args.seed, smi, arch,
+                                 **SERVE_OPTIONS.get(arch, {})))
         release()
     # launches: each path's run, counted from 0 just before it
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}

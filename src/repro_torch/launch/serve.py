@@ -18,18 +18,21 @@ arch's full-size config (characterize -> cluster -> cost,
 the plan as JSON and exits.  The plan's predicted times are those of the
 paper's modeled accelerators, not of the card.  ``--max-new``,
 ``--min-bucket``, ``--max-prefill-per-step``, ``--max-prefill-batch``,
-``--long-prompts`` and ``--warmup`` are the JAX CLI's.  ``--kv-block-size``
+``--long-prompts``, ``--warmup``, ``--trace`` (the engine's Chrome trace),
+``--metrics-json`` (the stats summary) and ``--metrics-prom`` (the metrics
+registry in Prometheus text) are the JAX CLI's.  ``--kv-block-size``
 defaults to paged blocks of 16 tokens (the JAX CLI's default is dense KV);
 0 keeps every KV cache dense per slot (falcon-mamba has no KV cache: its
 conv and scan states are per slot either way).  The options of
-``repro.launch.serve`` that the port does not have yet (meshes, roles, the
-trace and metrics files) are accepted by name only to fail with that
+``repro.launch.serve`` that the port does not have yet (meshes, roles and
+the program registry) are accepted by name only to fail with that
 message.
 """
 from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
 
 import numpy as np
 
@@ -41,7 +44,6 @@ from ..serve.placement import ExecutionOracle, PlacementPlan
 
 #: options of the JAX package's serving CLI that are not ported yet
 NOT_PORTED = ("--mesh", "--dp", "--mp", "--roles", "--param-strategy",
-              "--trace", "--metrics-json", "--metrics-prom",
               "--program-memory", "--no-program-memory")
 
 
@@ -138,6 +140,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the prompts")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome trace-event JSON of the run here "
+                         "(view at ui.perfetto.dev); tracing is on either "
+                         "way — this just saves the buffer")
+    ap.add_argument("--metrics-json", default="",
+                    help="write the final stats summary (including the "
+                         "versioned obs metrics section) as JSON here")
+    ap.add_argument("--metrics-prom", default="",
+                    help="write the metrics registry in Prometheus/"
+                         "OpenMetrics text exposition format here (a "
+                         "node_exporter textfile-collector drop-in)")
     ap.add_argument("--profile-dir", default="",
                     help="profile the served run with torch.profiler: a "
                          "Chrome trace, ops by device time and a summary "
@@ -217,6 +230,18 @@ def main(argv=None) -> dict | None:
     if prof is not None:
         summary["profile"] = prof
     print(json.dumps(summary, indent=1))
+    if args.trace:
+        engine.save_trace(args.trace)
+        print(f"[serve] trace written to {args.trace} "
+              f"({len(engine.tracer)} events, {engine.tracer.dropped} "
+              f"dropped) — load at ui.perfetto.dev")
+    if args.metrics_json:
+        Path(args.metrics_json).write_text(json.dumps(summary, indent=1)
+                                           + "\n")
+    if args.metrics_prom:
+        Path(args.metrics_prom).write_text(
+            engine.stats.metrics.to_prometheus())
+        print(f"[serve] Prometheus metrics written to {args.metrics_prom}")
     return summary
 
 

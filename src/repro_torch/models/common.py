@@ -33,6 +33,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.float())).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics, scale and bias, cast back to the
+    input's dtype (``repro.models.common.layer_norm``)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
 # ------------------------------------------------------------------------- RoPE
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:

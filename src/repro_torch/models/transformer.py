@@ -1,8 +1,13 @@
 """Model assembly for the port: decoder-only stacks of ``attn`` (full
 causal attention), ``local`` (sliding-window attention) and ``rec``
-(Griffin recurrent) blocks with a GLU feed-forward — qwen3-0.6b and
+(Griffin recurrent) blocks with a GLU or a plain-MLP feed-forward —
+qwen3-0.6b, qwen2-0.5b, smollm-135m, starcoder2-7b, internvl2-2b and
 recurrentgemma-2b and their families — or of ``ssm`` (Mamba-1) blocks with
-no feed-forward — falcon-mamba-7b.  Every other block or feed-forward kind
+no feed-forward — falcon-mamba-7b.  Norms are RMSNorm or LayerNorm
+(``cfg.norm``); the unembedding is tied to the embedding or an untied
+``lm_head``; a model with ``modality_tokens`` carries the ``mm_proj`` stub
+that projects precomputed patch embeddings into tokens prepended to the
+text.  Every other block or feed-forward kind (MoE, encoder-decoder)
 raises ``NotImplementedError`` until its slice lands.
 
 The PyTorch counterpart of ``repro.models.transformer.Model``, with the
@@ -18,11 +23,11 @@ the JAX package's order (the pattern's groups, then the tail):
 
 Parameters are stored the way the JAX package computes with them: matmul
 weights in the compute dtype (JAX casts its float32 masters per call, which
-gives the same values), norm scales, ``lambda``, Mamba's ``x_proj``,
-``dt_proj``, ``dt_bias``, ``a_log`` and ``d_skip``, and the tied embedding
-table in float32 (``rms_norm``, ``rglru_core``, ``mamba_ssm`` and
-``unembed`` read them in float32).  ``H·hd`` need not equal ``d_model``:
-``wo`` is ``(H·hd, d_model)``.
+gives the same values), norm scales and biases, ``lambda``, Mamba's
+``x_proj``, ``dt_proj``, ``dt_bias``, ``a_log`` and ``d_skip``, and the
+embedding table and ``lm_head`` in float32 (``rms_norm``, ``layer_norm``,
+``rglru_core``, ``mamba_ssm`` and ``unembed`` read them in float32).
+``H·hd`` need not equal ``d_model``: ``wo`` is ``(H·hd, d_model)``.
 """
 from __future__ import annotations
 
@@ -34,34 +39,77 @@ from torch import nn
 from ..device import resolve_device
 from . import attention as attn_lib
 from . import recurrent as rec_lib
-from .common import embed_scaled, fan_in_std, rms_norm, torch_dtype, unembed
-from .ffn import glu_ffn
+from .common import (embed_scaled, fan_in_std, gelu, layer_norm, rms_norm,
+                     torch_dtype, unembed)
+from .ffn import glu_ffn, mlp_ffn
 from .model_config import ArchConfig
 
 
 SUPPORTED_KINDS = ("attn", "local", "rec", "ssm")
+FFNS = {"glu": glu_ffn, "mlp": mlp_ffn}
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """Stacks of attn/local/rec blocks take a GLU feed-forward; a stack of
-    ``ssm`` blocks has none (``ffn_kind == "none"``), and only it."""
+    """Stacks of attn/local/rec blocks take a GLU or plain-MLP feed-forward;
+    a stack of ``ssm`` blocks has none (``ffn_kind == "none"``), and only
+    it.  Either norm, tied or untied heads and the modality stub go with
+    any of them."""
     kinds = set(cfg.layer_kinds)
     stack_ok = kinds == {"ssm"} and cfg.ffn_kind == "none" \
-        or "ssm" not in kinds and cfg.ffn_kind == "glu"
+        or "ssm" not in kinds and cfg.ffn_kind in FFNS
     if not kinds <= set(SUPPORTED_KINDS) or not stack_ok \
-            or cfg.norm != "rms" or cfg.is_encdec or cfg.modality_tokens \
-            or not cfg.tie_embeddings:
+            or cfg.norm not in ("rms", "layer") or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoder-only stacks of attn, "
-            f"local and rec blocks with a GLU feed-forward, or of ssm blocks "
-            f"with none, with RMSNorm and tied embeddings; block kinds "
-            f"{sorted(kinds)}, ffn {cfg.ffn_kind!r}, norm {cfg.norm!r} come "
-            f"in a later slice")
+            f"local and rec blocks with a GLU or MLP feed-forward, or of ssm "
+            f"blocks with none; block kinds {sorted(kinds)}, ffn "
+            f"{cfg.ffn_kind!r}, norm {cfg.norm!r}"
+            f"{', an encoder' if cfg.is_encdec else ''} come in a later "
+            f"slice")
 
 
 def _weight(*shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def _norm_params(cfg: ArchConfig, device: torch.device):
+    """A norm's float32 scale, and its float32 bias for LayerNorm (None for
+    RMSNorm)."""
+    f32, d = torch.float32, cfg.d_model
+    bias = _weight(d, dtype=f32, device=device) if cfg.norm == "layer" \
+        else None
+    return _weight(d, dtype=f32, device=device), bias
+
+
+def _norm(cfg: ArchConfig, x: torch.Tensor, scale: torch.Tensor,
+          bias: torch.Tensor | None) -> torch.Tensor:
+    """``repro.models.transformer._norm``: RMSNorm or LayerNorm."""
+    if cfg.norm == "rms":
+        return rms_norm(x, scale)
+    return layer_norm(x, scale, bias)
+
+
+@torch.no_grad()
+def _init_norm(scale: torch.Tensor, bias: torch.Tensor | None) -> None:
+    """The JAX init: an RMSNorm scale at zero (its gain is 1 + scale), a
+    LayerNorm's scale at one and its bias at zero."""
+    if bias is None:
+        scale.zero_()
+    else:
+        scale.fill_(1.0)
+        bias.zero_()
+
+
+class _Block(nn.Module):
+    """What every block shares: its norms, each a scale ``name`` and, for
+    LayerNorm, a bias ``name + "_bias"``."""
+    NORMS: tuple[str, ...] = ()
+
+    def _normed(self, cfg: ArchConfig, name: str,
+                x: torch.Tensor) -> torch.Tensor:
+        return _norm(cfg, x, getattr(self, name),
+                     getattr(self, name + "_bias"))
 
 
 class BlockState(NamedTuple):
@@ -74,20 +122,29 @@ class BlockState(NamedTuple):
     rec: dict | None = None
 
 
-def _glu_params(cfg: ArchConfig, cd: torch.dtype,
+def _ffn_params(cfg: ArchConfig, cd: torch.dtype,
                 device: torch.device) -> nn.ParameterDict:
-    d = cfg.d_model
-    return nn.ParameterDict({
-        "w_gate": _weight(d, cfg.d_ff, dtype=cd, device=device),
-        "w_up": _weight(d, cfg.d_ff, dtype=cd, device=device),
-        "w_down": _weight(cfg.d_ff, d, dtype=cd, device=device),
-    })
+    """The GLU's three matrices, or the plain MLP's two with their biases,
+    all in the compute dtype."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.ffn_kind == "glu":
+        shapes = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    else:
+        shapes = {"w_in": (d, f), "b_in": (f,), "w_out": (f, d),
+                  "b_out": (d,)}
+    return nn.ParameterDict({name: _weight(*shape, dtype=cd, device=device)
+                             for name, shape in shapes.items()})
 
 
-class AttnBlock(nn.Module):
+def _ffn(cfg: ArchConfig, params: nn.ParameterDict,
+         x: torch.Tensor) -> torch.Tensor:
+    return FFNS[cfg.ffn_kind](params, x, cfg.activation)
+
+
+class AttnBlock(_Block):
     """Pre-norm residual block: GQA self-attention — full causal for
-    ``attn``, sliding-window over a ring cache for ``local`` — then the GLU
-    FFN."""
+    ``attn``, sliding-window over a ring cache for ``local`` — then the
+    feed-forward."""
     NORMS = ("ln1", "ln2")
     PARTS = ("attn", "ffn")
 
@@ -98,7 +155,7 @@ class AttnBlock(nn.Module):
         hkv = cfg.num_kv_heads * cfg.head_dim
         cd = torch_dtype(cfg.compute_dtype)
         f32 = torch.float32
-        self.ln1 = _weight(d, dtype=f32, device=device)
+        self.ln1, self.ln1_bias = _norm_params(cfg, device)
         self.attn = nn.ParameterDict({
             "wq": _weight(d, hq, dtype=cd, device=device),
             "wk": _weight(d, hkv, dtype=cd, device=device),
@@ -114,8 +171,8 @@ class AttnBlock(nn.Module):
             self.attn.update({
                 "q_norm": _weight(cfg.head_dim, dtype=f32, device=device),
                 "k_norm": _weight(cfg.head_dim, dtype=f32, device=device)})
-        self.ln2 = _weight(d, dtype=f32, device=device)
-        self.ffn = _glu_params(cfg, cd, device)
+        self.ln2, self.ln2_bias = _norm_params(cfg, device)
+        self.ffn = _ffn_params(cfg, cd, device)
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "train",
@@ -127,7 +184,7 @@ class AttnBlock(nn.Module):
         ``kind`` in attn/local).  mode: train|prefill|decode.  In decode a
         0/1 ``length`` is the activity mask.  Returns (x, new_state)."""
         window = cfg.window if self.kind == "local" else 0
-        h = rms_norm(x, self.ln1)
+        h = self._normed(cfg, "ln1", x)
         q, k, v = attn_lib.qkv_project(
             self.attn, h, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             positions, rope_theta=cfg.rope_theta)
@@ -161,13 +218,13 @@ class AttnBlock(nn.Module):
         b, s = out.shape[:2]
         o = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
         x = x + torch.matmul(o, self.attn["wo"])
-        x = x + glu_ffn(self.ffn, rms_norm(x, self.ln2), cfg.activation)
+        x = x + _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x))
         return x, None if state is None else state._replace(kv=kv)
 
 
-class RecBlock(nn.Module):
+class RecBlock(_Block):
     """Pre-norm residual block: the Griffin recurrent block (conv + RG-LRU),
-    then the GLU FFN.  The gate matrices are stored in the dtype
+    then the feed-forward.  The gate matrices are stored in the dtype
     ``rglru_core`` multiplies in (compute dtype when dense, float32 when
     block-diagonal); ``lambda`` stays float32."""
     NORMS = ("ln1", "ln2")
@@ -182,12 +239,12 @@ class RecBlock(nn.Module):
         shapes = rec_lib.rglru_param_shapes(cfg.d_model, cfg.d_rnn,
                                             cfg.d_conv, cfg.rglru_gate_blocks)
         dtypes = {"w_a": gate_dt, "w_i": gate_dt, "lambda": f32}
-        self.ln1 = _weight(cfg.d_model, dtype=f32, device=device)
+        self.ln1, self.ln1_bias = _norm_params(cfg, device)
         self.rec = nn.ParameterDict({
             name: _weight(*shape, dtype=dtypes.get(name, cd), device=device)
             for name, shape in shapes.items()})
-        self.ln2 = _weight(cfg.d_model, dtype=f32, device=device)
-        self.ffn = _glu_params(cfg, cd, device)
+        self.ln2, self.ln2_bias = _norm_params(cfg, device)
+        self.ffn = _ffn_params(cfg, cd, device)
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "train",
@@ -198,7 +255,7 @@ class RecBlock(nn.Module):
         """``apply_block`` for ``kind == "rec"``: in prefill the state
         resumes from the carry (zeroed where offset == 0); in decode a 0/1
         ``length`` freezes conv and h of rows with 0."""
-        h = rms_norm(x, self.ln1)
+        h = self._normed(cfg, "ln1", x)
         if mode == "train":
             y, _ = rec_lib.rglru_block(self.rec, h)
         else:
@@ -207,11 +264,11 @@ class RecBlock(nn.Module):
                 length=length)
             state = state._replace(rec=rec)
         x = x + y
-        x = x + glu_ffn(self.ffn, rms_norm(x, self.ln2), cfg.activation)
+        x = x + _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x))
         return x, state
 
 
-class SsmBlock(nn.Module):
+class SsmBlock(_Block):
     """Pre-norm residual Mamba-1 block (``ln1`` only, no FFN).
     ``in_proj``, ``conv_w`` and ``out_proj`` are stored in the compute
     dtype, the parameters ``mamba_ssm`` reads in float32 in float32."""
@@ -226,7 +283,7 @@ class SsmBlock(nn.Module):
         shapes = rec_lib.mamba_param_shapes(cfg.d_model, cfg.d_inner,
                                             cfg.d_state, cfg.d_conv,
                                             self.dt_rank)
-        self.ln1 = _weight(cfg.d_model, dtype=torch.float32, device=device)
+        self.ln1, self.ln1_bias = _norm_params(cfg, device)
         self.ssm = nn.ParameterDict({
             name: _weight(*shape, device=device,
                           dtype=torch.float32 if name in rec_lib.MAMBA_F32
@@ -242,7 +299,7 @@ class SsmBlock(nn.Module):
         """``apply_block`` for ``kind == "ssm"``: in prefill the state
         resumes from the carry (zeroed where offset == 0); in decode a 0/1
         ``length`` freezes conv and h of rows with 0."""
-        h = rms_norm(x, self.ln1)
+        h = self._normed(cfg, "ln1", x)
         kw = dict(d_state=cfg.d_state, dt_rank=self.dt_rank)
         if mode == "train":
             y, _ = rec_lib.mamba_block(self.ssm, h, **kw)
@@ -308,7 +365,15 @@ class Model(nn.Module):
         f32 = torch.float32
         self.embed = _weight(cfg.vocab_padded, cfg.d_model, dtype=f32,
                              device=self.device)
-        self.final_norm = _weight(cfg.d_model, dtype=f32, device=self.device)
+        self.final_norm, self.final_norm_bias = _norm_params(cfg,
+                                                             self.device)
+        self.lm_head = None if cfg.tie_embeddings else _weight(
+            cfg.vocab_padded, cfg.d_model, dtype=f32, device=self.device)
+        self.mm_proj = None if not cfg.modality_tokens else nn.ParameterDict({
+            "w1": _weight(cfg.modality_dim, cfg.d_model,
+                          dtype=self.compute_dtype, device=self.device),
+            "w2": _weight(cfg.d_model, cfg.d_model,
+                          dtype=self.compute_dtype, device=self.device)})
         self.layers = nn.ModuleList(
             RecBlock(cfg, self.device) if kind == "rec"
             else SsmBlock(cfg, self.device) if kind == "ssm"
@@ -318,7 +383,8 @@ class Model(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Random weights with the JAX package's distributions (normal,
-        std 1/sqrt(fan_in); norm scales 0, biases 0; the RG-LRU's
+        std 1/sqrt(fan_in), the embedding and ``lm_head`` 1/sqrt(d_model);
+        RMSNorm scales 0, LayerNorm scales 1, biases 0; the RG-LRU's
         ``init_rglru_block``, Mamba's ``init_mamba_block``), drawn from
         ``generator`` — which lives on the model's device."""
         def normal(p: torch.Tensor, std: float) -> None:
@@ -327,10 +393,15 @@ class Model(nn.Module):
             p.copy_(w)
 
         normal(self.embed, 1.0 / self.cfg.d_model ** 0.5)
-        self.final_norm.zero_()
+        if self.lm_head is not None:
+            normal(self.lm_head, 1.0 / self.cfg.d_model ** 0.5)
+        if self.mm_proj is not None:
+            for p in self.mm_proj.values():
+                normal(p, fan_in_std(tuple(p.shape)))
+        _init_norm(self.final_norm, self.final_norm_bias)
         for blk in self.layers:
             for norm in blk.NORMS:
-                getattr(blk, norm).zero_()
+                _init_norm(getattr(blk, norm), getattr(blk, norm + "_bias"))
             if isinstance(blk, SsmBlock):
                 rec_lib.init_mamba_block(blk.ssm, generator)
                 trees = ()
@@ -348,23 +419,41 @@ class Model(nn.Module):
         return self
 
     # -------------------------------------------------------------- backbone
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_scaled(self.embed, tokens, self.compute_dtype,
-                            self.cfg.d_model)
+    def _embed(self, tokens: torch.Tensor,
+               modality: torch.Tensor | None = None) -> torch.Tensor:
+        """The scaled token embeddings; with ``modality`` (B,M,
+        modality_dim) on a model with the stub, the projected modality
+        tokens (``mm_proj``: w1, tanh GELU, w2, in the compute dtype)
+        first (``repro.models.transformer.Model._embed_inputs``)."""
+        x = embed_scaled(self.embed, tokens, self.compute_dtype,
+                         self.cfg.d_model)
+        if modality is not None and self.mm_proj is not None:
+            m = torch.matmul(modality.to(self.compute_dtype),
+                             self.mm_proj["w1"])
+            m = torch.matmul(gelu(m), self.mm_proj["w2"])
+            x = torch.cat([m, x], dim=1)
+        return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_norm)
-        return unembed(x, self.embed)[..., :self.cfg.vocab_size]
+        x = _norm(self.cfg, x, self.final_norm, self.final_norm_bias)
+        table = self.embed if self.lm_head is None else self.lm_head
+        return unembed(x, table)[..., :self.cfg.vocab_size]
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence logits: (B,S) -> (B,S,V) float32."""
-        x = self._embed(tokens)
+    def forward(self, tokens: torch.Tensor,
+                modality: torch.Tensor | None = None) -> torch.Tensor:
+        """Full-sequence logits: (B,S) -> (B,S,V) float32.  With
+        ``modality`` the projected modality tokens go first and their
+        logits are dropped."""
+        x = self._embed(tokens, modality)
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[:2])
         for blk in self.layers:
             x, _ = blk(self.cfg, x, positions)
-        return self._logits(x)
+        logits = self._logits(x)
+        if modality is not None and self.mm_proj is not None:
+            logits = logits[:, modality.shape[1]:]
+        return logits
 
     # ----------------------------------------------------------- serving path
     def init_block_state(self, i: int, batch: int,
@@ -432,19 +521,28 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, states, *,
+                modality: torch.Tensor | None = None,
                 length: torch.Tensor | None = None,
                 offset: torch.Tensor | None = None,
                 block_table: torch.Tensor | None = None):
         """Process a right-padded prompt batch; fill its states; return the
         logits at position ``length - 1`` (B,1,V) and the new states.
 
+        ``modality``: (B,M,modality_dim) patch embeddings projected into M
+        tokens ahead of ``tokens`` (the positions, the caches and
+        ``length`` then count them too).
         ``offset``: (B,) tokens already in ``states`` when ``tokens`` is one
-        chunk of a longer prompt (requires ``length``); recurrent states
-        resume from their carry (zeroed where offset == 0).
+        chunk of a longer prompt (requires ``length``; decoder-only token
+        models only, as the JAX package's); recurrent states resume from
+        their carry (zeroed where offset == 0).
         ``block_table``: (B, max_len/bs), required for paged states."""
-        if offset is not None and length is None:
-            raise ValueError("chunked prefill (offset=...) needs length")
-        x = self._embed(tokens)
+        if offset is not None:
+            if length is None:
+                raise ValueError("chunked prefill (offset=...) needs length")
+            if self.cfg.modality_tokens:
+                raise NotImplementedError(
+                    "chunked prefill supports decoder-only token models")
+        x = self._embed(tokens, modality)
         base = torch.arange(x.shape[1], device=x.device)[None]
         positions = base.expand(x.shape[:2]) if offset is None \
             else offset[:, None].long() + base

@@ -1,4 +1,9 @@
 from .drift import drift_report, plan_predictions
+from .metrics import OBS_SCHEMA_VERSION, Counter, Gauge, Histogram, \
+    MetricsRegistry
 from .timing import Timed, profile_trace
+from .trace import Tracer
 
-__all__ = ["Timed", "drift_report", "plan_predictions", "profile_trace"]
+__all__ = ["OBS_SCHEMA_VERSION", "Counter", "Gauge", "Histogram",
+           "MetricsRegistry", "Timed", "Tracer", "drift_report",
+           "plan_predictions", "profile_trace"]

@@ -27,18 +27,21 @@ import torch
 class Timed:
     """Context manager timing one device-synchronized section.
 
-    Attributes after the block: ``t0`` / ``t1`` (clock stamps) and ``dur``
-    (seconds)."""
+    Attributes after the block: ``t0`` / ``t1`` (stamps of ``clock``) and
+    ``dur`` (seconds).  The engine passes its tracer's clock, so spans,
+    stats and TTFTs share one timeline."""
 
-    __slots__ = ("name", "device", "t0", "t1", "dur")
+    __slots__ = ("name", "device", "t0", "t1", "dur", "_clock")
 
-    def __init__(self, name: str = "", *, device: torch.device):
+    def __init__(self, name: str = "", *, device: torch.device,
+                 clock=time.perf_counter):
         self.name = name
         self.device = torch.device(device)
+        self._clock = clock
         self.t0 = self.t1 = self.dur = 0.0
 
     def __enter__(self) -> "Timed":
-        self.t0 = time.perf_counter()
+        self.t0 = self._clock()
         return self
 
     def sync(self, out=None):
@@ -49,7 +52,7 @@ class Timed:
         return out
 
     def __exit__(self, *exc) -> bool:
-        self.t1 = time.perf_counter()
+        self.t1 = self._clock()
         self.dur = self.t1 - self.t0
         return False
 

@@ -28,12 +28,22 @@ adopts unless the constructor is given its own, or a "fixed" record of the
 constructor's knobs.  ``EngineStats.summary()`` reports the plan beside the
 measured phase times and their drift from its predictions.
 
-Not ported yet: meshes, prefill/decode roles, the program registry and the
-tracer — the constructor takes none of them.
+The engine is observable as the reference is (``obs/``): every request's
+lifecycle (submit, admit, prefill or chunks, decode, stall, finish or
+abort) lands in a ring-buffered ``Tracer`` — a track for the queue, one per
+slot, one for engine-wide spans, and per-tick counter tracks — saved as
+Chrome trace-event JSON by ``save_trace``.  Every stamp comes from the
+tracer's clock through ``Timed``, which synchronizes the card before its
+closing stamp.  Aggregates (TTFT, decode tick and time-between-tokens
+histograms, tokens per tick, prefill padding waste, memory gauges) go to
+``EngineStats.metrics`` and come out as the ``obs`` section of
+``summary()``, the reference's schema but for ``NOT_PORTED_STATS``.
+
+Not ported yet: meshes, prefill/decode roles and the compiled-program
+registry — the constructor takes none of them.
 """
 from __future__ import annotations
 
-import time
 import warnings
 from collections import deque
 from dataclasses import dataclass, field
@@ -43,7 +53,8 @@ import torch
 
 from ..models.attention import KVCache, PagedKVCache
 from ..models.transformer import BlockState, Model
-from ..obs import Timed, drift_report, plan_predictions
+from ..obs import MetricsRegistry, Timed, Tracer, drift_report, \
+    plan_predictions
 from .kvpool import PagedKVManager
 from .placement import PlacementPlan, fixed_plan
 from .sampling import sample_tokens
@@ -75,6 +86,22 @@ def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
 
 
 # --------------------------------------------------------------------- stats
+#: keys of the reference's ``EngineStats.summary()`` that the port leaves
+#: out, each with the slice that brings it (ROADMAP A)
+NOT_PORTED_STATS = {
+    "programs": "A2, the compiled programs (CUDA graphs) and their registry",
+    "handoff": "A4, disaggregated prefill/decode roles",
+    "kv.shards": "A7, a block pool sharded over several cards",
+    "kv.in_use_per_shard": "A7, a block pool sharded over several cards",
+    "kv.peak_per_shard": "A7, a block pool sharded over several cards",
+}
+
+#: tracer track of the queue-level request events; slot ``i`` is on
+#: ``1 + i``, engine-wide spans (decode ticks, warmup, block copies) on
+#: ``1 + slots``
+TRACK_REQUESTS = 0
+
+
 @dataclass
 class EngineStats:
     """Engine-side serving metrics, accumulated across ticks."""
@@ -87,27 +114,52 @@ class EngineStats:
     prefill_chunks: int = 0             # chunk-continuation invocations
     prefill_prompt_tokens: int = 0
     prefill_tokens_computed: int = 0    # prefix hits skip the shared part
+    prefill_padded_tokens: int = 0
     prefill_time_s: float = 0.0
     decode_steps: int = 0
     decode_time_s: float = 0.0
-    ttft_s: list = field(default_factory=list)
+    # TTFT: count/sum/max are exact streaming aggregates; the median comes
+    # from the fixed-size log2 histogram in ``metrics``, as the reference's
+    ttft_count: int = 0
+    ttft_sum: float = 0.0
+    ttft_max: float = 0.0
+    # counters, gauges and log2 histograms: the ``obs`` section of summary()
+    metrics: MetricsRegistry = field(default_factory=MetricsRegistry)
+    occupancy_sum: float = 0.0          # sum over ticks of busy/slots
+    ticks: int = 0
+    bucket_counts: dict = field(default_factory=dict)
+    batch_counts: dict = field(default_factory=dict)   # rows per prefill call
+    # the port runs its programs eagerly: nothing is compiled or captured,
+    # so both stay 0 until the decode and prefill steps become CUDA graphs
+    # (ROADMAP A2)
+    prefill_compiles: int = 0
+    decode_compiles: int = 0
     wall_time_s: float = 0.0
     nonfinite_logits: int = 0           # sampled rows with a NaN/inf logit
-    # ---- paged KV pool ----
+    # ---- paged KV pool (all zero on dense engines) ----
     kv_pool_blocks: int = 0
     kv_block_size: int = 0
     kv_blocks_in_use: int = 0           # referenced blocks, end of last tick
     kv_blocks_peak: int = 0
+    kv_blocks_cached: int = 0           # evictable prefix-cache blocks
+    kv_occupancy_sum: float = 0.0       # sum over ticks of in_use/pool
     prefix_queries: int = 0
     prefix_hits: int = 0
     prefix_tokens_reused: int = 0
     blocks_copied: int = 0              # copy-on-write clones
+    blocks_evicted: int = 0             # LRU evictions of cached blocks
     decode_stalls: int = 0              # slot-ticks frozen waiting for blocks
     # ---- placement (the plan's summary; set by the engine) ----
     placement: dict = field(default_factory=dict)
 
+    def record_ttft(self, v: float) -> None:
+        self.ttft_count += 1
+        self.ttft_sum += v
+        if v > self.ttft_max:
+            self.ttft_max = v
+        self.metrics.histogram("ttft_s").record(v)
+
     def summary(self) -> dict:
-        ttft = np.asarray(self.ttft_s, np.float64)
         out = {
             "requests_completed": self.requests_completed,
             "requests_aborted": self.requests_aborted,
@@ -115,9 +167,10 @@ class EngineStats:
             "tokens_per_s": self.tokens_generated / self.wall_time_s
             if self.wall_time_s else 0.0,
             "ttft_ms": {
-                "mean": 1e3 * float(ttft.mean()) if ttft.size else 0.0,
-                "p50": 1e3 * float(np.median(ttft)) if ttft.size else 0.0,
-                "max": 1e3 * float(ttft.max()) if ttft.size else 0.0,
+                "mean": 1e3 * self.ttft_sum / self.ttft_count
+                if self.ttft_count else 0.0,           # exact
+                "p50": 1e3 * self.metrics.histogram("ttft_s").quantile(0.5),
+                "max": 1e3 * self.ttft_max,            # exact
             },
             "decode_step_ms": 1e3 * self.decode_time_s
             / max(self.decode_steps, 1),
@@ -129,20 +182,34 @@ class EngineStats:
             "prefill_prompt_tokens": self.prefill_prompt_tokens,
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "prefill_time_s": self.prefill_time_s,
+            "prefill_padding_overhead": (
+                self.prefill_padded_tokens / self.prefill_prompt_tokens - 1.0
+                if self.prefill_prompt_tokens else 0.0),
+            "bucket_counts": dict(self.bucket_counts),
+            "prefill_batch_counts": dict(self.batch_counts),
+            "slot_occupancy": self.occupancy_sum / max(self.ticks, 1),
+            "prefill_compiles": self.prefill_compiles,
+            "decode_compiles": self.decode_compiles,
             "wall_time_s": self.wall_time_s,
             "nonfinite_logits": self.nonfinite_logits,
-            "kv": {
+        }
+        if self.kv_pool_blocks:
+            out["kv"] = {
                 "pool_blocks": self.kv_pool_blocks,
                 "block_size": self.kv_block_size,
                 "blocks_in_use": self.kv_blocks_in_use,
                 "blocks_peak": self.kv_blocks_peak,
+                "blocks_cached": self.kv_blocks_cached,
+                "occupancy": self.kv_occupancy_sum / max(self.ticks, 1),
                 "prefix_queries": self.prefix_queries,
                 "prefix_hits": self.prefix_hits,
+                "prefix_hit_rate": self.prefix_hits / self.prefix_queries
+                if self.prefix_queries else 0.0,
                 "prefix_tokens_reused": self.prefix_tokens_reused,
                 "blocks_copied": self.blocks_copied,
+                "blocks_evicted": self.blocks_evicted,
                 "decode_stalls": self.decode_stalls,
-            },
-        }
+            }
         if self.placement:
             # the plan (predicted) + measured + drift, side by side
             p = dict(self.placement)
@@ -156,6 +223,7 @@ class EngineStats:
             }
             p["drift"] = drift_report(plan_predictions(p), p["measured"])
             out["placement"] = p
+        out["obs"] = self.metrics.to_dict()
         return out
 
 
@@ -189,7 +257,8 @@ class ServeEngine:
                  kv_block_size: int | None = None,
                  kv_blocks: int | None = None,
                  prefix_cache: bool = True,
-                 policy: PlacementPlan | None = None):
+                 policy: PlacementPlan | None = None,
+                 tracer: Tracer | None = None):
         """``min_bucket``: the smallest prompt bucket of the default ladder.
         ``max_prefill_per_step``: queued requests admitted per tick.
         ``max_prefill_batch``: rows of one batched prefill (capped at
@@ -207,7 +276,11 @@ class ServeEngine:
         ExecutionOracle.  It supplies the bucket ladder and the prefill
         chunk (explicit ``buckets``/``prefill_chunk`` still win) and is
         recorded in ``EngineStats.placement``; without one the engine
-        records a "fixed" plan of its own knobs."""
+        records a "fixed" plan of its own knobs.
+
+        ``tracer``: an ``obs.Tracer``; default a fresh enabled one (pass
+        ``Tracer(enabled=False)`` to opt out; the tokens are the same)."""
+        self.tracer = tracer if tracer is not None else Tracer()
         self.model = model
         self.device = model.device
         self.slots = slots
@@ -267,31 +340,98 @@ class ServeEngine:
         self._prefilling: dict[int, int] = {}   # slot -> prompt tokens consumed
         self._bt_cache: torch.Tensor | None = None
         self._bt_version = -1
-        self.stats = EngineStats(kv_pool_blocks=kv_blocks or 0,
-                                 kv_block_size=kv_block_size or 0,
-                                 placement=self.policy.summary())
+        self._trk_engine = 1 + slots
+        self.tracer.set_track(TRACK_REQUESTS, "requests")
+        for s in range(slots):
+            self.tracer.set_track(self._slot_track(s), f"slot {s}")
+        self.tracer.set_track(self._trk_engine, "engine")
+        # the state list's byte sizes are the per-slot footprint: paged K/V
+        # belongs to the pool, everything else to the slots
+        pool_bytes, state_bytes = _state_byte_stats(self.states)
+        self._slot_state_bytes = state_bytes // slots
+        if self.kv is not None:
+            self.kv.set_block_bytes(pool_bytes // self.kv.pool.num_blocks)
+        self.stats = EngineStats()
+        self._init_kv_stats()
 
     # ------------------------------------------------------------- plumbing
-    @staticmethod
-    def _now() -> float:
-        return time.perf_counter()
-
     def _timed(self, name: str) -> Timed:
-        return Timed(name, device=self.device)
+        """A Timed section on the tracer's clock (one shared timeline)."""
+        return Timed(name, device=self.device, clock=self.tracer.clock)
+
+    @staticmethod
+    def _slot_track(slot: int) -> int:
+        return 1 + slot
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)      # a copy, never a view
+
+    def _init_kv_stats(self) -> None:
+        st = self.stats
+        if self.kv is not None:
+            st.kv_pool_blocks = self.kv.pool.num_blocks
+            st.kv_block_size = self.kv.block_size
+        st.placement = self.policy.summary()
+        # static memory gauges (the per-tick ones update in _tick_counters)
+        st.metrics.gauge("slot_state_bytes", "bytes").set(
+            self._slot_state_bytes)
+        if self.kv is not None:
+            st.metrics.gauge("kv_pool_capacity_bytes", "bytes").set(
+                self.kv.pool.num_blocks * self.kv.block_bytes)
+
+    def reset_stats(self) -> None:
+        self.stats = EngineStats()
+        if self.kv is not None:
+            self.kv.reset_stats()
+        self._init_kv_stats()
+        self._sync_kv_stats()
 
     def _sync_kv_stats(self) -> None:
         st, mgr = self.stats, self.kv
         if mgr is None:
             return
         st.kv_blocks_in_use = mgr.in_use
+        # the pool keeps its high-water mark at alloc/retain time, so the
+        # peak sees blocks allocated and released within one tick
         st.kv_blocks_peak = max(st.kv_blocks_peak, mgr.pool.peak_in_use)
+        st.kv_blocks_cached = mgr.cached
         st.prefix_queries = mgr.stats.prefix_queries
         st.prefix_hits = mgr.stats.prefix_hits
         st.prefix_tokens_reused = mgr.stats.prefix_tokens_reused
         st.blocks_copied = mgr.stats.blocks_copied
+        st.blocks_evicted = mgr.blocks_evicted
+
+    def _tick_counters(self, ts: float, busy: int) -> None:
+        """Per-tick counter-track samples (queue depth, slot occupancy,
+        paged pool in use / cached, state bytes) and the memory gauges,
+        which update untraced too."""
+        m = self.stats.metrics
+        state_bytes = busy * self._slot_state_bytes
+        m.gauge("active_state_bytes", "bytes").set(state_bytes)
+        if self.kv is not None:
+            m.gauge("kv_pool_bytes", "bytes").set(self.kv.bytes_in_use)
+            m.gauge("kv_pool_bytes_peak", "bytes").set(self.kv.bytes_peak)
+        tr = self.tracer
+        if not tr.enabled:
+            return
+        tr.counter("queue_depth", ts, (("queued", len(self._queue)),))
+        tr.counter("slots", ts, (("busy", busy), ("free", self.slots - busy)))
+        series = [("slot_state", state_bytes)]
+        if self.kv is not None:
+            tr.counter("kv_blocks", ts, (("in_use", self.kv.in_use),
+                                         ("cached", self.kv.cached)))
+            series.append(("kv_pool", self.kv.bytes_in_use))
+        tr.counter("device_memory_bytes", ts, tuple(series))
+
+    def save_trace(self, path) -> None:
+        """Write the Chrome trace-event JSON of everything traced so far,
+        with the summary's placement section (plan, measured, drift) and
+        the metrics registry under ``otherData``."""
+        summary = self.stats.summary()
+        other = {"obs": summary["obs"]}
+        if "placement" in summary:
+            other["placement"] = summary["placement"]
+        self.tracer.save(path, other_data=other)
 
     def _sample(self, logits: torch.Tensor, slot_ids: list[int],
                 positions) -> list[int]:
@@ -321,7 +461,10 @@ class ServeEngine:
             raise ValueError("top_p must be in (0, 1]")
         if req.top_k < 0:
             raise ValueError("top_k must be >= 0 (0 = no top-k filter)")
-        req.t_submit = self._now()
+        req.t_submit = self.tracer.now()
+        self.tracer.instant("submit", TRACK_REQUESTS, req.t_submit,
+                            (("rid", req.rid),
+                             ("prompt_tokens", len(req.prompt))))
         self._queue.append(req)
 
     def _set_sampling(self, slot: int, req: Request) -> None:
@@ -342,6 +485,7 @@ class ServeEngine:
             req = self._queue[0]
             slot = free[0]
             matched = 0
+            copy = None
             if self.kv is not None:
                 plan = self.kv.admit(slot, req.prompt)
                 if plan is None:
@@ -349,12 +493,22 @@ class ServeEngine:
                     # retry next tick (decode frees blocks as requests end)
                     break
                 matched = plan.matched_tokens
-                if plan.copy is not None:
-                    self._run_copy(*plan.copy)
+                copy = plan.copy
             self._queue.popleft()
             free.pop(0)
             self.requests[slot] = req
             self._set_sampling(slot, req)
+            now = self.tracer.now()
+            self.tracer.begin(f"req {req.rid}", self._slot_track(slot), now,
+                              (("rid", req.rid),
+                               ("prompt_tokens", len(req.prompt)),
+                               ("prefix_hit_tokens", matched),
+                               ("queue_wait_s", round(now - req.t_submit, 6))))
+            if copy is not None:
+                self.tracer.instant("cow_copy", self._slot_track(slot), now,
+                                    (("rid", req.rid), ("src", copy[0]),
+                                     ("dst", copy[1])))
+                self._run_copy(*copy)
             admitted += 1
             if matched > 0 or len(req.prompt) > self.buckets[-1]:
                 # chunked path: long prompts, and prefix-cache hits of any
@@ -371,15 +525,20 @@ class ServeEngine:
         self._sync_kv_stats()
         return admitted
 
-    def _run_copy(self, src: int, dst: int) -> None:
+    def _copy_blocks(self, src: int, dst: int) -> None:
         """Clone physical block ``src`` into ``dst`` in every layer's pool —
         the copy-on-write step of a partial-block prefix hit."""
+        for st in self.states:
+            if isinstance(st.kv, PagedKVCache):
+                st.kv.k[dst] = st.kv.k[src]
+                st.kv.v[dst] = st.kv.v[src]
+
+    def _run_copy(self, src: int, dst: int) -> None:
         with self._timed("kv_copy") as tm:
-            for st in self.states:
-                if isinstance(st.kv, PagedKVCache):
-                    st.kv.k[dst] = st.kv.k[src]
-                    st.kv.v[dst] = st.kv.v[src]
+            self._copy_blocks(src, dst)
             tm.sync()
+        self.tracer.span("kv_copy", self._trk_engine, tm.t0, tm.t1,
+                         (("src", src), ("dst", dst)))
 
     def _tables_for(self, slot_ids: list[int],
                     rows: int) -> torch.Tensor | None:
@@ -431,6 +590,8 @@ class ServeEngine:
         st = self.stats
         st.prefill_calls += 1
         st.prefill_time_s += tm.dur
+        st.batch_counts[n] = st.batch_counts.get(n, 0) + 1
+        waste = st.metrics.counter("prefill_waste_tokens", "tokens")
         for i, (slot, req) in enumerate(members):
             tok = first[i]
             self.positions[slot] = len(req.prompt)
@@ -439,7 +600,13 @@ class ServeEngine:
             st.prefills += 1
             st.prefill_prompt_tokens += len(req.prompt)
             st.prefill_tokens_computed += len(req.prompt)
-            st.ttft_s.append(now - req.t_submit)
+            st.prefill_padded_tokens += bucket
+            waste.inc(bucket - len(req.prompt))
+            self.tracer.span("prefill", self._slot_track(slot), tm.t0, tm.t1,
+                             (("rid", req.rid), ("bucket", bucket),
+                              ("rows", n)))
+            st.record_ttft(now - req.t_submit)
+            st.bucket_counts[bucket] = st.bucket_counts.get(bucket, 0) + 1
             if self.kv is not None:
                 self.kv.publish(slot, req.prompt)
             if len(req.generated) >= req.max_new_tokens or tok == req.eos_id:
@@ -467,8 +634,13 @@ class ServeEngine:
             tm.sync()
         st = self.stats
         st.prefill_chunks += 1
+        st.prefill_padded_tokens += c
         st.prefill_tokens_computed += n
         st.prefill_time_s += tm.dur
+        st.metrics.counter("prefill_waste_tokens", "tokens").inc(c - n)
+        self.tracer.span("prefill_chunk", self._slot_track(slot),
+                         tm.t0, tm.t1,
+                         (("rid", req.rid), ("offset", off), ("n", n)))
         if not done:
             self._prefilling[slot] = off + n
             return
@@ -480,7 +652,7 @@ class ServeEngine:
         st.prefills += 1
         st.prefills_chunked += 1
         st.prefill_prompt_tokens += len(req.prompt)
-        st.ttft_s.append(now - req.t_submit)
+        st.record_ttft(now - req.t_submit)
         if self.kv is not None:
             self.kv.publish(slot, req.prompt)
         if len(req.generated) >= req.max_new_tokens or tok == req.eos_id:
@@ -491,6 +663,8 @@ class ServeEngine:
         req.done = True
         req.aborted = False
         req.t_done = now
+        self.tracer.end(f"req {req.rid}", self._slot_track(slot), now,
+                        (("rid", req.rid), ("tokens", len(req.generated))))
         self.requests[slot] = None
         if self.kv is not None:
             # publish only the written prefix: the last sampled token was
@@ -535,7 +709,7 @@ class ServeEngine:
                     length=zeros(1) + 1, offset=zeros(1),
                     block_table=self._warm_table(1))
             if self.kv is not None:
-                self._run_copy(0, 0)
+                self._copy_blocks(0, 0)
             self.model.decode_step(
                 torch.zeros((self.slots, 1), dtype=torch.long,
                             device=self.device), self.states,
@@ -546,6 +720,7 @@ class ServeEngine:
             self.states = self.model.init_states(self.slots, self.max_len,
                                                  **self._state_kw)
             tm.sync()
+        self.tracer.span("warmup", self._trk_engine, tm.t0, tm.t1)
         if self.kv is not None:
             # the pool was just re-zeroed: drop every prefix that described it
             self.kv.clear()
@@ -568,7 +743,7 @@ class ServeEngine:
         lockstep decode step over the decoding slots.  With a paged pool each
         slot's table is extended before its write; a slot the pool cannot
         extend stalls."""
-        t_tick = self._now()
+        t_tick = self.tracer.now()
         for slot in list(self._prefilling):
             self._advance_chunk(slot)
         self._admit(self.max_prefill_per_step)
@@ -583,6 +758,9 @@ class ServeEngine:
                     ok.append(i)
                 else:
                     self.stats.decode_stalls += 1
+                    self.tracer.instant(
+                        "stall", self._slot_track(i), self.tracer.now(),
+                        (("rid", self.requests[i].rid),))
             if not ok and not self._prefilling:
                 raise RuntimeError(
                     f"KV pool exhausted: {self.kv.in_use} of "
@@ -591,9 +769,14 @@ class ServeEngine:
                     f"pool for at least one request's worst case "
                     f"(kv_blocks >= max_len / kv_block_size)")
             active = ok
+        self.stats.ticks += 1
+        self.stats.occupancy_sum += len(busy) / self.slots
         if not active:
             self._sync_kv_stats()
-            self.stats.wall_time_s += self._now() - t_tick
+            self.stats.kv_occupancy_sum += self._kv_occupancy()
+            now = self.tracer.now()
+            self._tick_counters(now, len(busy))
+            self.stats.wall_time_s += now - t_tick
             return
         toks = np.zeros((self.slots, 1), np.int64)
         mask = np.zeros((self.slots,), bool)
@@ -611,8 +794,14 @@ class ServeEngine:
                                self.positions[active] + 1)
             tm.sync()
         now = tm.t1
+        m = self.stats.metrics
         self.stats.decode_steps += 1
         self.stats.decode_time_s += tm.dur
+        m.histogram("decode_tick_s").record(tm.dur)
+        m.histogram("tokens_per_tick", base=1.0,
+                    unit="tokens").record(len(active))
+        self.tracer.span("decode", self._trk_engine, tm.t0, tm.t1,
+                         (("active", len(active)),))
         for i, tok in zip(active, nxt):
             req = self.requests[i]
             self.positions[i] += 1
@@ -622,7 +811,17 @@ class ServeEngine:
                     or self.positions[i] >= self.max_len - 1):
                 self._finish(i, now)
         self._sync_kv_stats()
-        self.stats.wall_time_s += self._now() - t_tick
+        self.stats.kv_occupancy_sum += self._kv_occupancy()
+        end = self.tracer.now()
+        # time between tokens as a running slot sees it: the whole tick,
+        # chunks and admissions included
+        m.histogram("decode_tbt_s").record(end - t_tick)
+        self._tick_counters(end, sum(r is not None for r in self.requests))
+        self.stats.wall_time_s += end - t_tick
+
+    def _kv_occupancy(self) -> float:
+        return self.kv.in_use / self.kv.pool.num_blocks \
+            if self.kv is not None else 0.0
 
     def run(self, requests: list[Request], max_steps: int = 10_000,
             on_truncate: str = "warn") -> list[Request]:
@@ -644,7 +843,11 @@ class ServeEngine:
         if leftovers:
             self.stats.requests_aborted += sum(
                 1 for r in leftovers if not r.aborted)
+            t_abort = self.tracer.now()
             for r in leftovers:
+                if not r.aborted:
+                    self.tracer.instant("abort", TRACK_REQUESTS, t_abort,
+                                        (("rid", r.rid),))
                 r.aborted = True
             msg = (f"run() exhausted max_steps={max_steps} with "
                    f"{len(leftovers)} unfinished requests "
@@ -658,6 +861,20 @@ class ServeEngine:
 
 
 # --------------------------------------------------------- state pool surgery
+def _state_byte_stats(states: list[BlockState]) -> tuple[int, int]:
+    """(paged pool K/V bytes, per-slot state bytes) of the state list, as
+    the reference counts them: a paged layer's K and V (its lengths are not
+    counted), every other tensor in full."""
+    pool_b = state_b = 0
+    for st in states:
+        if isinstance(st.kv, PagedKVCache):
+            pool_b += st.kv.k.nbytes + st.kv.v.nbytes
+        else:
+            parts = st.kv if st.kv is not None else st.rec.values()
+            state_b += sum(a.nbytes for a in parts)
+    return pool_b, state_b
+
+
 def _gather_slot(states: list[BlockState], slot: int) -> list[BlockState]:
     """A batch-1 copy of slot ``slot`` of the pooled states
     (``repro.serve.engine._gather_slot``); paged layers keep the global pool

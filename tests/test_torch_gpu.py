@@ -89,7 +89,14 @@ def cuda():
     # serving's prefill buckets at qwen3's heads (2 q heads a kv head)
     (4, 16, 16, 8, 128, 0), (4, 32, 16, 8, 128, 0), (2, 64, 16, 8, 128, 0),
     (1, 128, 16, 8, 128, 0),
-    (2, 40, 10, 1, 256, 2048)])     # MQA, ragged within a packed tile
+    (2, 40, 10, 1, 256, 2048),      # MQA, ragged within a packed tile
+    # serving's prefill buckets at the heads of qwen2-0.5b (group 7),
+    # smollm-135m (group 3) and starcoder2-7b (group 9): groups that do not
+    # divide a tile's 64 packed rows, so a position straddles two tiles
+    (4, 16, 14, 2, 64, 0), (2, 64, 14, 2, 64, 0), (1, 256, 14, 2, 64, 0),
+    (4, 16, 9, 3, 64, 0), (2, 128, 9, 3, 64, 0), (1, 256, 9, 3, 64, 0),
+    (4, 32, 36, 4, 128, 0), (1, 256, 36, 4, 128, 0),
+    (2, 100, 14, 2, 64, 0), (2, 100, 36, 4, 128, 0)])   # ragged
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, b, s, h, kvh,
                                             hd, window):
     gen = torch.Generator(device=cuda).manual_seed(s + hd)
@@ -107,7 +114,8 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, b, s, h, kvh,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("h,kvh,hd", [(16, 8, 128), (10, 1, 256)])
+@pytest.mark.parametrize("h,kvh,hd", [(16, 8, 128), (10, 1, 256),
+                                      (14, 2, 64), (9, 3, 64), (36, 4, 128)])
 def test_flash_kernel_takes_projection_views_on_card(cuda, dtype, tol, h,
                                                      kvh, hd):
     """q, k and v as the model could hand them over: views of one fused
@@ -220,7 +228,8 @@ def _paged_err(t):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("h,kvh", [(8, 8), (16, 8), (14, 2)])  # groups 1 2 7
+@pytest.mark.parametrize("h,kvh", [(8, 8), (16, 8), (14, 2),   # groups 1 2 7
+                                   (9, 3), (36, 4)])            # 3 9
 def test_paged_kernel_matches_plain_at_every_width_on_card(cuda, dtype, hd,
                                                            h, kvh):
     rng = np.random.RandomState(hd + h)
@@ -775,3 +784,44 @@ def test_policy_auto_serves_the_fixed_tokens_on_card(cuda, arch,
     assert auto.prefill_chunk == (32 if arch == "qwen3-0.6b" else 16)
     assert fixed.prefill_chunk == 32
     assert auto_tokens == fixed_tokens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "smollm-135m",
+                                  "starcoder2-7b", "internvl2-2b"])
+def test_full_width_arch_serves_the_same_tokens_twice_on_card(cuda, arch):
+    """Full width cut to 2 layers, bf16, paged blocks of 16, the auto plan:
+    flash prefills and paged decode steps serve greedy and sampled tokens
+    that a second model from the same seed serves again.  The modality
+    model cannot chunk (nor can the JAX one): its prompts fit the buckets
+    and its prefix cache is off."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request
+    cfg = get_config(arch).replace(num_layers=2)
+    vlm = bool(cfg.modality_tokens)
+    lengths = (5, 40, 200) if vlm else (5, 40, 300)
+
+    def serve():
+        model = build_model(cfg, device=cuda, seed=0)
+        eng = build_engine(cfg, model, slots=2, max_len=512, max_bucket=256,
+                           kv_block_size=16, prefix_cache=not vlm)
+        before = (fa.launches.n, pa.launches.n)
+        rng = np.random.RandomState(1)
+        reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size,
+                                                  n).tolist(),
+                        max_new_tokens=6,
+                        **(dict(temperature=0.8, top_k=20, seed=5)
+                           if i == 1 else {}))
+                for i, n in enumerate(lengths)]
+        eng.run(reqs, on_truncate="raise")
+        s = eng.stats.summary()
+        assert s["requests_completed"] == 3 and s["nonfinite_logits"] == 0
+        assert s["prefill_chunks"] == (0 if vlm else 2)
+        assert fa.launches.n > before[0] and pa.launches.n > before[1]
+        return [r.generated for r in reqs]
+
+    first = serve()
+    assert all(0 <= t < cfg.vocab_size for g in first for t in g)
+    assert serve() == first

@@ -149,6 +149,22 @@ def test_flash_takes_every_head_dim_and_layout_it_serves(dtype, hd, layout):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,kvh,hd", [
+    (14, 2, 64),        # qwen2-0.5b: a fused width of 1152 with qkv bias
+    (9, 3, 64),         # smollm-135m: 960
+    (36, 4, 128),       # starcoder2-7b: 5632 with qkv bias
+    (16, 8, 128)])      # qwen3-0.6b and internvl2-2b: 4096
+def test_flash_takes_each_archs_projection_views(dtype, h, kvh, hd):
+    """Views of each served arch's fused (B, S, (H + 2 KVH) hd) projection
+    pass every check, and fail only for want of a card."""
+    q, k, v = _projection_views(dtype, h, kvh, hd)
+    assert q.stride(1) == (h + 2 * kvh) * hd and not q.is_contiguous()
+    fk.check_flash_args(q, k, v, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.flash_attention_raw(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("h,kvh,hd,window", [(4, 2, 64, 0), (10, 1, 256, 8),
                                              (2, 2, 16, 0)])
 def test_flash_on_cpu_tensors_is_the_plain_version(dtype, h, kvh, hd,
@@ -322,7 +338,8 @@ def test_paged_refuses_head_dims_without_an_instantiation(dtype, hd):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hd", pgk.HEAD_DIMS)
 @pytest.mark.parametrize("h,kvh,bs", [(16, 8, 16), (14, 2, 16), (8, 8, 8),
-                                      (10, 1, 16), (40, 8, 48), (9, 3, 1)])
+                                      (10, 1, 16), (40, 8, 48), (9, 3, 1),
+                                      (36, 4, 16)])
 def test_paged_takes_every_head_dim_group_and_block_size(dtype, hd, h, kvh,
                                                          bs):
     """Every head dim, the configs' GQA groups and any block size pass

@@ -296,6 +296,5 @@ def test_cli_long_prompts_max_new_and_warmup_run_on_cpu(capsys):
 
 def test_cli_refuses_exactly_the_options_not_ported():
     assert set(NOT_PORTED) == {
-        "--mesh", "--dp", "--mp", "--roles", "--param-strategy", "--trace",
-        "--metrics-json", "--metrics-prom", "--program-memory",
-        "--no-program-memory"}
+        "--mesh", "--dp", "--mp", "--roles", "--param-strategy",
+        "--program-memory", "--no-program-memory"}
