@@ -76,7 +76,26 @@ Phases, one line or block of output each; any failure exits non-zero:
       parameters), all layers, as a.; and internvl2-2b, all 24 layers,
       text only through its untied head, with a bucket ladder up to
       max_len and no prefix cache: like the JAX package's, its model
-      cannot chunk a prompt.
+      cannot chunk a prompt;
+7. train — full-width qwen3-0.6b (28 layers, 3 steps) and
+   seamless-m4t-medium (12 encoder + 12 decoder layers, vocab 256,206, 2
+   steps) through ``launch.train.train_once`` on the card: bf16 compute on
+   float32 masters, global batch 8 of 128 tokens in 2 microbatches; each
+   step's loss, lr and grad norm, the median step, the peak memory and the
+   parameter tensors that moved; the steps run under autograd (the
+   differentiable routes) and launch no kernel, then a no-grad evaluation
+   forward launches flash once a self-attention layer, the encoder's
+   non-causal ones included.  Then reduced smollm-135m trains 12 steps
+   twice, once failing at step 9 and auto-resuming from a checkpoint; the
+   losses agree within a stated tolerance.
+
+Phase 3 also checks flash non-causal (the encoder's self-attention) at
+seamless-m4t-medium's heads, Sq == Skv and Sq != Skv, and times it; phase 4
+also holds a 2 + 2-layer cut of seamless-m4t-medium's no-grad forward, CPU
+against card, and one train step (accum 2, float32) of 3-layer
+recurrentgemma-2b and 2-layer falcon-mamba-7b cuts at full width, batch 2
+of 64 tokens, CPU against card: under autograd the scans run
+``chunked_linear_scan`` on the card.
 
 The last three lines: ``nvidia-smi``'s name and power limit, one JSON
 object with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -105,6 +124,8 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: 9 do not divide flash's 64 packed rows a tile, and hd 64 runs its
 #: tensor-core route; internvl2-2b has qwen3's heads
 NEW_ARCHS = ("qwen2-0.5b", "smollm-135m", "starcoder2-7b", "internvl2-2b")
+#: the encoder-decoder: its encoder runs flash non-causal
+ENCDEC = "seamless-m4t-medium"
 PAGED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the RG-LRU kernel rounds a*h, then +b, as its plain loop does: float32
 # agrees to the bit (checked with torch.equal as well); a bf16 output may
@@ -268,16 +289,19 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
                                        else "operations")
 
 
-def flash_case(b, s, h, kvh, hd, window, dtype, gen):
+def flash_case(b, s, h, kvh, hd, window, dtype, gen, causal=True, skv=None):
+    """One flash call against its plain version (``skv`` KV positions, S by
+    default): the inputs and max|kernel - plain|."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_raw,
                                                      flash_attention_ref)
     dt = getattr(torch, dtype)
+    skv = s if skv is None else skv
     q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
-    k = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(dt)
-    v = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(dt)
-    out = flash_attention_raw(q, k, v, causal=True, window=window)
-    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    k = torch.randn((b, skv, kvh, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, skv, kvh, hd), generator=gen, device="cuda").to(dt)
+    out = flash_attention_raw(q, k, v, causal=causal, window=window)
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     return (q, k, v), err
@@ -302,31 +326,34 @@ def phase_kernels(seed: int, card: str, parent: dict):
     say(f"[kernel] on {card}: timing floor (a 1-element kernel): "
         f"{floor:.4f} ms")
 
-    def flash_times(b, s, h, kvh, hd, window, dtype) -> dict:
-        """One causal flash call at these shapes: its error against the
-        plain version, and the kernel's, the plain version's and
+    def flash_times(b, s, h, kvh, hd, window, dtype, causal=True) -> dict:
+        """One flash call at these shapes (causal, or every query over
+        every key): its error against the plain version, and the
+        kernel's, the plain version's and
         ``scaled_dot_product_attention``'s times beside the bound."""
         assert window == 0 or window >= s   # SDPA's causal mask is the same
-        (q, k, v), err = flash_case(b, s, h, kvh, hd, window, dtype, gen)
-        pairs = s * (s + 1) // 2
+        (q, k, v), err = flash_case(b, s, h, kvh, hd, window, dtype, gen,
+                                    causal=causal)
+        pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4.0 * b * h * hd * pairs
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         what = (f"flash {dtype} B={b} S={s} H={h} KVH={kvh} hd={hd}"
                 + (f" window={window}" if window else ""))
         ms = time_ms(f"{what}, kernel", lambda: flash_attention_raw(
-            q, k, v, causal=True, window=window), flush)
+            q, k, v, causal=causal, window=window), flush)
         plain = time_ms(f"{what}, plain", lambda: flash_attention_ref(
-            q, k, v, causal=True, window=window), flush)
+            q, k, v, causal=causal, window=window), flush)
         # the yardstick gets K/V already repeated to H heads (not timed)
         qt = q.transpose(1, 2)
         kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
                   for x in (k, v))
         lib = time_ms(f"{what}, sdpa", lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), flush)
+            qt, kt, vt, is_causal=causal), flush)
         bnd, by = bound_ms(nbytes, flops, dtype)
-        say(f"[kernel] on {card}: {what} causal: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}); "
-            f"max|kernel-plain|={err:.3e}")
+        say(f"[kernel] on {card}: {what} "
+            f"{'causal' if causal else 'non-causal'}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}); max|kernel-plain|={err:.3e}")
         if not err <= FLASH_TOL[dtype]:
             fail(f"flash kernel disagrees with its plain version ({err})")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
@@ -475,6 +502,29 @@ def phase_kernels(seed: int, card: str, parent: dict):
                 b, 64, h, kvh, hd, 0, "bfloat16")
     rows["paged"]["archs"] = {arch: paged_arch(gen, flush, card, floor, arch)
                               for arch in NEW_ARCHS}
+
+    # ---- non-causal flash, as seamless-m4t-medium's encoder calls it (16
+    # q heads over 16 kv heads of 64): Sq == Skv at the train phase's 128,
+    # a ragged S, and Sq != Skv both ways; timed in bf16 at S=128 and 256
+    h, kvh, hd = arch_heads(ENCDEC)
+    for dtype in ("bfloat16", "float32"):
+        errs = {}
+        for sq, skv in ((128, 128), (256, 256), (100, 100), (37, 128),
+                        (128, 40)):
+            _, errs[(sq, skv)] = flash_case(b, sq, h, kvh, hd, 0, dtype, gen,
+                                            causal=False, skv=skv)
+        tol = FLASH_TOL[dtype]
+        say(f"[kernel] flash {dtype} non-causal {ENCDEC} heads B={b} H={h} "
+            f"KVH={kvh} hd={hd}: max|kernel-plain| by (Sq, Skv) "
+            + ", ".join(f"{k}: {e:.3e}" for k, e in errs.items())
+            + f" (tol {tol})")
+        if not max(errs.values()) <= tol:
+            fail(f"non-causal flash disagrees with its plain version "
+                 f"({errs} > {tol})")
+    rows["flash"]["noncausal"] = {
+        f"{ENCDEC} encoder S={s}": flash_times(b, s, h, kvh, hd, 0,
+                                               "bfloat16", causal=False)
+        for s in (128, 256)}
 
     # ---- RG-LRU: B=4 slots, E = d_rnn = 2560; T=256 (a prefill bucket or
     # chunk), T=1 (decode) and a ragged T=100.  a in [0.9, 0.999] and
@@ -1067,6 +1117,132 @@ def phase_parity(seed: int, arch: str, num_layers: int,
         fail(f"{arch} layer parity {worst} > {LOGIT_TOL}")
 
 
+def phase_parity_encdec(seed: int, enc_layers: int = 2, num_layers: int = 2):
+    """seamless-m4t-medium at full width cut to ``enc_layers`` + ``num_layers``
+    layers, float32: the same weights on the CPU and on the card, one
+    no-grad forward of two rows of 128 tokens over 96 source frames, logits
+    compared.  The encoder's self-attention launches the flash kernel
+    non-causal on the card; the cross-attention (128 queries over 96 keys)
+    takes ``flash_attention_xla`` on both, as the JAX package's does."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Model
+    cfg = get_config(ENCDEC).replace(num_layers=num_layers,
+                                     enc_layers=enc_layers,
+                                     compute_dtype="float32")
+    cpu = build_model(cfg, device="cpu", seed=seed)
+    gpu = Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = torch.Generator().manual_seed(seed)
+    toks = torch.randint(1, cfg.vocab_size, (2, 128), generator=rng)
+    src = torch.randn((2, 96, cfg.d_model), generator=rng)
+    want = cpu(toks, src_embeds=src)
+    before = flash_attention.launches.n
+    got = gpu(toks.cuda(), src_embeds=src.cuda()).cpu()
+    launched = flash_attention.launches.n - before
+    worst = (got - want).abs().max().item()
+    say(f"[parity] {ENCDEC} full width, {enc_layers} enc + {num_layers} dec "
+        f"layers, float32, no-grad forward of 2 x 128 tokens over 96 source "
+        f"frames: max|cuda-cpu| logits {worst:.3e} (tol {LOGIT_TOL}); flash "
+        f"launches {launched} (one a self-attention layer)")
+    check_all(f"{ENCDEC} parity", {
+        "finite logits on the card": bool(torch.isfinite(got).all()),
+        f"logits within {LOGIT_TOL}": worst <= LOGIT_TOL,
+        "one flash launch a self-attention layer":
+            launched == enc_layers + num_layers,
+    })
+
+
+#: a full-width cut's train step, the card against the CPU, float32: the
+#: loss and grad norm are sums over the vocab (256,000 / 65,024) and every
+#: weight in other orders; mu is (1 - b1) g, so it carries the gradients'
+#: own differences, held as a share of each leaf's largest entry
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_MU_SHARE = 1e-3
+
+
+def phase_train_parity(seed: int, arch: str, num_layers: int, batch: int,
+                       seq_len: int):
+    """One ``make_train_step`` step (accum 2, lr 1e-4 from step 0) of
+    ``arch`` at full width cut to ``num_layers`` layers, float32, the same
+    weights and batch on the CPU and on the card: under autograd the scans
+    take ``chunked_linear_scan`` and attention ``flash_attention_xla``, so
+    no kernel may launch.  Loss, grad norm, lr, each leaf's mu and the
+    parameters after the step (within 3 lr: the first AdamW update is
+    about lr * sign(g)) compared."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step, optim
+    cfg = get_config(arch).replace(num_layers=num_layers,
+                                   compute_dtype="float32")
+    data = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=batch,
+        seed=seed))
+    host = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
+    # drawn on the card (the CPU's generator takes seconds at this size)
+    weights = {k: v.cpu() for k, v in build_model(
+        cfg, "cuda", seed=seed, train=True).state_dict().items()}
+    release()
+    lr = 1e-4
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev, train=True)
+        model.load_state_dict(weights)
+        params = dict(model.named_parameters())
+        step = make_train_step(model, accum_steps=2,
+                               schedule=optim.cosine_schedule(lr, 0, 10))
+        t0 = time.perf_counter()
+        reset_counts()
+        _, st, met = step(params, optim.adamw_init(params),
+                          {k: v.to(dev) for k, v in host.items()})
+        counts = read_counts()
+        out[dev] = dict(met={k: float(v) for k, v in met.items()},
+                        mu={k: m.cpu() for k, m in st.mu.items()},
+                        params={k: p.detach().cpu()
+                                for k, p in params.items()},
+                        counts=counts, s=time.perf_counter() - t0)
+        del model, params, st, step
+        release()
+    cpu, card = out["cpu"], out["cuda"]
+    loss_rel = abs(card["met"]["loss"] / cpu["met"]["loss"] - 1)
+    gnorm_rel = abs(card["met"]["grad_norm"] / cpu["met"]["grad_norm"] - 1)
+    mu_share = max((card["mu"][k] - m).abs().max().item()
+                   / max(m.abs().max().item(), 1e-30)
+                   for k, m in cpu["mu"].items())
+    moved = max((card["params"][k] - p).abs().max().item()
+                for k, p in cpu["params"].items())
+    n = sum(p.numel() for p in cpu["params"].values())
+    say(f"[train-parity] {arch} full width, {num_layers} layers "
+        f"({', '.join(cfg.layer_kinds)}), {n / 1e6:.1f} M parameters, "
+        f"float32, batch {batch} x {seq_len} tokens in 2 microbatches: loss "
+        f"cpu {cpu['met']['loss']:.6f} card {card['met']['loss']:.6f} (rel "
+        f"{loss_rel:.2e}, tol {TRAIN_LOSS_RTOL}), grad norm rel "
+        f"{gnorm_rel:.2e} (tol {TRAIN_GNORM_RTOL}), mu share {mu_share:.2e} "
+        f"(tol {TRAIN_MU_SHARE}), max|param card-cpu| after the step "
+        f"{moved:.3e} (tol {3 * lr:.1e}); kernel launches on the card "
+        f"{ {k: v for k, v in card['counts'].items() if v} }; step "
+        f"{card['s']:.2f} s on the card, {cpu['s']:.2f} s on the CPU")
+    check_all(f"{arch} train parity", {
+        "loss and grad norm finite": all(math.isfinite(v) for v in
+                                         card["met"].values()),
+        f"loss within {TRAIN_LOSS_RTOL}": loss_rel <= TRAIN_LOSS_RTOL,
+        f"grad norm within {TRAIN_GNORM_RTOL}":
+            gnorm_rel <= TRAIN_GNORM_RTOL,
+        "lr within a float32 ulp": abs(card["met"]["lr"]
+                                       / cpu["met"]["lr"] - 1) <= 2e-7,
+        f"mu within {TRAIN_MU_SHARE} of each leaf's max":
+            mu_share <= TRAIN_MU_SHARE,
+        f"params within {3 * lr}": moved <= 3 * lr,
+        "no kernel launched under autograd":
+            not any(card["counts"].values()),
+    })
+
+
 # ------------------------------------------------------- 5. edge LSTM stack
 def run_stack(params: list, x, states=None):
     """x through ``lstm_layer`` after ``lstm_layer``; returns the last
@@ -1561,6 +1737,147 @@ def phase_serve_mamba(seed: int, card: str):
     return run["counts"]
 
 
+# ---------------------------------------------------------------- 7. train
+#: the train phase's geometry: global batch 8 of 128 tokens in 2
+#: microbatches, bf16 compute on float32 masters
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 128, 2
+
+
+def phase_train(seed: int, card: str, arch: str, steps: int) -> dict:
+    """``arch`` at full width through ``launch.train.train_once`` on the
+    card for ``steps`` steps (the reference's cosine schedule, lr 3e-4,
+    warmup 5 steps from 0: step 0 moves nothing), then one no-grad
+    forward of the next batch (an evaluation: the kernels' route).  The
+    launch counters are set to 0 just before and read just after: the train
+    steps run under autograd and launch no kernel; the evaluation launches
+    flash once a self-attention layer (the encoder's too).  Prints each
+    step's loss, lr and grad norm, the median step, the peak memory and the
+    share of parameter tensors that moved from the init; then one more
+    step of the same trainer under ``torch.profiler`` (after the counts
+    are read): the card's busy and idle share and its top kernels."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import train_once
+    from repro_torch.models import build_model
+    from repro_torch.obs.timing import profile_trace
+    from repro_torch.train import make_train_step, optim
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics: list = []
+    reset_counts()
+    run = train_once(cfg, steps=steps, global_batch=TRAIN_BATCH,
+                     seq_len=TRAIN_SEQ, ckpt_dir=None, ckpt_every=0,
+                     seed=seed, accum_steps=TRAIN_ACCUM, log_every=1,
+                     metrics_out=metrics, device="cuda")
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t0
+    model = run["model"]
+    data = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=seed, encdec=cfg.is_encdec,
+        d_model=cfg.d_model))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch(steps).items()}
+    with torch.no_grad():
+        eval_loss, _ = model.loss(batch)
+    eval_loss = float(eval_loss)
+    counts = read_counts()
+    init = build_model(cfg, "cuda", seed=0, train=True)
+    moved = sum(not torch.equal(p, q) for p, q in
+                zip(run["params"].values(), init.parameters()))
+    n_tensors = len(run["params"])
+    del init
+    step_ms = sorted(1e3 * t for t in run["step_s"])
+    losses = [run["losses"][i] for i in range(steps)]
+    n_params = sum(p.numel() for p in run["params"].values())
+    attn = cfg.enc_layers + sum(k in ("attn", "dec")
+                                for k in cfg.layer_kinds)
+    say(f"[train] {arch} full width on {card}: {cfg.num_layers} layers"
+        f"{f' + {cfg.enc_layers} encoder layers' if cfg.is_encdec else ''}"
+        f", {n_params / 1e6:.1f} M parameters (float32 masters, bf16 "
+        f"compute), global batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{TRAIN_ACCUM} microbatches, {steps} steps of train_once: losses "
+        f"{[round(v, 4) for v in losses]}, step ms {[round(v, 1) for v in step_ms]} "
+        f"(median {step_ms[len(step_ms) // 2]:.1f}), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated), "
+        f"{wall:.1f} s with the model's init; {moved} of {n_tensors} "
+        f"parameter tensors moved; evaluation loss {eval_loss:.4f}; "
+        f"launches in training {train_counts}, with the evaluation "
+        f"{counts}")
+    check_all(f"train {arch}", {
+        "every loss finite": all(math.isfinite(v) for v in losses),
+        "evaluation loss finite": math.isfinite(eval_loss),
+        "every parameter tensor moved": moved == n_tensors,
+        "no kernel launched under autograd": not any(train_counts.values()),
+        f"the evaluation launched flash {attn} times and nothing else":
+            {k: v for k, v in counts.items() if v} == {"flash": attn},
+    })
+    # where a step's time goes: one more step (step `steps`) profiled
+    step = make_train_step(model, accum_steps=TRAIN_ACCUM,
+                           schedule=optim.cosine_schedule(
+                               3e-4, warmup=max(steps // 20, 5),
+                               total=steps))
+    with profile_trace(ROOT / "build" / "train_profile" / arch,
+                       device=torch.device("cuda"), top=8) as prof:
+        step(run["params"], run["opt_state"], batch)
+    busy = "not measured (no device events)" \
+        if prof["device_busy_ms"] is None else \
+        f"{prof['device_busy_ms']:.1f} ms (idle " \
+        f"{prof['device_idle_share']:.1%})"
+    say(f"[train] {arch} one step under torch.profiler on {card}: wall "
+        f"{prof['wall_ms']:.1f} ms, the card busy {busy}, "
+        f"{prof['kernel_launches']} kernel launches; top kernels by device "
+        f"time: " + "; ".join(f"{k['name'][:60]} {k['ms']:.2f} ms x "
+                              f"{k['launches']}" for k in prof["top_kernels"]))
+    del model, run, batch, step
+    release()
+    return counts
+
+
+#: a resumed run's losses against the uninterrupted run's on the card:
+#: restore is exact, but autograd on CUDA is not bit-reproducible (the
+#: embedding's backward adds with atomics), float32 compute
+RESUME_TOL = 1e-4
+
+
+def phase_train_resume(seed: int) -> None:
+    """Reduced smollm-135m (float32 compute) through ``train_once`` on the
+    card with checkpoints every 4 steps: an uninterrupted 12-step run, and
+    one that fails at step 9 and auto-resumes from step 8's checkpoint
+    under ``run_with_restarts``; losses compared step by step."""
+    import shutil
+    from repro_torch.configs import reduced_config
+    from repro_torch.ft.watchdog import FailureInjector, run_with_restarts
+    from repro_torch.launch.train import train_once
+    cfg = reduced_config("smollm-135m").replace(compute_dtype="float32")
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=12, global_batch=4, seq_len=32, ckpt_every=4,
+              log_every=100, seed=seed, device="cuda")
+    ref = train_once(cfg, ckpt_dir=str(root / "ref"), **kw)["losses"]
+    injector = FailureInjector(fail_at_step=9)
+    metrics: list = []
+    restarts = run_with_restarts(
+        lambda: train_once(cfg, ckpt_dir=str(root / "ft"), injector=injector,
+                           metrics_out=metrics, **kw), max_restarts=2)
+    got = dict(metrics)
+    worst = max(abs(got[s] - ref[s]) for s in range(12))
+    say(f"[train] resume on the card (reduced smollm-135m, float32, 12 steps,"
+        f" checkpoints every 4, a failure injected at step 9): {restarts} "
+        f"restart, steps run {sorted(got)}; max|resumed - uninterrupted| "
+        f"loss {worst:.3e} (tol {RESUME_TOL}); steps 0-8 bit for bit: "
+        f"{all(got[s] == ref[s] for s in range(9))}")
+    check_all("train resume", {
+        "one restart": restarts == 1,
+        "every step logged": sorted(got) == list(range(12)),
+        f"losses within {RESUME_TOL}": worst <= RESUME_TOL,
+    })
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1584,7 +1901,10 @@ def main() -> None:
     phase_parity(args.seed, "falcon-mamba-7b", 2, kv_block_size=None)
     for arch in NEW_ARCHS:
         phase_parity(args.seed, arch, 2, kv_block_size=16)
+    phase_parity_encdec(args.seed)
     release()
+    phase_train_parity(args.seed, "recurrentgemma-2b", 3, batch=2, seq_len=64)
+    phase_train_parity(args.seed, "falcon-mamba-7b", 2, batch=2, seq_len=64)
     paths = [phase_edge_lstm(args.seed, smi)]
     release()
     phase_mensa()
@@ -1595,6 +1915,9 @@ def main() -> None:
         paths.append(phase_serve(args.seed, smi, arch,
                                  **SERVE_OPTIONS.get(arch, {})))
         release()
+    paths.append(phase_train(args.seed, smi, "qwen3-0.6b", steps=3))
+    paths.append(phase_train(args.seed, smi, ENCDEC, steps=2))
+    phase_train_resume(args.seed)
     # launches: each path's run, counted from 0 just before it
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     kernels = [

@@ -12,7 +12,9 @@ never loads a stale binary.
 Every C entry takes its pointers and the stream as ``void*`` and returns the
 ``cudaError_t`` of ``cudaGetLastError()`` after the launch; :func:`check`
 turns a nonzero code into an exception, so a refused launch (too many
-threads, too much shared memory) is never silent.
+threads, too much shared memory) is never silent.  No kernel has a
+backward: :func:`refuse_autograd` stops every wrapper, on either device,
+where autograd would record it.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -102,3 +106,19 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise where autograd records and an input requires its gradient.
+    The kernels (and the wrappers' plain versions, which stand in for them
+    on the CPU) have no backward: a result without a ``grad_fn`` would
+    train silently without those gradients.  A differentiable caller takes
+    the JAX package's training routes instead (``flash_attention_xla``,
+    ``chunked_linear_scan``)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward and autograd is recording an input "
+            f"that requires its gradient: run it under torch.no_grad(), or "
+            f"take the differentiable route (flash_attention_xla, "
+            f"chunked_linear_scan)")

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..build import refuse_autograd
 from .kernel import MAX_ROWS, jacquard_gemv_raw
 from .ref import jacquard_gemv_ref
 
@@ -12,6 +13,7 @@ from .ref import jacquard_gemv_ref
 def jacquard_gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) -> (..., N) in ``x.dtype`` for a small product of
     lead dims (at most 16 rows): the lead dims are flattened into M."""
+    refuse_autograd("jacquard_gemv", x, w)
     *lead, k = x.shape
     x2 = x.reshape(-1, k).contiguous()
     if x2.shape[0] > MAX_ROWS:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..build import refuse_autograd
 from .kernel import paged_decode_attention_raw
 from .ref import paged_attention_ref
 
@@ -18,6 +19,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """q: (B,H,hd) against the pools through ``block_table`` (entries in
     [0,N)), positions 0..lengths[b] visible -> (B,H,hd)."""
+    refuse_autograd("paged_attention", q, k_pool, v_pool)
     if q.is_cuda:
         return paged_decode_attention_raw(q, k_pool, v_pool, block_table,
                                           lengths)
@@ -79,6 +81,8 @@ def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
     and are masked by ``lengths``; lengths (B,) tokens already cached.
     Writes each slot's new K/V at position ``lengths[b]`` (in place), attends
     over positions 0..lengths[b], returns (out (B,1,H,hd), k_pool, v_pool)."""
+    refuse_autograd("paged_decode_attention", q, new_k, new_v, k_pool,
+                    v_pool)
     n, bs = k_pool.shape[0], k_pool.shape[1]
     lengths = lengths.long()
     blk = table_lookup(block_table, lengths // bs, n)

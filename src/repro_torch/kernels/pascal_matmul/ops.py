@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..build import refuse_autograd
 from .kernel import pascal_matmul_raw
 from .ref import pascal_matmul_ref
 
@@ -12,6 +13,7 @@ from .ref import pascal_matmul_ref
 def pascal_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) -> (..., N) in ``x.dtype``, summed in float32: the
     lead dims are flattened into the kernel's M."""
+    refuse_autograd("pascal_matmul", x, w)
     *lead, k = x.shape
     x2 = x.reshape(-1, k).contiguous()
     if x.is_cuda:

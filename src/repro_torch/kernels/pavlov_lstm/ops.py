@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from ..build import refuse_autograd
 from ..pascal_matmul.ops import pascal_matmul
 from .kernel import pavlov_lstm_raw
 from .ref import pavlov_lstm_ref
@@ -17,6 +18,7 @@ def lstm_recurrence(xg: torch.Tensor, w_h: torch.Tensor,
                     c0: torch.Tensor | None = None):
     """The LSTM recurrence from ``(h0, c0)`` over precomputed gates (see
     ``pavlov_lstm_ref``) -> (h in ``xg.dtype``, h_T, c_T float32)."""
+    refuse_autograd("lstm_recurrence", xg, w_h, h0, c0)
     if xg.is_cuda:
         return pavlov_lstm_raw(xg, w_h, h0, c0)
     return pavlov_lstm_ref(xg, w_h, h0, c0)
@@ -32,7 +34,8 @@ def pavlov_lstm(x: torch.Tensor, w_x: torch.Tensor, w_h: torch.Tensor,
     timesteps, in ``x.dtype`` as the JAX package's einsum gives it.
     Phase 2: the recurrence, W_h in float32 in the product.  Where xg and
     W_h differ in dtype the recurrence runs on both in float32 (a bf16 value
-    widens exactly) and h is cast back."""
+    widens exactly) and h is cast back.  Under autograd the two wrappers
+    it calls refuse, as every wrapper does."""
     dt = x.dtype
     xg = pascal_matmul(x, w_x.to(dt)) + b.to(dt)
     if w_h.dtype != dt:

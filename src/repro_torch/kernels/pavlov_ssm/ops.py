@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..build import refuse_autograd
 from .kernel import pavlov_ssm_raw
 from .ref import pavlov_ssm_ref
 
@@ -16,6 +17,7 @@ def pavlov_ssm(delta: torch.Tensor, x: torch.Tensor, bc: torch.Tensor,
     """The Mamba-1 selective scan from ``h0`` under the prefix mask
     ``length`` (see ``pavlov_ssm_ref``) -> (y in ``delta.dtype``, h_T
     float32)."""
+    refuse_autograd("pavlov_ssm", delta, x, bc, cc, a, d_skip, h0)
     if delta.is_cuda:
         return pavlov_ssm_raw(delta, x, bc, cc, a, d_skip, h0, length)
     return pavlov_ssm_ref(delta, x, bc, cc, a, d_skip, h0, length)

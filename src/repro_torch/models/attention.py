@@ -10,7 +10,9 @@ the cache IN PLACE and hand back the same tensors in the returned
 ``KVCache`` / ``PagedKVCache`` (one cache per layer, never a copy of it per
 call).  Only the flash core is a kernel in the JAX package; the dense
 cache ops (``decode_attention``, ``chunk_attention``, ``local_attention``)
-run outside any Pallas kernel there, so plain PyTorch is their port.
+run outside any Pallas kernel there, so plain PyTorch is their port, and so
+is ``flash_attention_xla``, the flash core's XLA branch: the route the JAX
+package trains through and runs every cross-attention on.
 """
 from __future__ import annotations
 
@@ -30,15 +32,17 @@ NEG_INF = -1e30
 def qkv_project(params: dict, x: torch.Tensor, num_heads: int,
                 num_kv_heads: int, head_dim: int, positions: torch.Tensor, *,
                 rope_theta: float, use_rope: bool = True):
-    """x: (B,S,D) -> q (B,S,H,hd), k/v (B,S,KVH,hd); qk-norm before RoPE."""
+    """x: (B,S,D) -> q (B,S,H,hd), k/v (B,S,KVH,hd); qk-norm before RoPE.
+    The projections and biases are cast to x's dtype per call."""
     b, s, _ = x.shape
-    q = torch.matmul(x, params["wq"])
-    k = torch.matmul(x, params["wk"])
-    v = torch.matmul(x, params["wv"])
+    dt = x.dtype
+    q = torch.matmul(x, params["wq"].to(dt))
+    k = torch.matmul(x, params["wk"].to(dt))
+    v = torch.matmul(x, params["wv"].to(dt))
     if "bq" in params:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
     q = q.reshape(b, s, num_heads, head_dim)
     k = k.reshape(b, s, num_kv_heads, head_dim)
     v = v.reshape(b, s, num_kv_heads, head_dim)
@@ -49,6 +53,60 @@ def qkv_project(params: dict, x: torch.Tensor, num_heads: int,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+# ------------------------------------------------- blockwise (XLA) flash core
+def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        block_kv: int = 512) -> torch.Tensor:
+    """Online-softmax attention over ``block_kv`` KV blocks: the XLA branch
+    of ``repro.models.attention.flash_attention``, in plain differentiable
+    PyTorch.  It is the route of every attention the JAX package trains
+    through (and of its decoder's cross-attention, always), so the port
+    takes it under autograd, where no kernel wrapper has a backward.
+
+    q: (B,Sq,H,hd); k, v: (B,Skv,KVH,hd) with H % KVH == 0 -> (B,Sq,H,hd).
+    q row i sits at position i (aligned to the START of the KV sequence,
+    the JAX function's ``q_offset=0``, which every caller passes).  q is
+    scaled in its own dtype, then scores, probabilities and the
+    accumulator run in float32 (the JAX function's ``f32_probs=True``, the
+    only value its configs set); masked scores take the finite
+    ``NEG_INF`` and the output is ``acc / max(l, 1e-30)``."""
+    b, sq, h, hd = q.shape
+    _, skv, kvh, _ = k.shape
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    blocks = max(1, -(-skv // block_kv))
+    pad = blocks * block_kv - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = (q.reshape(b, sq, kvh, g, hd) * scale).float()
+    q_pos = torch.arange(sq, device=q.device)
+    m = torch.full((b, kvh, g, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, kvh, g, sq), device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, hd), device=q.device)
+    for i in range(blocks):
+        kblk = k[:, i * block_kv:(i + 1) * block_kv]
+        vblk = v[:, i * block_kv:(i + 1) * block_kv]
+        s = torch.einsum("bqnGd,bknd->bnGqk", qg, kblk.float())
+        kv_pos = i * block_kv + torch.arange(block_kv, device=q.device)
+        mask = (kv_pos[None, :] <= skv - 1).expand(sq, block_kv)  # padding
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bnGqk,bknd->bnGqd", p, vblk.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return out.to(q.dtype)
 
 
 # ------------------------------------------------------- local (sliding) core
@@ -78,10 +136,9 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qpos = torch.arange(window, device=q.device)[:, None]
     kpos = torch.arange(2 * window, device=q.device)[None, :] - window
     mask = (kpos <= qpos) & (kpos > qpos - window)
-    neg = torch.tensor(NEG_INF, device=q.device)
-    scores = torch.where(mask, scores, neg)
+    scores = torch.where(mask, scores, NEG_INF)
     # the first chunk has no previous chunk: its phantom keys are masked
-    scores[:, 0] = torch.where(mask & (kpos >= 0), scores[:, 0], neg)
+    scores[:, 0] = torch.where(mask & (kpos >= 0), scores[:, 0], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bcnGqk,bcknd->bcqnGd", p, vv)
     return out.reshape(b, s, h, hd).to(q.dtype)

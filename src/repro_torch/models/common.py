@@ -70,15 +70,33 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
 def embed_scaled(table: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype, d_model: int) -> torch.Tensor:
     """Embedding times ``sqrt(d_model)``, the scale taken and applied in the
-    compute dtype (``repro.models.transformer.Model._embed_inputs``)."""
-    scale = torch.sqrt(torch.tensor(float(d_model), dtype=compute_dtype,
-                                    device=table.device))
+    compute dtype (``repro.models.transformer.Model._embed_inputs``).  The
+    scale is rounded to the compute dtype on the host and multiplied in as
+    a Python number (exact in it): a tensor made on the card for it would
+    be a copy that waits for the card's queue."""
+    scale = torch.sqrt(torch.tensor(float(d_model),
+                                    dtype=compute_dtype)).item()
     return embed(table, tokens, compute_dtype) * scale
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Logits in float32: float32 activations times the float32 table."""
     return torch.matmul(x.float(), table.float().t())
+
+
+# ---------------------------------------------------------------------- softmax
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy (``repro.models.common.cross_entropy_loss``):
+    logsumexp minus the gold logit.  logits float32 (..., vocab); labels
+    integer (...); with ``mask``, ``sum(nll * mask) / max(sum(mask), 1)``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
 
 
 # --------------------------------------------------------------------- activation

@@ -5,8 +5,10 @@ from the JAX package).  The JAX package's execution knobs (remat, scan
 unrolling, flash block size, and the ``*_impl`` kernel-variant switches) are
 left out: the port has no tracer to unroll for, and its kernel wrappers pick
 the kernel or the plain version from the device of the tensors they get.
-``scan_chunk`` stays, for the placement oracle alone: it bounds a recurrent
-cluster's prefill chunk (``serve/placement.py``); no model code reads it.
+``scan_chunk`` stays: it bounds a recurrent cluster's prefill chunk in the
+placement oracle (``serve/placement.py``), and it is the chunk of
+``chunked_linear_scan``, the recurrences' differentiable route in training
+(as ``_chunked_linear_scan``'s in the JAX package).
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ class ArchConfig:
     tie_embeddings: bool = True
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    scan_chunk: int = 512             # a recurrent cluster's chunk bound
+    scan_chunk: int = 512             # recurrence chunk (train, placement)
 
     @property
     def layer_kinds(self) -> tuple[str, ...]:

@@ -18,8 +18,16 @@ the card, its plain sequential loop for one on the CPU:
     matmul wrapper, then the recurrence with the carried ``(h, c)`` — the
     function of ``lstm_layer``'s XLA scan (the JAX package's Pallas LSTM
     starts from zero state).
-The JAX package's chunked associative scans (``impl="xla"``) compute the
-same recurrences and are not ported.
+Under autograd, where the wrappers have no backward, the RG-LRU and the
+selective scan take the JAX package's training route instead
+(``impl="xla"``): ``chunked_linear_scan``, the port of
+``_chunked_linear_scan``, in differentiable PyTorch ops.  The model picks
+it by passing ``scan_chunk`` in train mode while autograd records.
+
+Weights are cast per call to the dtype each product runs in, where the JAX
+package casts them: a model built for training holds float32 masters and
+differentiates through the cast; a serving model stores them already cast,
+and the cast is a no-op.
 """
 from __future__ import annotations
 
@@ -33,6 +41,42 @@ from .common import fan_in_std, gelu
 
 #: ``a = sigmoid(lambda)^(C * r)``: the RG-LRU's fixed temperature
 C_RGLRU = 8.0
+
+
+def _hillis_steele(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of the affine maps ``h -> a_t*h + b_t`` along axis 1
+    in log2(T) doubling steps: returns (prod a, h from 0) at every t."""
+    d = 1
+    while d < a.shape[1]:
+        a_prev = torch.cat([torch.ones_like(a[:, :d]), a[:, :-d]], dim=1)
+        b_prev = torch.cat([torch.zeros_like(b[:, :d]), b[:, :-d]], dim=1)
+        a, b = a * a_prev, a * b_prev + b
+        d *= 2
+    return a, b
+
+
+def chunked_linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                        chunk: int):
+    """h_t = a_t * h_{t-1} + b_t along axis 1 from ``h0``
+    (``repro.models.recurrent._chunked_linear_scan``): a, b (B,S,...), h0
+    (B,...).  Chunks of ``chunk`` steps, each a log-depth scan with the
+    carry folded in; a tail that does not fill a chunk is identity-padded
+    (a=1, b=0) and sliced off.  Differentiable.  Returns (h (B,S,...),
+    h_S)."""
+    s = a.shape[1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        widths = (0, 0) * (a.dim() - 2) + (0, pad)
+        a = torch.nn.functional.pad(a, widths, value=1.0)
+        b = torch.nn.functional.pad(b, widths, value=0.0)
+    h, outs = h0, []
+    for c0 in range(0, s + pad, chunk):
+        aa, bb = _hillis_steele(a[:, c0:c0 + chunk], b[:, c0:c0 + chunk])
+        hs = aa * h[:, None] + bb
+        h = hs[:, -1]
+        outs.append(hs)
+    return torch.cat(outs, dim=1)[:, :s], h
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -85,11 +129,15 @@ def init_rglru_block(params: dict, generator: torch.Generator) -> None:
 
 def rglru_core(params: dict, x: torch.Tensor,
                h0: torch.Tensor | None = None,
-               seq_mask: torch.Tensor | None = None):
+               seq_mask: torch.Tensor | None = None,
+               scan_chunk: int | None = None):
     """The RG-LRU recurrence.  x: (B,S,d_rnn) (post-conv); ``h0``: (B,d_rnn)
     float32 carried state.  ``seq_mask``: (B,S) bool; False positions are
     identity steps (a=1, b=0), so the final row holds the state at the last
-    True position.  Returns (y in x.dtype, h_last float32)."""
+    True position.  With ``scan_chunk`` the recurrence runs
+    ``chunked_linear_scan`` in chunks of that many steps (the
+    differentiable route), else the kernel wrapper.  Returns (y in
+    x.dtype, h_last float32)."""
     dt = x.dtype
     xf = x.float()
     w_a, w_i = params["w_a"], params["w_i"]
@@ -101,8 +149,8 @@ def rglru_core(params: dict, x: torch.Tensor,
         i = torch.sigmoid(torch.einsum("bsgd,gde->bsge", xg, w_i.float())
                           .reshape(xf.shape))
     else:                   # dense gates in the compute dtype, sigmoid in f32
-        r = torch.sigmoid(torch.matmul(x, w_a).float())
-        i = torch.sigmoid(torch.matmul(x, w_i).float())
+        r = torch.sigmoid(torch.matmul(x, w_a.to(dt)).float())
+        i = torch.sigmoid(torch.matmul(x, w_i.to(dt)).float())
     log_a = -C_RGLRU * r * F.softplus(-params["lambda"].float())
     a = torch.exp(log_a)
     gated = i * xf
@@ -112,6 +160,11 @@ def rglru_core(params: dict, x: torch.Tensor,
         m = seq_mask[:, :, None]
         a = torch.where(m, a, torch.ones_like(a))
         b = torch.where(m, b, torch.zeros_like(b))
+    if scan_chunk is not None:
+        if h0 is None:
+            h0 = torch.zeros_like(a[:, 0])
+        h, h_last = chunked_linear_scan(a, b, h0, scan_chunk)
+        return h.to(dt), h_last
     if h0 is not None:
         # the kernel scans from h=0; folding a_0*h0 into b_0 gives the
         # h0-seeded recurrence (h_0 = a_0*h0 + b_0 either way)
@@ -122,22 +175,25 @@ def rglru_core(params: dict, x: torch.Tensor,
 
 def rglru_block(params: dict, x: torch.Tensor, *,
                 state: dict | None = None,
-                length: torch.Tensor | None = None):
+                length: torch.Tensor | None = None,
+                scan_chunk: int | None = None):
     """The Griffin recurrent block.  x: (B,S,D) -> (B,S,D).  ``state``:
     ``{"conv": (B,K-1,d_rnn), "h": (B,d_rnn) float32}`` carried from an
     earlier segment.  ``length``: (B,) valid prefix lengths of a
     right-padded x — the returned state then reflects position length-1.
+    ``scan_chunk``: the differentiable route's chunk (``rglru_core``).
     Returns (out, new state)."""
-    y = gelu(torch.matmul(x, params["w_y"]))
-    u = torch.matmul(x, params["w_x"])
+    dt = x.dtype
+    y = gelu(torch.matmul(x, params["w_y"].to(dt)))
+    u = torch.matmul(x, params["w_x"].to(dt))
     conv_state = state["conv"] if state else None
     h0 = state["h"] if state else None
     seq_mask = None if length is None else \
         torch.arange(x.shape[1], device=x.device)[None, :] < length[:, None]
-    u, new_conv = causal_conv1d(u, params["conv_w"], conv_state,
+    u, new_conv = causal_conv1d(u, params["conv_w"].to(dt), conv_state,
                                 length=length)
-    h, h_last = rglru_core(params, u, h0, seq_mask)
-    out = torch.matmul(h * y, params["w_out"])
+    h, h_last = rglru_core(params, u, h0, seq_mask, scan_chunk)
+    out = torch.matmul(h * y, params["w_out"].to(dt))
     return out, {"conv": new_conv, "h": h_last}
 
 
@@ -200,42 +256,64 @@ def init_mamba_block(params: dict, generator: torch.Generator) -> None:
 
 def mamba_ssm(params: dict, x: torch.Tensor, dt_rank: int, d_state: int,
               h0: torch.Tensor | None = None,
-              length: torch.Tensor | None = None):
+              length: torch.Tensor | None = None,
+              scan_chunk: int | None = None):
     """Selective scan.  x: (B,S,d_inner) (post conv+silu); ``h0``:
     (B,d_inner,d_state) float32 carried state; ``length``: (B,) int32 valid
     prefix lengths — later steps leave the state unchanged.  The input
-    projections, softplus and ``a`` in float32 with PyTorch ops (the
-    parameters they read are stored float32), where the JAX package computes
-    them outside its kernel; the recurrence in the kernel wrapper.  Returns
-    (y in x.dtype, h_T float32)."""
+    projections, softplus and ``a`` in float32 with PyTorch ops, where the
+    JAX package computes them outside its kernel; the recurrence in the
+    kernel wrapper, or, with ``scan_chunk``, as the JAX package's XLA route
+    computes it (decays and drives materialized per state, then
+    ``chunked_linear_scan``): the differentiable route.  Returns (y in
+    x.dtype, h_T float32)."""
     xf = x.float()
-    proj = torch.matmul(xf, params["x_proj"])
+    f32 = torch.float32
+    proj = torch.matmul(xf, params["x_proj"].to(f32))
     dt_in, b_in, c_in = torch.split(proj, [dt_rank, d_state, d_state],
                                     dim=-1)
-    delta = F.softplus(torch.matmul(dt_in, params["dt_proj"])
-                       + params["dt_bias"])
-    a = -torch.exp(params["a_log"])
-    y, h_last = pavlov_ssm(delta, xf, b_in.contiguous(), c_in.contiguous(),
-                           a, params["d_skip"], h0, length)
+    delta = F.softplus(torch.matmul(dt_in, params["dt_proj"].to(f32))
+                       + params["dt_bias"].to(f32))
+    a = -torch.exp(params["a_log"].to(f32))
+    d_skip = params["d_skip"].to(f32)
+    if scan_chunk is None:
+        y, h_last = pavlov_ssm(delta, xf, b_in.contiguous(),
+                               c_in.contiguous(), a, d_skip, h0, length)
+        return y.to(x.dtype), h_last
+    alpha = torch.exp(delta[..., None] * a)                  # (B,S,di,N)
+    beta = (delta * xf)[..., None] * b_in[:, :, None, :]
+    if length is not None:
+        m = (torch.arange(x.shape[1], device=x.device)[None, :]
+             < length[:, None])[:, :, None, None]
+        alpha = torch.where(m, alpha, torch.ones_like(alpha))
+        beta = torch.where(m, beta, torch.zeros_like(beta))
+    if h0 is None:
+        h0 = torch.zeros_like(alpha[:, 0])
+    h, h_last = chunked_linear_scan(alpha, beta, h0, scan_chunk)
+    y = torch.einsum("bsdn,bsn->bsd", h, c_in) + xf * d_skip
     return y.to(x.dtype), h_last
 
 
 def mamba_block(params: dict, x: torch.Tensor, *, d_state: int,
                 dt_rank: int, state: dict | None = None,
-                length: torch.Tensor | None = None):
+                length: torch.Tensor | None = None,
+                scan_chunk: int | None = None):
     """The Mamba-1 block.  x: (B,S,D) -> (B,S,D).  ``state``:
     ``{"conv": (B,K-1,d_inner), "h": (B,d_inner,d_state) float32}`` carried
     from an earlier segment.  ``length``: (B,) int32 valid prefix lengths of
     a right-padded x — the returned state then reflects position length-1
-    (a row with 0 keeps its state bit for bit).  Returns (out, new
+    (a row with 0 keeps its state bit for bit).  ``scan_chunk``: the
+    differentiable route's chunk (``mamba_ssm``).  Returns (out, new
     state)."""
-    xi, z = torch.matmul(x, params["in_proj"]).chunk(2, dim=-1)
+    dt = x.dtype
+    xi, z = torch.matmul(x, params["in_proj"].to(dt)).chunk(2, dim=-1)
     conv_state = state["conv"] if state else None
     h0 = state["h"] if state else None
-    xi, new_conv = causal_conv1d(xi, params["conv_w"], conv_state,
+    xi, new_conv = causal_conv1d(xi, params["conv_w"].to(dt), conv_state,
                                  length=length)
-    y, h_last = mamba_ssm(params, F.silu(xi), dt_rank, d_state, h0, length)
-    out = torch.matmul(y * F.silu(z), params["out_proj"])
+    y, h_last = mamba_ssm(params, F.silu(xi), dt_rank, d_state, h0, length,
+                          scan_chunk)
+    out = torch.matmul(y * F.silu(z), params["out_proj"].to(dt))
     return out, {"conv": new_conv, "h": h_last}
 
 

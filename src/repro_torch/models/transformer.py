@@ -1,33 +1,50 @@
-"""Model assembly for the port: decoder-only stacks of ``attn`` (full
-causal attention), ``local`` (sliding-window attention) and ``rec``
-(Griffin recurrent) blocks with a GLU or a plain-MLP feed-forward —
-qwen3-0.6b, qwen2-0.5b, smollm-135m, starcoder2-7b, internvl2-2b and
-recurrentgemma-2b and their families — or of ``ssm`` (Mamba-1) blocks with
-no feed-forward — falcon-mamba-7b.  Norms are RMSNorm or LayerNorm
-(``cfg.norm``); the unembedding is tied to the embedding or an untied
-``lm_head``; a model with ``modality_tokens`` carries the ``mm_proj`` stub
-that projects precomputed patch embeddings into tokens prepended to the
-text.  Every other block or feed-forward kind (MoE, encoder-decoder)
-raises ``NotImplementedError`` until its slice lands.
+"""Model assembly for the port: decoder stacks of ``attn`` (full causal
+attention), ``local`` (sliding-window attention) and ``rec`` (Griffin
+recurrent) blocks with a GLU or a plain-MLP feed-forward — qwen3-0.6b,
+qwen2-0.5b, smollm-135m, starcoder2-7b, internvl2-2b and recurrentgemma-2b
+and their families — or of ``ssm`` (Mamba-1) blocks with no feed-forward —
+falcon-mamba-7b; and encoder-decoders, an encoder of ``enc`` blocks
+(non-causal self-attention, no RoPE) whose normed output is the memory the
+decoder's ``dec`` blocks cross-attend to — seamless-m4t-medium.  Norms are
+RMSNorm or LayerNorm (``cfg.norm``); the unembedding is tied to the
+embedding or an untied ``lm_head``; a model with ``modality_tokens``
+carries the ``mm_proj`` stub that projects precomputed patch embeddings
+into tokens prepended to the text.  An MoE feed-forward raises
+``NotImplementedError`` until its slice lands.
 
 The PyTorch counterpart of ``repro.models.transformer.Model``, with the
 weights held by the module instead of passed as a pytree, and the layers in
 the JAX package's order (the pattern's groups, then the tail):
 
-  * ``forward``      — full-sequence logits.
+  * ``train_forward`` / ``loss`` — full-sequence logits and the next-token
+    cross-entropy, under whatever autograd mode the caller runs them in;
+    ``forward`` — the same logits with autograd off.
   * ``init_states``  — one ``BlockState`` per layer: a paged KV pool for
     ``attn`` when ``kv_block_size`` is set, else a dense cache; a ring of
     ``min(max_len, window)`` for ``local``; ``{"conv", "h"}`` for ``rec``
     and ``ssm``.
-  * ``prefill`` / ``decode_step`` — the serving path.
+  * ``prefill`` / ``decode_step`` — the serving path (decoder-only models:
+    the JAX engine serves no encoder-decoder either).
 
-Parameters are stored the way the JAX package computes with them: matmul
-weights in the compute dtype (JAX casts its float32 masters per call, which
-gives the same values), norm scales and biases, ``lambda``, Mamba's
-``x_proj``, ``dt_proj``, ``dt_bias``, ``a_log`` and ``d_skip``, and the
-embedding table and ``lm_head`` in float32 (``rms_norm``, ``layer_norm``,
-``rglru_core``, ``mamba_ssm`` and ``unembed`` read them in float32).
-``H·hd`` need not equal ``d_model``: ``wo`` is ``(H·hd, d_model)``.
+Attention and the two scans have two routes each.  With autograd off they
+go through the kernel wrappers (the CUDA kernels on the card).  In train
+mode while autograd records — where no wrapper has a backward — they take
+the JAX package's own training route: ``flash_attention_xla`` and
+``chunked_linear_scan`` in chunks of ``cfg.scan_chunk``.  A decoder's
+cross-attention always takes ``flash_attention_xla``, as the JAX package's
+does.
+
+A serving model (``train=False``) stores parameters the way the JAX package
+computes with them: matmul weights in the compute dtype (JAX casts its
+float32 masters per call, which gives the same values), norm scales and
+biases, ``lambda``, Mamba's ``x_proj``, ``dt_proj``, ``dt_bias``, ``a_log``
+and ``d_skip``, and the embedding table and ``lm_head`` in float32
+(``rms_norm``, ``layer_norm``, ``rglru_core``, ``mamba_ssm`` and
+``unembed`` read them in float32).  A model built with ``train=True``
+holds every parameter in float32 (the JAX package's ``param_dtype``) with
+``requires_grad``, and each use casts it where the JAX package does, so
+autograd differentiates through the cast.  ``H·hd`` need not equal
+``d_model``: ``wo`` is ``(H·hd, d_model)``.
 """
 from __future__ import annotations
 
@@ -39,47 +56,61 @@ from torch import nn
 from ..device import resolve_device
 from . import attention as attn_lib
 from . import recurrent as rec_lib
-from .common import (embed_scaled, fan_in_std, gelu, layer_norm, rms_norm,
-                     torch_dtype, unembed)
+from .common import (cross_entropy_loss, embed_scaled, fan_in_std, gelu,
+                     layer_norm, rms_norm, torch_dtype, unembed)
 from .ffn import glu_ffn, mlp_ffn
 from .model_config import ArchConfig
 
 
-SUPPORTED_KINDS = ("attn", "local", "rec", "ssm")
+#: decoder block kinds (``enc`` blocks make up the encoder only)
+SUPPORTED_KINDS = ("attn", "local", "rec", "ssm", "dec")
 FFNS = {"glu": glu_ffn, "mlp": mlp_ffn}
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """Stacks of attn/local/rec blocks take a GLU or plain-MLP feed-forward;
-    a stack of ``ssm`` blocks has none (``ffn_kind == "none"``), and only
-    it.  Either norm, tied or untied heads and the modality stub go with
-    any of them."""
+    """Stacks of attn/local/rec/dec blocks take a GLU or plain-MLP
+    feed-forward; a stack of ``ssm`` blocks has none (``ffn_kind ==
+    "none"``), and only it.  ``dec`` blocks cross-attend to an encoder's
+    memory, so they need ``enc_layers``; an encoder's ``enc`` blocks take
+    the feed-forward too.  Either norm, tied or untied heads and the
+    modality stub go with any of them."""
     kinds = set(cfg.layer_kinds)
     stack_ok = kinds == {"ssm"} and cfg.ffn_kind == "none" \
         or "ssm" not in kinds and cfg.ffn_kind in FFNS
-    if not kinds <= set(SUPPORTED_KINDS) or not stack_ok \
-            or cfg.norm not in ("rms", "layer") or cfg.is_encdec:
+    enc_ok = cfg.ffn_kind in FFNS if cfg.is_encdec else "dec" not in kinds
+    if not kinds <= set(SUPPORTED_KINDS) or not stack_ok or not enc_ok \
+            or cfg.norm not in ("rms", "layer"):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder-only stacks of attn, "
-            f"local and rec blocks with a GLU or MLP feed-forward, or of ssm "
-            f"blocks with none; block kinds {sorted(kinds)}, ffn "
-            f"{cfg.ffn_kind!r}, norm {cfg.norm!r}"
-            f"{', an encoder' if cfg.is_encdec else ''} come in a later "
-            f"slice")
+            f"{cfg.name}: the port runs stacks of attn, local, rec and dec "
+            f"blocks with a GLU or MLP feed-forward (dec blocks behind an "
+            f"encoder), or of ssm blocks with none; block kinds "
+            f"{sorted(kinds)}, ffn {cfg.ffn_kind!r}, norm {cfg.norm!r} and "
+            f"{cfg.enc_layers} encoder layers are not ported (MoE comes in "
+            f"a later slice)")
 
 
-def _weight(*shape, dtype, device) -> nn.Parameter:
+def _weight(*shape, dtype, device, train: bool = False) -> nn.Parameter:
+    """A parameter of ``shape``: in ``dtype`` for serving, or, with
+    ``train``, a float32 master that requires its gradient."""
+    if train:
+        dtype = torch.float32
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+                        requires_grad=train)
 
 
-def _norm_params(cfg: ArchConfig, device: torch.device):
+def _norm_params(cfg: ArchConfig, device: torch.device, train: bool):
     """A norm's float32 scale, and its float32 bias for LayerNorm (None for
     RMSNorm)."""
     f32, d = torch.float32, cfg.d_model
-    bias = _weight(d, dtype=f32, device=device) if cfg.norm == "layer" \
-        else None
-    return _weight(d, dtype=f32, device=device), bias
+    bias = _weight(d, dtype=f32, device=device, train=train) \
+        if cfg.norm == "layer" else None
+    return _weight(d, dtype=f32, device=device, train=train), bias
+
+
+def _differentiable(mode: str) -> bool:
+    """Whether a block takes the JAX package's training route: train mode
+    while autograd records (the kernel wrappers have no backward)."""
+    return mode == "train" and torch.is_grad_enabled()
 
 
 def _norm(cfg: ArchConfig, x: torch.Tensor, scale: torch.Tensor,
@@ -122,8 +153,8 @@ class BlockState(NamedTuple):
     rec: dict | None = None
 
 
-def _ffn_params(cfg: ArchConfig, cd: torch.dtype,
-                device: torch.device) -> nn.ParameterDict:
+def _ffn_params(cfg: ArchConfig, cd: torch.dtype, device: torch.device,
+                train: bool) -> nn.ParameterDict:
     """The GLU's three matrices, or the plain MLP's two with their biases,
     all in the compute dtype."""
     d, f = cfg.d_model, cfg.d_ff
@@ -132,8 +163,29 @@ def _ffn_params(cfg: ArchConfig, cd: torch.dtype,
     else:
         shapes = {"w_in": (d, f), "b_in": (f,), "w_out": (f, d),
                   "b_out": (d,)}
-    return nn.ParameterDict({name: _weight(*shape, dtype=cd, device=device)
-                             for name, shape in shapes.items()})
+    return nn.ParameterDict({
+        name: _weight(*shape, dtype=cd, device=device, train=train)
+        for name, shape in shapes.items()})
+
+
+def _attn_params(cfg: ArchConfig, cd: torch.dtype, device: torch.device,
+                 train: bool, *, bias: bool,
+                 qk_norm: bool) -> nn.ParameterDict:
+    """GQA projections in the compute dtype (``wo``: (H·hd, d_model)), with
+    the qkv biases and the float32 qk-norm scales where asked."""
+    d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
+    hkv = cfg.num_kv_heads * cfg.head_dim
+    shapes = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d)}
+    if bias:
+        shapes.update(bq=(hq,), bk=(hkv,), bv=(hkv,))
+    params = nn.ParameterDict({
+        name: _weight(*shape, dtype=cd, device=device, train=train)
+        for name, shape in shapes.items()})
+    if qk_norm:
+        for name in ("q_norm", "k_norm"):
+            params[name] = _weight(cfg.head_dim, dtype=torch.float32,
+                                   device=device, train=train)
+    return params
 
 
 def _ffn(cfg: ArchConfig, params: nn.ParameterDict,
@@ -143,51 +195,61 @@ def _ffn(cfg: ArchConfig, params: nn.ParameterDict,
 
 class AttnBlock(_Block):
     """Pre-norm residual block: GQA self-attention — full causal for
-    ``attn``, sliding-window over a ring cache for ``local`` — then the
-    feed-forward."""
+    ``attn``, sliding-window over a ring cache for ``local``, non-causal
+    without RoPE for an encoder's ``enc`` — then the feed-forward."""
     NORMS = ("ln1", "ln2")
     PARTS = ("attn", "ffn")
 
-    def __init__(self, cfg: ArchConfig, kind: str, device: torch.device):
+    def __init__(self, cfg: ArchConfig, kind: str, device: torch.device,
+                 train: bool = False):
         super().__init__()
         self.kind = kind
-        d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
-        hkv = cfg.num_kv_heads * cfg.head_dim
         cd = torch_dtype(cfg.compute_dtype)
-        f32 = torch.float32
-        self.ln1, self.ln1_bias = _norm_params(cfg, device)
-        self.attn = nn.ParameterDict({
-            "wq": _weight(d, hq, dtype=cd, device=device),
-            "wk": _weight(d, hkv, dtype=cd, device=device),
-            "wv": _weight(d, hkv, dtype=cd, device=device),
-            "wo": _weight(hq, d, dtype=cd, device=device),
-        })
-        if cfg.qkv_bias:
-            self.attn.update({
-                "bq": _weight(hq, dtype=cd, device=device),
-                "bk": _weight(hkv, dtype=cd, device=device),
-                "bv": _weight(hkv, dtype=cd, device=device)})
-        if cfg.qk_norm:
-            self.attn.update({
-                "q_norm": _weight(cfg.head_dim, dtype=f32, device=device),
-                "k_norm": _weight(cfg.head_dim, dtype=f32, device=device)})
-        self.ln2, self.ln2_bias = _norm_params(cfg, device)
-        self.ffn = _ffn_params(cfg, cd, device)
+        self.ln1, self.ln1_bias = _norm_params(cfg, device, train)
+        self.attn = _attn_params(cfg, cd, device, train, bias=cfg.qkv_bias,
+                                 qk_norm=cfg.qk_norm)
+        self.ln2, self.ln2_bias = _norm_params(cfg, device, train)
+        self.ffn = _ffn_params(cfg, cd, device, train)
+
+    def _self_attention(self, cfg: ArchConfig, q, k, v, mode: str):
+        """Full-sequence self-attention (train mode or a one-shot
+        prefill): ``local_attention`` for a ``local`` layer whose S is a
+        multiple of the window, as the JAX package's; else the flash
+        wrapper, or ``flash_attention_xla`` under autograd."""
+        window = cfg.window if self.kind == "local" else 0
+        causal = self.kind != "enc"
+        if window and q.shape[1] % window == 0:
+            return attn_lib.local_attention(q, k, v, window=window)
+        if _differentiable(mode):
+            return attn_lib.flash_attention_xla(q, k, v, causal=causal,
+                                                window=window)
+        return attn_lib.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+
+    def _cross(self, cfg: ArchConfig, x: torch.Tensor, positions, memory,
+               mode: str) -> torch.Tensor:
+        """What comes between the self-attention and the feed-forward:
+        nothing here, a ``dec`` block's cross-attention there."""
+        return x
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "train",
                 state: BlockState | None = None,
                 length: torch.Tensor | None = None,
                 offset: torch.Tensor | None = None,
-                block_table: torch.Tensor | None = None):
+                block_table: torch.Tensor | None = None,
+                memory: torch.Tensor | None = None):
         """One block (``repro.models.transformer.apply_block`` for
-        ``kind`` in attn/local).  mode: train|prefill|decode.  In decode a
-        0/1 ``length`` is the activity mask.  Returns (x, new_state)."""
+        ``kind`` in attn/local/enc/dec).  mode: train|prefill|decode.  In
+        decode a 0/1 ``length`` is the activity mask.  ``memory``: the
+        encoder's output, which a ``dec`` block attends to.  Returns (x,
+        new_state)."""
         window = cfg.window if self.kind == "local" else 0
         h = self._normed(cfg, "ln1", x)
         q, k, v = attn_lib.qkv_project(
             self.attn, h, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            positions, rope_theta=cfg.rope_theta)
+            positions, rope_theta=cfg.rope_theta,
+            use_rope=self.kind != "enc")
         kv = None if state is None else state.kv
         paged = isinstance(kv, attn_lib.PagedKVCache)
         if mode == "decode":
@@ -206,20 +268,55 @@ class AttnBlock(_Block):
                 out, kv = attn_lib.chunk_attention(
                     q, k, v, kv, offset=offset, length=length, window=window)
         else:
-            if window and q.shape[1] % window == 0:
-                out = attn_lib.local_attention(q, k, v, window=window)
-            else:
-                out = attn_lib.flash_attention(q, k, v, causal=True,
-                                               window=window)
+            out = self._self_attention(cfg, q, k, v, mode)
             if mode == "prefill":
                 kv = attn_lib.paged_fill_cache(kv, k, v, block_table,
                                                length=length) if paged \
                     else _fill_cache(kv, k, v, window=window, length=length)
         b, s = out.shape[:2]
         o = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
-        x = x + torch.matmul(o, self.attn["wo"])
+        x = x + torch.matmul(o, self.attn["wo"].to(x.dtype))
+        x = self._cross(cfg, x, positions, memory, mode)
         x = x + _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x))
         return x, None if state is None else state._replace(kv=kv)
+
+
+class DecBlock(AttnBlock):
+    """An encoder-decoder's decoder block: causal self-attention with
+    RoPE, then ``ln_x`` and cross-attention (``xattn``: projections
+    without biases or qk-norm) over the encoder's memory, then the
+    feed-forward.  Train mode only: neither package serves an
+    encoder-decoder."""
+    NORMS = ("ln1", "ln_x", "ln2")
+    PARTS = ("attn", "xattn", "ffn")
+
+    def __init__(self, cfg: ArchConfig, device: torch.device,
+                 train: bool = False):
+        super().__init__(cfg, "dec", device, train)
+        self.ln_x, self.ln_x_bias = _norm_params(cfg, device, train)
+        self.xattn = _attn_params(cfg, torch_dtype(cfg.compute_dtype),
+                                  device, train, bias=False, qk_norm=False)
+
+    def _cross(self, cfg: ArchConfig, x: torch.Tensor, positions, memory,
+               mode: str) -> torch.Tensor:
+        """Cross-attention over ``memory`` (B,Sm,D), always through
+        ``flash_attention_xla``: the JAX package calls it with no
+        ``impl``, so it takes the XLA route on every backend."""
+        if mode != "train":
+            raise NotImplementedError(
+                "dec blocks run in train mode only (forward and loss): "
+                "neither package serves an encoder-decoder")
+        hx = self._normed(cfg, "ln_x", x)
+        qx, _, _ = attn_lib.qkv_project(
+            self.xattn, hx, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            positions, rope_theta=cfg.rope_theta, use_rope=False)
+        _, ck, cv = attn_lib.qkv_project(
+            self.xattn, memory, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, None, rope_theta=cfg.rope_theta, use_rope=False)
+        xo = attn_lib.flash_attention_xla(qx, ck, cv, causal=False)
+        b, s = xo.shape[:2]
+        xo = xo.reshape(b, s, cfg.num_heads * cfg.head_dim)
+        return x + torch.matmul(xo, self.xattn["wo"].to(x.dtype))
 
 
 class RecBlock(_Block):
@@ -230,7 +327,8 @@ class RecBlock(_Block):
     NORMS = ("ln1", "ln2")
     PARTS = ("rec", "ffn")
 
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+    def __init__(self, cfg: ArchConfig, device: torch.device,
+                 train: bool = False):
         super().__init__()
         self.kind = "rec"
         cd = torch_dtype(cfg.compute_dtype)
@@ -239,25 +337,28 @@ class RecBlock(_Block):
         shapes = rec_lib.rglru_param_shapes(cfg.d_model, cfg.d_rnn,
                                             cfg.d_conv, cfg.rglru_gate_blocks)
         dtypes = {"w_a": gate_dt, "w_i": gate_dt, "lambda": f32}
-        self.ln1, self.ln1_bias = _norm_params(cfg, device)
+        self.ln1, self.ln1_bias = _norm_params(cfg, device, train)
         self.rec = nn.ParameterDict({
-            name: _weight(*shape, dtype=dtypes.get(name, cd), device=device)
+            name: _weight(*shape, dtype=dtypes.get(name, cd), device=device,
+                          train=train)
             for name, shape in shapes.items()})
-        self.ln2, self.ln2_bias = _norm_params(cfg, device)
-        self.ffn = _ffn_params(cfg, cd, device)
+        self.ln2, self.ln2_bias = _norm_params(cfg, device, train)
+        self.ffn = _ffn_params(cfg, cd, device, train)
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "train",
                 state: BlockState | None = None,
                 length: torch.Tensor | None = None,
                 offset: torch.Tensor | None = None,
-                block_table: torch.Tensor | None = None):
+                block_table: torch.Tensor | None = None,
+                memory: torch.Tensor | None = None):
         """``apply_block`` for ``kind == "rec"``: in prefill the state
         resumes from the carry (zeroed where offset == 0); in decode a 0/1
         ``length`` freezes conv and h of rows with 0."""
         h = self._normed(cfg, "ln1", x)
         if mode == "train":
-            y, _ = rec_lib.rglru_block(self.rec, h)
+            chunk = cfg.scan_chunk if _differentiable(mode) else None
+            y, _ = rec_lib.rglru_block(self.rec, h, scan_chunk=chunk)
         else:
             y, rec = rec_lib.rglru_block(
                 self.rec, h, state=_resume_rec(state.rec, offset),
@@ -275,7 +376,8 @@ class SsmBlock(_Block):
     NORMS = ("ln1",)
     PARTS = ("ssm",)
 
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+    def __init__(self, cfg: ArchConfig, device: torch.device,
+                 train: bool = False):
         super().__init__()
         self.kind = "ssm"
         cd = torch_dtype(cfg.compute_dtype)
@@ -283,9 +385,9 @@ class SsmBlock(_Block):
         shapes = rec_lib.mamba_param_shapes(cfg.d_model, cfg.d_inner,
                                             cfg.d_state, cfg.d_conv,
                                             self.dt_rank)
-        self.ln1, self.ln1_bias = _norm_params(cfg, device)
+        self.ln1, self.ln1_bias = _norm_params(cfg, device, train)
         self.ssm = nn.ParameterDict({
-            name: _weight(*shape, device=device,
+            name: _weight(*shape, device=device, train=train,
                           dtype=torch.float32 if name in rec_lib.MAMBA_F32
                           else cd)
             for name, shape in shapes.items()})
@@ -295,14 +397,16 @@ class SsmBlock(_Block):
                 state: BlockState | None = None,
                 length: torch.Tensor | None = None,
                 offset: torch.Tensor | None = None,
-                block_table: torch.Tensor | None = None):
+                block_table: torch.Tensor | None = None,
+                memory: torch.Tensor | None = None):
         """``apply_block`` for ``kind == "ssm"``: in prefill the state
         resumes from the carry (zeroed where offset == 0); in decode a 0/1
         ``length`` freezes conv and h of rows with 0."""
         h = self._normed(cfg, "ln1", x)
         kw = dict(d_state=cfg.d_state, dt_rank=self.dt_rank)
         if mode == "train":
-            y, _ = rec_lib.mamba_block(self.ssm, h, **kw)
+            chunk = cfg.scan_chunk if _differentiable(mode) else None
+            y, _ = rec_lib.mamba_block(self.ssm, h, scan_chunk=chunk, **kw)
         else:
             y, rec = rec_lib.mamba_block(
                 self.ssm, h, state=_resume_rec(state.rec, offset),
@@ -353,31 +457,39 @@ def _fill_cache(cache: attn_lib.KVCache, k: torch.Tensor, v: torch.Tensor,
 
 
 class Model(nn.Module):
-    """Decoder-only LM for one ``ArchConfig`` on one device."""
+    """A decoder (behind an encoder where ``cfg.enc_layers``) for one
+    ``ArchConfig`` on one device.  ``train``: hold float32 masters that
+    require their gradients (see the module's docstring)."""
 
-    def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda",
+                 *, train: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.kinds = cfg.layer_kinds
         self.device = resolve_device(device)
+        self.trainable = train
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
-        f32 = torch.float32
+        f32, dev = torch.float32, self.device
         self.embed = _weight(cfg.vocab_padded, cfg.d_model, dtype=f32,
-                             device=self.device)
-        self.final_norm, self.final_norm_bias = _norm_params(cfg,
-                                                             self.device)
+                             device=dev, train=train)
+        self.final_norm, self.final_norm_bias = _norm_params(cfg, dev, train)
         self.lm_head = None if cfg.tie_embeddings else _weight(
-            cfg.vocab_padded, cfg.d_model, dtype=f32, device=self.device)
+            cfg.vocab_padded, cfg.d_model, dtype=f32, device=dev, train=train)
         self.mm_proj = None if not cfg.modality_tokens else nn.ParameterDict({
             "w1": _weight(cfg.modality_dim, cfg.d_model,
-                          dtype=self.compute_dtype, device=self.device),
+                          dtype=self.compute_dtype, device=dev, train=train),
             "w2": _weight(cfg.d_model, cfg.d_model,
-                          dtype=self.compute_dtype, device=self.device)})
+                          dtype=self.compute_dtype, device=dev, train=train)})
         self.layers = nn.ModuleList(
-            RecBlock(cfg, self.device) if kind == "rec"
-            else SsmBlock(cfg, self.device) if kind == "ssm"
-            else AttnBlock(cfg, kind, self.device) for kind in self.kinds)
+            RecBlock(cfg, dev, train) if kind == "rec"
+            else SsmBlock(cfg, dev, train) if kind == "ssm"
+            else DecBlock(cfg, dev, train) if kind == "dec"
+            else AttnBlock(cfg, kind, dev, train) for kind in self.kinds)
+        self.encoder = nn.ModuleList(
+            AttnBlock(cfg, "enc", dev, train) for _ in range(cfg.enc_layers))
+        self.enc_norm, self.enc_norm_bias = \
+            _norm_params(cfg, dev, train) if cfg.is_encdec else (None, None)
 
     # ------------------------------------------------------------------- init
     @torch.no_grad()
@@ -399,7 +511,9 @@ class Model(nn.Module):
             for p in self.mm_proj.values():
                 normal(p, fan_in_std(tuple(p.shape)))
         _init_norm(self.final_norm, self.final_norm_bias)
-        for blk in self.layers:
+        if self.enc_norm is not None:
+            _init_norm(self.enc_norm, self.enc_norm_bias)
+        for blk in [*self.layers, *self.encoder]:
             for norm in blk.NORMS:
                 _init_norm(getattr(blk, norm), getattr(blk, norm + "_bias"))
             if isinstance(blk, SsmBlock):
@@ -409,7 +523,7 @@ class Model(nn.Module):
                 rec_lib.init_rglru_block(blk.rec, generator)
                 trees = (blk.ffn,)
             else:
-                trees = (blk.attn, blk.ffn)
+                trees = [getattr(blk, part) for part in blk.PARTS]
             for tree in trees:
                 for name, p in tree.items():
                     if name.startswith("w"):
@@ -425,12 +539,11 @@ class Model(nn.Module):
         modality_dim) on a model with the stub, the projected modality
         tokens (``mm_proj``: w1, tanh GELU, w2, in the compute dtype)
         first (``repro.models.transformer.Model._embed_inputs``)."""
-        x = embed_scaled(self.embed, tokens, self.compute_dtype,
-                         self.cfg.d_model)
+        cd = self.compute_dtype
+        x = embed_scaled(self.embed, tokens, cd, self.cfg.d_model)
         if modality is not None and self.mm_proj is not None:
-            m = torch.matmul(modality.to(self.compute_dtype),
-                             self.mm_proj["w1"])
-            m = torch.matmul(gelu(m), self.mm_proj["w2"])
+            m = torch.matmul(modality.to(cd), self.mm_proj["w1"].to(cd))
+            m = torch.matmul(gelu(m), self.mm_proj["w2"].to(cd))
             x = torch.cat([m, x], dim=1)
         return x
 
@@ -439,21 +552,57 @@ class Model(nn.Module):
         table = self.embed if self.lm_head is None else self.lm_head
         return unembed(x, table)[..., :self.cfg.vocab_size]
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor,
-                modality: torch.Tensor | None = None) -> torch.Tensor:
-        """Full-sequence logits: (B,S) -> (B,S,V) float32.  With
-        ``modality`` the projected modality tokens go first and their
-        logits are dropped."""
+    def _encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder's memory: ``src_embeds`` (B,Sm,D) in the compute
+        dtype through the ``enc`` blocks, then ``enc_norm``
+        (``repro.models.transformer.Model._encode``)."""
+        x = src_embeds.to(self.compute_dtype)
+        positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+            x.shape[:2])
+        for blk in self.encoder:
+            x, _ = blk(self.cfg, x, positions)
+        return _norm(self.cfg, x, self.enc_norm, self.enc_norm_bias)
+
+    def train_forward(self, tokens: torch.Tensor,
+                      modality: torch.Tensor | None = None,
+                      src_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Full-sequence logits: (B,S) -> (B,S,V) float32, through the
+        differentiable routes while autograd records.  With ``modality``
+        the projected modality tokens go first and their logits are
+        dropped; an encoder-decoder needs ``src_embeds`` (B,Sm,D)."""
+        memory = None
+        if self.cfg.is_encdec:
+            if src_embeds is None:
+                raise ValueError(f"{self.cfg.name}: an encoder-decoder "
+                                 f"needs src_embeds")
+            memory = self._encode(src_embeds)
         x = self._embed(tokens, modality)
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[:2])
         for blk in self.layers:
-            x, _ = blk(self.cfg, x, positions)
+            x, _ = blk(self.cfg, x, positions, memory=memory)
         logits = self._logits(x)
         if modality is not None and self.mm_proj is not None:
             logits = logits[:, modality.shape[1]:]
         return logits
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor,
+                modality: torch.Tensor | None = None,
+                src_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """``train_forward`` with autograd off: every attention and scan
+        goes through its kernel wrapper (the cross-attention excepted)."""
+        return self.train_forward(tokens, modality, src_embeds)
+
+    def loss(self, batch: dict):
+        """Next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+        and optional ``mask``, ``modality``, ``src_embeds``), as
+        ``repro.models.transformer.Model.loss``: returns (loss, {"ce_loss",
+        "loss"}), under the caller's autograd mode."""
+        logits = self.train_forward(batch["tokens"], batch.get("modality"),
+                                    batch.get("src_embeds"))
+        loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+        return loss, {"ce_loss": loss, "loss": loss}
 
     # ----------------------------------------------------------- serving path
     def init_block_state(self, i: int, batch: int,
@@ -489,6 +638,10 @@ class Model(nn.Module):
         pools are views into one allocation; window rings and recurrent
         states stay dense (``init_block_state``)."""
         cfg = self.cfg
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: an encoder-decoder has no serving path (the "
+                f"JAX engine serves none either): forward and loss only")
         paged = [i for i, kind in enumerate(self.kinds) if kind == "attn"] \
             if kv_block_size is not None else []
         pools = {}
@@ -573,10 +726,11 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
-                seed: int | None = None) -> Model:
-    """A model on ``device``; with ``seed``, random weights drawn from a
-    generator on that device seeded with it."""
-    model = Model(cfg, device)
+                seed: int | None = None, *, train: bool = False) -> Model:
+    """A model on ``device`` (``train``: float32 masters with gradients);
+    with ``seed``, random weights drawn from a generator on that device
+    seeded with it."""
+    model = Model(cfg, device, train=train)
     if seed is not None:
         gen = torch.Generator(device=model.device)
         gen.manual_seed(seed)

@@ -825,3 +825,84 @@ def test_full_width_arch_serves_the_same_tokens_twice_on_card(cuda, arch):
     first = serve()
     assert all(0 <= t < cfg.vocab_size for g in first for t in g)
     assert serve() == first
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd", [
+    (2, 128, 128, 16, 16, 64),     # seamless-m4t-medium's encoder heads
+    (4, 100, 100, 16, 16, 64),     # ragged S
+    (2, 64, 64, 4, 4, 16),         # reduced seamless
+    (2, 96, 96, 16, 8, 128),       # GQA
+    (2, 37, 128, 16, 16, 64),      # Sq < Skv
+    (2, 128, 40, 16, 8, 128),      # Sq > Skv
+    (1, 1, 77, 16, 16, 64)])
+def test_flash_kernel_noncausal_matches_plain_on_card(cuda, dtype, tol, b, sq,
+                                                      skv, h, kvh, hd):
+    """``causal=False``, as the encoder's self-attention calls it, at
+    Sq == Skv and Sq != Skv (every query sees every key)."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv + hd)
+    q = torch.randn(b, sq, h, hd, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, skv, kvh, hd, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, skv, kvh, hd, generator=gen, device=cuda).to(dtype)
+    before = fa.launches.n
+    out = fa.flash_attention(q, k, v, causal=False)
+    assert fa.launches.n == before + 1
+    ref = fa.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_autograd_on_card(cuda):
+    q = torch.randn(1, 8, 2, 16, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, q.detach()[:, :, :1], q.detach()[:, :, :1])
+    a = torch.rand(1, 4, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pr.pavlov_rglru(a, a.detach())
+    with torch.no_grad():
+        pr.pavlov_rglru(a, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "recurrentgemma-2b",
+                                  "falcon-mamba-7b", "seamless-m4t-medium"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """Reduced configs in float32: a train step under autograd (the
+    flash_attention_xla and chunked_linear_scan routes, no kernel
+    launched) on the card against the CPU from the same weights: loss and
+    grad norm, and, before it, a no-grad forward's logits (which go
+    through the kernels on the card)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step, optim
+    cfg = reduced_config(arch).replace(compute_dtype="float32")
+    data = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=4,
+        encdec=cfg.is_encdec, d_model=cfg.d_model))
+    batch = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
+    weights = build_model(cfg, "cpu", seed=0, train=True).state_dict()
+    src = batch.get("src_embeds")
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev, train=True)
+        model.load_state_dict(weights)
+        with torch.no_grad():
+            logits = model(batch["tokens"].to(dev),
+                           src_embeds=None if src is None else src.to(dev))
+        params = dict(model.named_parameters())
+        step = make_train_step(model, accum_steps=2,
+                               schedule=optim.cosine_schedule(1e-2, 0, 10))
+        counts = (fa.launches.n, pr.launches.n, ps.launches.n)
+        _, st, met = step(params, optim.adamw_init(params),
+                          {k: v.to(dev) for k, v in batch.items()})
+        assert (fa.launches.n, pr.launches.n, ps.launches.n) == counts
+        out[str(dev)] = (float(met["loss"]), float(met["grad_norm"]),
+                         logits.cpu())
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert abs(cpu[0] - card[0]) <= 1e-5 * abs(cpu[0])
+    assert abs(cpu[1] - card[1]) <= 1e-4 * abs(cpu[1])
+    assert (cpu[2] - card[2]).abs().max().item() <= 1e-4

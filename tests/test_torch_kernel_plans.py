@@ -524,3 +524,53 @@ def test_ssm_on_cpu_tensors_is_the_plain_version(dtype, b, t, d, n, state):
     y_ref, h_ref = ps.pavlov_ssm_ref(*args)
     assert y.dtype == dtype and torch.equal(y, y_ref)
     assert h_t.dtype == torch.float32 and torch.equal(h_t, h_ref)
+
+
+# --------------------------------------------------- no kernel has a backward
+def _wrapper_calls():
+    """Each ops.py wrapper with small float32 inputs on the CPU, as a
+    function of the tensor that may require its gradient."""
+    from repro_torch.kernels.pascal_matmul import ops as pmo
+    from repro_torch.kernels.pavlov_lstm import ops as plo
+    x = torch.randn(2, 8, 4, 16)
+    kv = torch.randn(2, 8, 2, 16)
+    pool = torch.randn(4, 8, 2, 16)
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    lengths = torch.tensor([3, 9], dtype=torch.int32)
+    a = torch.rand(2, 5, 8)
+    w = torch.randn(16, 12)
+    d, n = 8, 4
+    return {
+        "flash_attention": (x, lambda t: fa.flash_attention(t, kv, kv)),
+        "paged_attention": (x[:, 0], lambda t: pa.paged_attention(
+            t, pool, pool, table, lengths)),
+        "paged_decode_attention": (x[:, :1], lambda t: pa.paged_decode_attention(
+            t, kv[:, :1], kv[:, :1], pool.clone(), pool.clone(), table,
+            lengths)),
+        "pavlov_rglru": (a, lambda t: pr.pavlov_rglru(t, a)),
+        "pavlov_ssm": (torch.rand(2, 5, d), lambda t: ps.pavlov_ssm(
+            t, torch.randn(2, 5, d), torch.randn(2, 5, n),
+            torch.randn(2, 5, n), -torch.rand(d, n), torch.ones(d))),
+        "pascal_matmul": (w, lambda t: pmo.pascal_matmul(
+            torch.randn(3, 16), t)),
+        "jacquard_gemv": (w, lambda t: jg.jacquard_gemv(
+            torch.randn(2, 16), t)),
+        "lstm_recurrence": (torch.randn(4, 16), lambda t: plo.lstm_recurrence(
+            torch.randn(2, 5, 16), t)),
+        "pavlov_lstm": (torch.randn(16, 16), lambda t: plo.pavlov_lstm(
+            torch.randn(2, 5, 16), t, torch.randn(4, 16), torch.zeros(16))),
+    }
+
+
+@pytest.mark.parametrize("name", list(_wrapper_calls()))
+def test_every_wrapper_refuses_autograd(name):
+    """A wrapper would return a tensor with no ``grad_fn``: where autograd
+    records an input that requires its gradient it raises instead, on
+    either device (here the CPU's plain versions); without autograd, or
+    with no input requiring a gradient, it runs."""
+    base, call = _wrapper_calls()[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(base.clone().requires_grad_())
+    with torch.no_grad():
+        call(base.clone().requires_grad_())
+    call(base.clone())

@@ -257,11 +257,13 @@ def test_other_block_kinds_raise(arch):
         bad = [cfg.replace(ffn_kind="glu", d_ff=128),
                cfg.replace(block_pattern=("ssm", "attn"))]
     if arch == "starcoder2-7b":
-        # its LayerNorm and MLP are ported: an MoE feed-forward, an enc
-        # block and an encoder in front must raise
+        # its LayerNorm and MLP are ported, and an encoder in front of it
+        # builds (tests/test_torch_train.py): an MoE feed-forward, an enc
+        # block inside the decoder stack and a dec block with no encoder
+        # to attend to must raise
         bad = [cfg.replace(ffn_kind="moe", num_experts=4, top_k=2),
                cfg.replace(block_pattern=("attn", "enc")),
-               cfg.replace(enc_layers=2)]
+               cfg.replace(block_pattern=("attn", "dec"))]
     for c in bad:
         with pytest.raises(NotImplementedError):
             build_model(c, device="cpu")
