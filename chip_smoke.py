@@ -63,7 +63,15 @@ Phases, one line or block of output each; any failure exits non-zero:
    launch a layer and prefill call and one paged launch a layer and decode
    step).  Each prints its plan, the predicted (modeled) and measured (the
    card's) phase times and their drift, and its whole stats summary; each
-   model is released before the next is built:
+   model is released before the next is built.  a.-c. then serve the same
+   requests again, on the same model, through a disaggregated
+   prefill/decode pair (``launch.serve.build_disagg_engine``, 2 prefill
+   slots, 4 decode slots, both roles on the card, suitcase handoff): the
+   tokens must be the interleaved run's, one handoff a request with none
+   pending, its launches (counted from 0 just before it) the interleaved
+   run's, and, on qwen3, the prefix hit rate the interleaved run's, a
+   block copied and the decode pool drained; each prints its handoff time,
+   stalls, per-role tokens/s and both runs' decode TBT p50 / p99:
    a. full-width qwen3-0.6b, all 28 layers: paged KV, prefix cache,
       bucketed and chunked prefill, greedy and sampled decode;
    b. full-width recurrentgemma-2b, all 26 layers: dense KV (2048-token
@@ -1449,6 +1457,15 @@ SERVE_LAUNCHES = {
     "recurrentgemma-2b": {"flash": 32, "rglru": 1350, "rglru_decode": 1116},
     "falcon-mamba-7b": {"ssm": 4480, "ssm_decode": 3968},
 }
+#: each disaggregated pair run's launches (``serve_disagg``), counted from
+#: 0 just before it: the prefill role makes the interleaved run's prefill
+#: calls and chunks and the decode role its decode steps, so each equals
+#: the path's ``SERVE_LAUNCHES``
+DISAGG_LAUNCHES = {
+    "qwen3-0.6b": {"flash": 168, "paged": 924},
+    "recurrentgemma-2b": {"flash": 32, "rglru": 1350, "rglru_decode": 1116},
+    "falcon-mamba-7b": {"ssm": 4480, "ssm_decode": 3968},
+}
 #: phase_serve's options where an arch departs from qwen3's: a modality
 #: model serves text only and cannot chunk, as the JAX package's cannot, so
 #: its ladder runs to max_len, every prompt fits a bucket, and its prefix
@@ -1526,7 +1543,8 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
     drive(engine, reqs)
     counts = read_counts()
     plan, s = engine.policy, engine.stats.summary()
-    run = dict(reqs=reqs, counts=counts, plan=plan, s=s)
+    run = dict(reqs=reqs, counts=counts, plan=plan, s=s,
+               tbt_ms=tbt_ms(engine.stats))
     say(f"[serve] {what} plan (auto, backend {plan.backend}): clusters "
         f"{sorted(set(plan.layer_clusters))} over {len(plan.layer_clusters)}"
         f" layers, chunk {plan.prefill_chunk}, buckets {list(plan.buckets)}, "
@@ -1569,6 +1587,123 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
     del engine
     release()
     return run
+
+
+def tbt_ms(stats) -> dict:
+    """The decode time-between-tokens p50 and p99 of an engine's stats."""
+    h = stats.metrics.histogram("decode_tbt_s")
+    return {"p50": 1e3 * h.quantile(0.5), "p99": 1e3 * h.quantile(0.99)}
+
+
+def first_divergence(got: list, want: list) -> str:
+    for i, (g, w) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                return f"request {i} token {j}: {a} against {b}"
+        if len(g) != len(w):
+            return f"request {i}: {len(g)} tokens against {len(w)}"
+    return "none"
+
+
+def serve_disagg(what: str, cfg, model, card: str, engine_kw: dict,
+                 make_requests, drive, run: dict) -> dict:
+    """The interleaved run's requests again, through the same ``drive``,
+    on a disaggregated pair over the same ``model``
+    (``build_disagg_engine(policy="auto")``: 2 prefill slots, the
+    interleaved run's slots for decode, its max_len, buckets and KV knobs),
+    warmed up, its stats reset and the launch counters set to 0 just
+    before.  Prints the handoffs, per-role tokens/s and both runs' decode
+    TBT; fails unless every request's tokens are the interleaved run's,
+    one handoff a request with none pending and no recompile, the launches
+    are ``DISAGG_LAUNCHES[what]`` and the engines' own counts agree with
+    them, and, where the interleaved run hit the prefix cache, the prefill
+    role hits it as often, copies a block, and the decode pool drains."""
+    import torch
+    from repro_torch.launch.serve import build_disagg_engine
+    kw = {k: v for k, v in engine_kw.items() if k != "slots"}
+    t0 = time.perf_counter()
+    dis = build_disagg_engine(cfg, model, prefill_slots=2,
+                              decode_slots=engine_kw["slots"],
+                              policy="auto", **kw)
+    dis.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = dis.summary()
+    dis.reset_stats()
+    reqs = make_requests()
+    reset_counts()
+    drive(dis, reqs)
+    counts = read_counts()
+    s = dis.summary()
+    pre, dec = s["roles"]["prefill"], s["roles"]["decode"]
+    got = [r.generated for r in reqs]
+    want = [r.generated for r in run["reqs"]]
+    say(f"[disagg] {what} pair (2 prefill + {engine_kw['slots']} decode "
+        f"slots, one card): engine + warmup {warm_s:.1f} s; prefill role "
+        f"buckets {list(dis.prefill.buckets)}, chunk "
+        f"{dis.prefill.prefill_chunk}; prefill calls "
+        f"{pre['prefill_calls']}, chunks {pre['prefill_chunks']}, decode "
+        f"steps {dec['decode_steps']}, launches {counts}")
+    say(f"[disagg] {what} on {card}: {s['handoffs']} handoffs "
+        f"({s['handoffs_pending']} pending, {s['handoff_stalls']} stalls) in "
+        f"{1e3 * s['handoff_time_s']:.3f} ms; {s['tokens_per_s']:.1f} "
+        f"tokens/s over {s['ticks']} ticks, per role prefill "
+        f"{s['per_role_tokens_per_s']['prefill']:.1f} and decode "
+        f"{s['per_role_tokens_per_s']['decode']:.1f} tokens/s; decode TBT "
+        f"p50 / p99 {s['decode_tbt_ms']['p50']:.2f} / "
+        f"{s['decode_tbt_ms']['p99']:.2f} ms paired, "
+        f"{run['tbt_ms']['p50']:.2f} / {run['tbt_ms']['p99']:.2f} ms "
+        f"interleaved (no claim: one card runs both roles in turn)")
+    say(f"[disagg] {what} summary {json.dumps(s)}")
+    if got != want:
+        say(f"[disagg] {what} first divergent token: "
+            f"{first_divergence(got, want)}")
+    want_launches = DISAGG_LAUNCHES[what]
+    attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    rec = sum(k in ("rec", "ssm") for k in cfg.layer_kinds)
+    scan = "rglru_decode" if "rec" in cfg.layer_kinds else "ssm_decode"
+    checks = {
+        "tokens equal the interleaved run's": got == want,
+        f"{len(reqs)} handoffs, none pending": s["handoffs"] == len(reqs)
+            and s["handoffs_pending"] == 0,
+        "no recompile after warmup": dis.recompiles_since(warm) == 0,
+        "every request finished": s["requests_completed"] == len(reqs)
+            and s["requests_aborted"] == 0,
+        "the prefill role never decodes, the decode role never prefills":
+            pre["decode_steps"] == 0 and dec["prefill_calls"]
+            + dec["prefill_chunks"] == 0,
+        f"launches are {want_launches}":
+            {k: n for k, n in counts.items() if n} == want_launches,
+        "flash = attention layers x the prefill role's prefill calls":
+            counts["flash"] == attn * pre["prefill_calls"],
+    }
+    if "kv" in dec:
+        checks["paged = attn layers x the decode role's decode steps"] = \
+            counts["paged"] == attn * dec["decode_steps"]
+        checks["the decode pool drains"] = dec["kv"]["blocks_in_use"] == 0
+    if rec:
+        checks[f"{scan} >= {rec} layers x the decode role's steps"] = \
+            counts[scan] >= rec * dec["decode_steps"] > 0
+    if run["s"].get("kv", {}).get("prefix_hits"):
+        checks["the prefill role's prefix hit rate is the interleaved "
+               "run's"] = pre["kv"]["prefix_hit_rate"] \
+            == run["s"]["kv"]["prefix_hit_rate"]
+        checks["the prefill role copies a block"] = \
+            pre["kv"]["blocks_copied"] >= 1
+    check_all(f"disagg {what}", checks)
+    del dis
+    release()
+    return counts
+
+
+def serve_pair(what: str, cfg, model, card: str, engine_kw: dict,
+               make_requests, drive) -> tuple[dict, dict]:
+    """The interleaved ``serve_auto`` run, then the pair on the same model;
+    returns that run and the two runs' launches added."""
+    run = serve_auto(what, cfg, model, card, engine_kw, make_requests, drive)
+    pair = serve_disagg(what, cfg, model, card, engine_kw, make_requests,
+                        drive, run)
+    return run, {k: run["counts"][k] + pair[k] for k in pair}
 
 
 def serve_checks(what: str, cfg, run: dict, new: int, checks: dict) -> None:
@@ -1633,7 +1768,12 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
 
     kw = dict(slots=4, max_len=1024, kv_block_size=16,
               **(engine_kw or dict(max_bucket=256)))
-    run = serve_auto(arch, cfg, model, card, kw, make_requests, drive)
+    if arch in DISAGG_LAUNCHES:
+        run, counts = serve_pair(arch, cfg, model, card, kw, make_requests,
+                                 drive)
+    else:
+        run = serve_auto(arch, cfg, model, card, kw, make_requests, drive)
+        counts = run["counts"]
     s = run["s"]
     say(f"[serve] {arch} prefix hits {s['kv']['prefix_hits']} "
         f"({s['kv']['prefix_tokens_reused']} tokens, "
@@ -1648,7 +1788,7 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
             and bool(s["kv"]["prefix_hits"]) == bool(min_prefix_hits),
         "decode_stalls == 0": s["kv"]["decode_stalls"] == 0,
     })
-    return run["counts"]
+    return counts
 
 
 def run_all(engine, reqs) -> None:
@@ -1684,16 +1824,16 @@ def phase_serve_recurrent(seed: int, card: str):
                             temperature=0.8, top_k=50, top_p=0.9, seed=seed))
         return reqs
 
-    run = serve_auto("recurrentgemma-2b", cfg, model, card,
-                     dict(slots=4, max_len=4096, max_bucket=256),
-                     make_requests, run_all)
+    run, counts = serve_pair("recurrentgemma-2b", cfg, model, card,
+                             dict(slots=4, max_len=4096, max_bucket=256),
+                             make_requests, run_all)
     s = run["s"]
     serve_checks("recurrentgemma-2b", cfg, run, new, {
         "prefill_chunks >= 9": s["prefill_chunks"] >= 9,
         f"decode steps x {n_rec} <= RG-LRU decode launches":
             s["decode_steps"] * n_rec <= run["counts"]["rglru_decode"],
     })
-    return run["counts"]
+    return counts
 
 
 def phase_serve_mamba(seed: int, card: str):
@@ -1725,16 +1865,16 @@ def phase_serve_mamba(seed: int, card: str):
                             temperature=0.8, top_k=50, top_p=0.9, seed=seed))
         return reqs
 
-    run = serve_auto("falcon-mamba-7b", cfg, model, card,
-                     dict(slots=4, max_len=4096, max_bucket=256),
-                     make_requests, run_all)
+    run, counts = serve_pair("falcon-mamba-7b", cfg, model, card,
+                             dict(slots=4, max_len=4096, max_bucket=256),
+                             make_requests, run_all)
     s = run["s"]
     serve_checks("falcon-mamba-7b", cfg, run, new, {
         "prefill_chunks >= 4": s["prefill_chunks"] >= 4,
         f"decode steps x {cfg.num_layers} <= SSM decode launches":
             s["decode_steps"] * cfg.num_layers <= run["counts"]["ssm_decode"],
     })
-    return run["counts"]
+    return counts
 
 
 # ---------------------------------------------------------------- 7. train

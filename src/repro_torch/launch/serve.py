@@ -15,7 +15,8 @@ Runs on the card; ``--device cpu`` runs the plain versions on the CPU.
 arch's full-size config (characterize -> cluster -> cost,
 ``serve/placement.py``) and serves at its bucket ladder and prefill chunk;
 ``--policy fixed`` keeps the engine's own knobs; ``--policy-dump`` prints
-the plan as JSON and exits.  The plan's predicted times are those of the
+the plan as JSON and exits.  ``build_disagg_engine`` builds the
+disaggregated prefill/decode pair (``serve/disagg.py``) on the one device.  The plan's predicted times are those of the
 paper's modeled accelerators, not of the card.  ``--max-new``,
 ``--min-bucket``, ``--max-prefill-per-step``, ``--max-prefill-batch``,
 ``--long-prompts``, ``--warmup``, ``--trace`` (the engine's Chrome trace),
@@ -35,14 +36,21 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..configs import get_config, reduced_config
 from ..models import build_model
 from ..obs import profile_trace
+from ..serve.disagg import DisaggEngine
 from ..serve.engine import Request, ServeEngine, prefill_buckets
 from ..serve.placement import ExecutionOracle, PlacementPlan
 
-#: options of the JAX package's serving CLI that are not ported yet
+#: options of the JAX package's serving CLI that are not ported yet: the
+#: meshes and ``--param-strategy`` wait for the multi-device path;
+#: ``--roles`` pins each role of the disaggregated pair to a disjoint
+#: submesh of N + M devices, so it waits for the same path (the pair itself
+#: runs on one device, ``build_disagg_engine``); the program memory waits
+#: for the compiled programs
 NOT_PORTED = ("--mesh", "--dp", "--mp", "--roles", "--param-strategy",
               "--program-memory", "--no-program-memory")
 
@@ -51,6 +59,23 @@ class _NotPorted(argparse.Action):
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is an option of repro.launch.serve "
                      f"that the port does not have yet")
+
+
+def _resolve_policy(cfg, policy, backend: str, *, slots: int, max_len: int,
+                    min_bucket: int,
+                    max_bucket: int | None) -> PlacementPlan | None:
+    """The plan ``policy`` names: the oracle's for ``"auto"`` (resolved
+    for ``backend``), None for ``"fixed"``, a ``PlacementPlan`` as it is."""
+    if isinstance(policy, PlacementPlan):
+        return policy
+    if policy == "auto":
+        return ExecutionOracle(
+            cfg, slots=slots, max_len=max_len, min_bucket=min_bucket,
+            max_bucket=max_bucket, backend=backend).resolve()
+    if policy == "fixed":
+        return None
+    raise ValueError(f"policy must be 'auto', 'fixed', or a "
+                     f"PlacementPlan, got {policy!r}")
 
 
 def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
@@ -72,25 +97,55 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
     as it is.  A plan picks the bucket ladder and the prefill chunk, which
     explicit ``prefill_chunk`` still beats; every geometry serves the same
     tokens."""
-    if not isinstance(policy, PlacementPlan) and policy not in ("auto",
-                                                                "fixed"):
-        raise ValueError(f"policy must be 'auto', 'fixed', or a "
-                         f"PlacementPlan, got {policy!r}")
+    backend = (model.device if model is not None
+               else torch.device(device)).type
+    plan = _resolve_policy(cfg, policy, backend, slots=slots,
+                           max_len=max_len, min_bucket=min_bucket,
+                           max_bucket=max_bucket)
     if model is None:
         model = build_model(cfg, device=device, seed=seed)
-    plan = None
-    if isinstance(policy, PlacementPlan):
-        plan = policy
-    elif policy == "auto":
-        plan = ExecutionOracle(
-            cfg, slots=slots, max_len=max_len, min_bucket=min_bucket,
-            max_bucket=max_bucket, backend=model.device.type).resolve()
     buckets = None
     if max_bucket is not None:
         buckets = prefill_buckets(min(max_bucket, max_len), min_bucket)
     return ServeEngine(
         model, slots=slots, max_len=max_len, buckets=buckets,
         min_bucket=min_bucket, max_prefill_per_step=max_prefill_per_step,
+        max_prefill_batch=max_prefill_batch, prefill_chunk=prefill_chunk,
+        kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+        prefix_cache=prefix_cache, policy=plan)
+
+
+def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
+                        decode_slots: int = 4, max_len: int = 256,
+                        min_bucket: int = 16, max_bucket: int | None = None,
+                        max_prefill_per_step: int = 1,
+                        max_prefill_batch: int = 4,
+                        prefill_chunk: int | None = None,
+                        kv_block_size: int | None = None,
+                        kv_blocks: int | None = None,
+                        prefix_cache: bool = True, device: str = "cuda",
+                        seed: int = 0, policy="auto") -> DisaggEngine:
+    """The disaggregated counterpart of :func:`build_engine`: a prefill and
+    a decode engine over ``model`` on its one device (the reference's
+    ``build_disagg_engine`` with ``roles=None``).  The auto plan is resolved
+    at ``slots=decode_slots``, as the reference resolves it; knob
+    precedence is ``build_engine``'s, and the plan's ``per_role`` knobs
+    give the prefill role its buckets and chunk (the decode role takes
+    none)."""
+    backend = (model.device if model is not None
+               else torch.device(device)).type
+    plan = _resolve_policy(cfg, policy, backend, slots=decode_slots,
+                           max_len=max_len, min_bucket=min_bucket,
+                           max_bucket=max_bucket)
+    if model is None:
+        model = build_model(cfg, device=device, seed=seed)
+    buckets = None
+    if max_bucket is not None:
+        buckets = prefill_buckets(min(max_bucket, max_len), min_bucket)
+    return DisaggEngine(
+        model, prefill_slots=prefill_slots, decode_slots=decode_slots,
+        max_len=max_len, min_bucket=min_bucket, buckets=buckets,
+        max_prefill_per_step=max_prefill_per_step,
         max_prefill_batch=max_prefill_batch, prefill_chunk=prefill_chunk,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
         prefix_cache=prefix_cache, policy=plan)

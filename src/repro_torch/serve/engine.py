@@ -39,8 +39,16 @@ histograms, tokens per tick, prefill padding waste, memory gauges) go to
 ``EngineStats.metrics`` and come out as the ``obs`` section of
 ``summary()``, the reference's schema but for ``NOT_PORTED_STATS``.
 
-Not ported yet: meshes, prefill/decode roles and the compiled-program
-registry — the constructor takes none of them.
+Serving is optionally disaggregated (``role=``), as the reference's: a
+``role="prefill"`` engine runs bucketed and chunked prefill only and parks
+each finished prefill on ``ready``; a ``role="decode"`` engine never admits
+from the queue and takes sequences through ``adopt``, which maps fresh
+blocks in its own pool and scatters the visiting suitcase (the slot's
+batch-1 state row plus copies of its KV blocks) into them.
+``serve.disagg.DisaggEngine`` couples the pair on the one device.
+
+Not ported yet: meshes and the compiled-program registry — the
+constructor takes neither.
 """
 from __future__ import annotations
 
@@ -90,7 +98,6 @@ def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
 #: out, each with the slice that brings it (ROADMAP A)
 NOT_PORTED_STATS = {
     "programs": "A2, the compiled programs (CUDA graphs) and their registry",
-    "handoff": "A4, disaggregated prefill/decode roles",
     "kv.shards": "A7, a block pool sharded over several cards",
     "kv.in_use_per_shard": "A7, a block pool sharded over several cards",
     "kv.peak_per_shard": "A7, a block pool sharded over several cards",
@@ -98,7 +105,7 @@ NOT_PORTED_STATS = {
 
 #: tracer track of the queue-level request events; slot ``i`` is on
 #: ``1 + i``, engine-wide spans (decode ticks, warmup, block copies) on
-#: ``1 + slots``
+#: ``1 + slots``, all offset by the engine's ``track_base``
 TRACK_REQUESTS = 0
 
 
@@ -149,6 +156,12 @@ class EngineStats:
     blocks_copied: int = 0              # copy-on-write clones
     blocks_evicted: int = 0             # LRU evictions of cached blocks
     decode_stalls: int = 0              # slot-ticks frozen waiting for blocks
+    # ---- disaggregated handoff (role engines; all zero interleaved) ----
+    handoffs: int = 0                   # slots exported (prefill role) or
+    #                                     adopted (decode role)
+    handoff_time_s: float = 0.0         # export / import time
+    handoff_stalls: int = 0             # adoptions deferred: no free slot or
+    #                                     no blocks on the decode pool
     # ---- placement (the plan's summary; set by the engine) ----
     placement: dict = field(default_factory=dict)
 
@@ -193,6 +206,12 @@ class EngineStats:
             "wall_time_s": self.wall_time_s,
             "nonfinite_logits": self.nonfinite_logits,
         }
+        if self.handoffs or self.handoff_stalls:
+            out["handoff"] = {
+                "handoffs": self.handoffs,
+                "handoff_time_s": self.handoff_time_s,
+                "handoff_stalls": self.handoff_stalls,
+            }
         if self.kv_pool_blocks:
             out["kv"] = {
                 "pool_blocks": self.kv_pool_blocks,
@@ -258,6 +277,8 @@ class ServeEngine:
                  kv_blocks: int | None = None,
                  prefix_cache: bool = True,
                  policy: PlacementPlan | None = None,
+                 role: str = "both",
+                 track_base: int = 0,
                  tracer: Tracer | None = None):
         """``min_bucket``: the smallest prompt bucket of the default ladder.
         ``max_prefill_per_step``: queued requests admitted per tick.
@@ -278,8 +299,22 @@ class ServeEngine:
         recorded in ``EngineStats.placement``; without one the engine
         records a "fixed" plan of its own knobs.
 
+        ``role``: "both" (default, the interleaved engine), "prefill" (runs
+        bucketed and chunked prefill only; finished prefills wait on
+        ``ready`` for :meth:`export_slot` and :meth:`release_handoff`) or
+        "decode" (never admits from the queue; sequences arrive through
+        :meth:`adopt`).  A role engine warms only its own shapes and its
+        half of the handoff.  ``track_base`` offsets the engine's tracer
+        tracks so two role engines share one timeline; role engines also
+        prefix their track and counter names with ``"{role}/"``.
+
         ``tracer``: an ``obs.Tracer``; default a fresh enabled one (pass
         ``Tracer(enabled=False)`` to opt out; the tokens are the same)."""
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role {role!r} not in "
+                             f"('both', 'prefill', 'decode')")
+        self.role = role
+        self.track_base = track_base
         self.tracer = tracer if tracer is not None else Tracer()
         self.model = model
         self.device = model.device
@@ -338,13 +373,19 @@ class ServeEngine:
         self.samp_seed = np.zeros(slots, np.int64)
         self._queue: deque[Request] = deque()
         self._prefilling: dict[int, int] = {}   # slot -> prompt tokens consumed
+        # prefill role: slots whose prefill finished, waiting for export by
+        # the coordinator (their blocks stay pinned until release_handoff)
+        self.ready: deque[int] = deque()
         self._bt_cache: torch.Tensor | None = None
         self._bt_version = -1
-        self._trk_engine = 1 + slots
-        self.tracer.set_track(TRACK_REQUESTS, "requests")
+        pfx = "" if role == "both" else f"{role}/"
+        self._ctr_prefix = pfx
+        self._trk_req = track_base + TRACK_REQUESTS
+        self.tracer.set_track(self._trk_req, f"{pfx}requests")
         for s in range(slots):
-            self.tracer.set_track(self._slot_track(s), f"slot {s}")
-        self.tracer.set_track(self._trk_engine, "engine")
+            self.tracer.set_track(self._slot_track(s), f"{pfx}slot {s}")
+        self._trk_engine = track_base + 1 + slots
+        self.tracer.set_track(self._trk_engine, f"{pfx}engine")
         # the state list's byte sizes are the per-slot footprint: paged K/V
         # belongs to the pool, everything else to the slots
         pool_bytes, state_bytes = _state_byte_stats(self.states)
@@ -359,9 +400,8 @@ class ServeEngine:
         """A Timed section on the tracer's clock (one shared timeline)."""
         return Timed(name, device=self.device, clock=self.tracer.clock)
 
-    @staticmethod
-    def _slot_track(slot: int) -> int:
-        return 1 + slot
+    def _slot_track(self, slot: int) -> int:
+        return self.track_base + 1 + slot
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)      # a copy, never a view
@@ -411,17 +451,18 @@ class ServeEngine:
         if self.kv is not None:
             m.gauge("kv_pool_bytes", "bytes").set(self.kv.bytes_in_use)
             m.gauge("kv_pool_bytes_peak", "bytes").set(self.kv.bytes_peak)
-        tr = self.tracer
+        tr, p = self.tracer, self._ctr_prefix
         if not tr.enabled:
             return
-        tr.counter("queue_depth", ts, (("queued", len(self._queue)),))
-        tr.counter("slots", ts, (("busy", busy), ("free", self.slots - busy)))
+        tr.counter(p + "queue_depth", ts, (("queued", len(self._queue)),))
+        tr.counter(p + "slots", ts, (("busy", busy),
+                                     ("free", self.slots - busy)))
         series = [("slot_state", state_bytes)]
         if self.kv is not None:
-            tr.counter("kv_blocks", ts, (("in_use", self.kv.in_use),
-                                         ("cached", self.kv.cached)))
+            tr.counter(p + "kv_blocks", ts, (("in_use", self.kv.in_use),
+                                             ("cached", self.kv.cached)))
             series.append(("kv_pool", self.kv.bytes_in_use))
-        tr.counter("device_memory_bytes", ts, tuple(series))
+        tr.counter(p + "device_memory_bytes", ts, tuple(series))
 
     def save_trace(self, path) -> None:
         """Write the Chrome trace-event JSON of everything traced so far,
@@ -462,7 +503,7 @@ class ServeEngine:
         if req.top_k < 0:
             raise ValueError("top_k must be >= 0 (0 = no top-k filter)")
         req.t_submit = self.tracer.now()
-        self.tracer.instant("submit", TRACK_REQUESTS, req.t_submit,
+        self.tracer.instant("submit", self._trk_req, req.t_submit,
                             (("rid", req.rid),
                              ("prompt_tokens", len(req.prompt))))
         self._queue.append(req)
@@ -611,6 +652,8 @@ class ServeEngine:
                 self.kv.publish(slot, req.prompt)
             if len(req.generated) >= req.max_new_tokens or tok == req.eos_id:
                 self._finish(slot, now)
+            elif self.role == "prefill":
+                self._stage_ready(slot, now)
 
     def _advance_chunk(self, slot: int) -> None:
         req = self.requests[slot]
@@ -657,6 +700,8 @@ class ServeEngine:
             self.kv.publish(slot, req.prompt)
         if len(req.generated) >= req.max_new_tokens or tok == req.eos_id:
             self._finish(slot, now)
+        elif self.role == "prefill":
+            self._stage_ready(slot, now)
 
     def _finish(self, slot: int, now: float) -> None:
         req = self.requests[slot]
@@ -673,6 +718,126 @@ class ServeEngine:
         self.stats.requests_completed += 1
         self.stats.tokens_generated += len(req.generated)
 
+    # --------------------------------------------------------------- handoff
+    def _export_slot(self, slot: int,
+                     table_row: list[int] | None) -> list[BlockState]:
+        """Pack slot ``slot`` into a self-contained suitcase
+        (``repro.serve.engine._export_slot``): its batch-1 state row and, for
+        each paged layer, copies of the blocks its ``table_row`` names,
+        clipped to the pool (a sentinel entry copies some block, whose
+        contents the import drops).  The suitcase's shape depends on
+        blocks-per-slot only, so it travels between pools of any size; it
+        holds no view of this pool, which may hand the blocks to another
+        prompt while the suitcase waits."""
+        row = _gather_slot(self.states, slot)
+        if self.kv is None:
+            return row
+        idx = self._tensor(np.clip(np.asarray(table_row, np.int64), 0,
+                                   self.kv.pool.num_blocks - 1))
+        return [BlockState(kv=PagedKVCache(st.kv.k.index_select(0, idx),
+                                           st.kv.v.index_select(0, idx),
+                                           st.kv.length))
+                if isinstance(st.kv, PagedKVCache) else st for st in row]
+
+    def _import_slot(self, suitcase: list[BlockState], slot: int,
+                     table_row: list[int] | None) -> None:
+        """Unpack a visiting suitcase into slot ``slot``
+        (``repro.serve.engine._import_slot``), IN PLACE: its blocks go to
+        the pool rows ``table_row`` maps, then its batch-1 row is spliced.
+        A sentinel entry (>= the pool's size) is skipped, where the
+        reference drops the write (``mode="drop"``), so the suitcase's
+        padded tail changes no pool row."""
+        if self.kv is not None:
+            keep = [i for i, b in enumerate(table_row)
+                    if b < self.kv.pool.num_blocks]
+            if keep:
+                src = self._tensor(np.asarray(keep, np.int64))
+                dst = self._tensor(np.asarray(table_row, np.int64)[keep])
+                for st, new in zip(self.states, suitcase):
+                    if isinstance(st.kv, PagedKVCache):
+                        for pool, blocks in ((st.kv.k, new.kv.k),
+                                             (st.kv.v, new.kv.v)):
+                            pool.index_copy_(0, dst,
+                                             blocks.index_select(0, src))
+        _splice_states(self.states, suitcase, [slot])
+
+    def _stage_ready(self, slot: int, now: float) -> None:
+        """Prefill role: the slot's prompt is prefilled and its first token
+        sampled — park it on ``ready`` for the coordinator.  The slot keeps
+        its blocks until :meth:`release_handoff`; the prompt is already
+        published, so later same-prefix admissions hit it."""
+        self.ready.append(slot)
+        self.tracer.instant("prefill_done", self._slot_track(slot), now,
+                            (("rid", self.requests[slot].rid),))
+
+    def export_slot(self, slot: int) -> list[BlockState]:
+        """Prefill role: the suitcase of a ready slot."""
+        req = self.requests[slot]
+        trow = list(self.kv.table[slot]) if self.kv is not None else None
+        with self._timed("handoff_export") as tm:
+            out = self._export_slot(slot, trow)
+            tm.sync()
+        st = self.stats
+        st.handoffs += 1
+        st.handoff_time_s += tm.dur
+        self.tracer.span("handoff_export", self._slot_track(slot),
+                         tm.t0, tm.t1, (("rid", req.rid),))
+        return out
+
+    def release_handoff(self, slot: int) -> None:
+        """Prefill role: the suitcase left — free the slot and its block
+        references (the prefix tree keeps the published blocks cached)."""
+        req = self.requests[slot]
+        now = self.tracer.now()
+        self.tracer.end(f"req {req.rid}", self._slot_track(slot), now,
+                        (("rid", req.rid), ("handoff", 1)))
+        self.requests[slot] = None
+        if self.kv is not None:
+            self.kv.release(slot)
+        self._sync_kv_stats()
+
+    def stage_in(self, suitcase: list[BlockState]) -> list[BlockState]:
+        """Decode role: land a visiting suitcase on this engine's device.
+        Both roles share the one device, so it passes through."""
+        return suitcase
+
+    def adopt(self, req: Request, suitcase: list[BlockState],
+              n_tokens: int) -> int | None:
+        """Decode role: admit a finished prefill from the peer engine — take
+        a free slot, map fresh blocks for its ``n_tokens`` written positions
+        (``PagedKVManager.adopt``), import the suitcase into them, and decode
+        on from ``req.generated[-1]``.  Returns the slot, or None — having
+        touched nothing but the stall counter — when no slot or no blocks
+        are free (the coordinator retries next tick)."""
+        free = [s for s in range(self.slots) if self.requests[s] is None]
+        if not free:
+            self.stats.handoff_stalls += 1
+            return None
+        slot = free[0]
+        if self.kv is not None and not self.kv.adopt(slot, n_tokens):
+            self.stats.handoff_stalls += 1
+            return None
+        trow = list(self.kv.table[slot]) if self.kv is not None else None
+        with self._timed("handoff_import") as tm:
+            self._import_slot(suitcase, slot, trow)
+            tm.sync()
+        st = self.stats
+        st.handoffs += 1
+        st.handoff_time_s += tm.dur
+        self.requests[slot] = req
+        self.positions[slot] = n_tokens
+        self._set_sampling(slot, req)
+        now = tm.t1
+        self.tracer.begin(f"req {req.rid}", self._slot_track(slot), now,
+                          (("rid", req.rid),
+                           ("prompt_tokens", len(req.prompt))))
+        self.tracer.instant(
+            "handoff", self._slot_track(slot), now,
+            (("rid", req.rid), ("tokens", n_tokens),
+             ("blocks", self.kv.owned[slot] if self.kv is not None else 0)))
+        self._sync_kv_stats()
+        return slot
+
     # ---------------------------------------------------------------- warmup
     def _warm_table(self, rows: int) -> torch.Tensor | None:
         """All-sentinel block tables: warmup calls drop every paged write."""
@@ -686,37 +851,43 @@ class ServeEngine:
         bucket) prefill on fresh states, the chunk continuation on a copy of
         slot 0, the block clone (paged) and the decode step with every row
         frozen — then reset the states.  Builds the kernels and warms the
-        allocator so the first request is not charged for them."""
+        allocator so the first request is not charged for them.  A role
+        engine runs only its own half: the prefill role no decode step, the
+        decode role neither prefill nor block clone; each then its half of
+        the handoff (``_warm_handoff``)."""
         if self._queue or self._prefilling \
                 or any(r is not None for r in self.requests):
             raise RuntimeError("warmup() requires an idle engine")
         zeros = lambda rows: torch.zeros(              # noqa: E731
             (rows,), dtype=torch.int32, device=self.device)
         with self._timed("warmup") as tm:
-            for b in self.buckets:
-                for nb in self.batch_buckets:
+            if self.role != "decode":
+                for b in self.buckets:
+                    for nb in self.batch_buckets:
+                        self.model.prefill(
+                            torch.zeros((nb, b), dtype=torch.long,
+                                        device=self.device),
+                            self._fresh_states(nb), length=zeros(nb) + 1,
+                            block_table=self._warm_table(nb))
+                if self.max_len - 1 > self.buckets[-1] \
+                        or (self.kv is not None and self.kv.prefix_enabled):
                     self.model.prefill(
-                        torch.zeros((nb, b), dtype=torch.long,
-                                    device=self.device),
-                        self._fresh_states(nb), length=zeros(nb) + 1,
-                        block_table=self._warm_table(nb))
-            if self.max_len - 1 > self.buckets[-1] \
-                    or (self.kv is not None and self.kv.prefix_enabled):
-                self.model.prefill(
-                    torch.zeros((1, self.prefill_chunk), dtype=torch.long,
-                                device=self.device),
-                    _gather_slot(self.states, 0),
-                    length=zeros(1) + 1, offset=zeros(1),
-                    block_table=self._warm_table(1))
-            if self.kv is not None:
-                self._copy_blocks(0, 0)
-            self.model.decode_step(
-                torch.zeros((self.slots, 1), dtype=torch.long,
-                            device=self.device), self.states,
-                zeros(self.slots),
-                active=torch.zeros((self.slots,), dtype=torch.bool,
-                                   device=self.device),
-                block_table=self._warm_table(self.slots))
+                        torch.zeros((1, self.prefill_chunk),
+                                    dtype=torch.long, device=self.device),
+                        _gather_slot(self.states, 0),
+                        length=zeros(1) + 1, offset=zeros(1),
+                        block_table=self._warm_table(1))
+                if self.kv is not None:
+                    self._copy_blocks(0, 0)
+            if self.role != "prefill":
+                self.model.decode_step(
+                    torch.zeros((self.slots, 1), dtype=torch.long,
+                                device=self.device), self.states,
+                    zeros(self.slots),
+                    active=torch.zeros((self.slots,), dtype=torch.bool,
+                                       device=self.device),
+                    block_table=self._warm_table(self.slots))
+            self._warm_handoff()
             self.states = self.model.init_states(self.slots, self.max_len,
                                                  **self._state_kw)
             tm.sync()
@@ -725,6 +896,21 @@ class ServeEngine:
             # the pool was just re-zeroed: drop every prefix that described it
             self.kv.clear()
         self.positions[:] = 0
+
+    def _warm_handoff(self) -> None:
+        """A role engine's half of the handoff
+        (``repro.serve.engine._warm_handoff``): the prefill role exports slot
+        0 through an all-sentinel table row; the decode role imports a
+        suitcase made from its own idle states into slot 0 through an
+        all-sentinel row, so every block write drops.  ``warmup``
+        re-initializes the states right after."""
+        if self.role == "both":
+            return
+        trow = [self.kv.sentinel] * self.kv.blocks_per_slot \
+            if self.kv is not None else None
+        suitcase = self._export_slot(0, trow)
+        if self.role == "decode":
+            self._import_slot(self.stage_in(suitcase), 0, trow)
 
     # ---------------------------------------------------------------- decode
     def _decode_table(self) -> torch.Tensor | None:
@@ -742,13 +928,16 @@ class ServeEngine:
         chunk, admit up to ``max_prefill_per_step`` queued requests, then one
         lockstep decode step over the decoding slots.  With a paged pool each
         slot's table is extended before its write; a slot the pool cannot
-        extend stalls."""
+        extend stalls.  The decode role neither advances chunks nor admits;
+        the prefill role never decodes (its ready slots wait for export)."""
         t_tick = self.tracer.now()
-        for slot in list(self._prefilling):
-            self._advance_chunk(slot)
-        self._admit(self.max_prefill_per_step)
+        if self.role != "decode":
+            for slot in list(self._prefilling):
+                self._advance_chunk(slot)
+            self._admit(self.max_prefill_per_step)
         busy = [i for i, r in enumerate(self.requests) if r is not None]
-        active = [i for i in busy if i not in self._prefilling]
+        active = [] if self.role == "prefill" \
+            else [i for i in busy if i not in self._prefilling]
         if self.kv is not None and active:
             ok = []
             for i in active:
@@ -846,7 +1035,7 @@ class ServeEngine:
             t_abort = self.tracer.now()
             for r in leftovers:
                 if not r.aborted:
-                    self.tracer.instant("abort", TRACK_REQUESTS, t_abort,
+                    self.tracer.instant("abort", self._trk_req, t_abort,
                                         (("rid", r.rid),))
                 r.aborted = True
             msg = (f"run() exhausted max_steps={max_steps} with "

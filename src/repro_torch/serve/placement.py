@@ -129,12 +129,16 @@ class PlacementPlan:
     predicted_prefill_s: float = 0.0  # whole model, one full prefill chunk
     predicted_decode_s: float = 0.0   # whole model, one lockstep decode step
     rule_kmeans_agreement: float = 0.0
-    # per-role engine knobs for disaggregated serving (the JAX package's
-    # serve/disagg.py; not ported yet):
+    # per-role engine knobs for disaggregated serving (serve/disagg.py):
     # (("prefill", (("buckets", (...)), ("prefill_chunk", n))), ("decode", ()))
     # — a dedicated prefill submesh has no decoders to protect, so its chunk
     # is freed from the decode-latency bound the interleaved chunk obeys
     role_knobs: tuple = ()
+
+    @property
+    def per_role(self) -> dict:
+        """``{"prefill": {...}, "decode": {...}}`` view of ``role_knobs``."""
+        return {role: dict(kv) for role, kv in self.role_knobs}
 
     def policy_for(self, kind: str) -> ExecutionPolicy | None:
         for p in self.policies:

@@ -83,11 +83,11 @@ def test_sampled_requests_reproduce_and_warmup_resets(engines):
 
 def test_engine_refuses_what_this_slice_leaves_out(engines):
     _, _, tm = engines
-    # the placement policy (tests/test_torch_placement.py) and the tracer
-    # (tests/test_torch_obs.py) are in
-    for kw in ({"mesh": None}, {"role": "decode"}):
-        with pytest.raises(TypeError):
-            ServeEngine(tm, kv_block_size=8, max_len=64, **kw)
+    # the placement policy (tests/test_torch_placement.py), the tracer
+    # (tests/test_torch_obs.py) and the roles (tests/test_torch_disagg.py)
+    # are in
+    with pytest.raises(TypeError):
+        ServeEngine(tm, kv_block_size=8, max_len=64, mesh=None)
     with pytest.raises(ValueError, match="kv_blocks"):
         ServeEngine(tm, kv_block_size=8, max_len=64, kv_blocks=4)
 

@@ -906,3 +906,161 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
     assert abs(cpu[0] - card[0]) <= 1e-5 * abs(cpu[0])
     assert abs(cpu[1] - card[1]) <= 1e-4 * abs(cpu[1])
     assert (cpu[2] - card[2]).abs().max().item() <= 1e-4
+
+
+# ----------------------------------------------------- disaggregated serving
+DISAGG_ARCHS = [("qwen3-0.6b", 8), ("recurrentgemma-2b", None),
+                ("falcon-mamba-7b", None)]
+
+
+def _lively_model(arch, dtype, device):
+    """Reduced ``arch`` at ``max(2, len(block_pattern))`` layers on
+    ``device``, its norm scales drawn from N(0, 0.5) so greedy tokens
+    vary (the init's unit scales decode one token over and over)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    cfg = reduced_config(arch)
+    cfg = cfg.replace(compute_dtype=dtype,
+                      num_layers=max(2, len(cfg.block_pattern)))
+    model = build_model(cfg, device=device, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name or "scale" in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    return cfg, model
+
+
+def _disagg_trace(vocab):
+    """The JAX package's disagg identity gate trace (70 tokens chunk; a
+    pair on a 20-token prefix), one request sampled."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.RandomState(23)
+    shared = rng.randint(1, vocab, 20).tolist()
+    reqs = [Request(rid=i, prompt=rng.randint(1, vocab, n).tolist(),
+                    max_new_tokens=6,
+                    **(dict(temperature=0.8, top_k=20, seed=5)
+                       if i == 2 else {}))
+            for i, n in enumerate([4, 11, 30, 70])]
+    reqs += [Request(rid=10 + i, prompt=shared + rng.randint(
+                 1, vocab, 3 + i).tolist(), max_new_tokens=6)
+             for i in range(2)]
+    return reqs
+
+
+def disagg_serves_interleaved_tokens(arch, kv_block_size, dtype, device):
+    """The pair (2 prefill + 4 decode slots) serves the interleaved
+    4-slot engine's tokens, one handoff a request, none pending; the
+    prefill role launches flash and the decode role paged decode or the
+    scans at T = 1 (counted only on the card)."""
+    from repro_torch.serve.disagg import DisaggEngine
+    from repro_torch.serve.engine import ServeEngine
+    cfg, model = _lively_model(arch, dtype, device)
+    kw = dict(max_len=128, buckets=(16, 32), prefill_chunk=32,
+              kv_block_size=kv_block_size, kv_blocks=None if
+              kv_block_size is None else 64)
+    want = [r.generated for r in ServeEngine(model, slots=4, **kw).run(
+        _disagg_trace(cfg.vocab_size), on_truncate="raise")]
+    dis = DisaggEngine(model, prefill_slots=2, decode_slots=4, **kw)
+    dis.warmup()
+    dis.reset_stats()
+    before = (fa.launches.n, pa.launches.n, pr.decode_launches.n,
+              ps.decode_launches.n)
+    got = [r.generated for r in dis.run(_disagg_trace(cfg.vocab_size),
+                                        on_truncate="raise")]
+    after = (fa.launches.n, pa.launches.n, pr.decode_launches.n,
+             ps.decode_launches.n)
+    assert got == want
+    assert len({tuple(g) for g in got}) > 1
+    s = dis.summary()
+    assert s["handoffs"] == 6 and s["handoffs_pending"] == 0
+    assert s["roles"]["decode"]["nonfinite_logits"] == 0
+    return s, [a - b for a, b in zip(after, before)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,kv_block_size", DISAGG_ARCHS)
+def test_disagg_pair_serves_the_interleaved_tokens_on_card(cuda, dtype, arch,
+                                                           kv_block_size):
+    s, moved = disagg_serves_interleaved_tokens(arch, kv_block_size, dtype,
+                                                cuda)
+    flash, paged, rglru, ssm = moved
+    # the reduced recurrentgemma's 16-token window keeps its local layers'
+    # prefill off flash (the full window takes it: chip_smoke.py phase 6)
+    assert flash > 0 or arch != "qwen3-0.6b"
+    assert (paged > 0) == (kv_block_size is not None)
+    assert rglru > 0 or arch != "recurrentgemma-2b"
+    assert ssm > 0 or arch != "falcon-mamba-7b"
+
+
+def suitcase_round_trip(arch, kv_block_size, device):
+    """A prefill role's slot exported and adopted by a decode role whose
+    pool has another size: the decode pool's adopted blocks and the slot's
+    row equal the prefill side's bit for bit, no other block changes, and
+    an import through an all-sentinel row (the decode role's warmup) and a
+    suitcase's clipped sentinel tail write nothing and trip no assert."""
+    from repro_torch.models.attention import PagedKVCache
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, model = _lively_model(arch, "bfloat16", device)
+    pool = (lambda n: n) if kv_block_size else (lambda n: None)
+    pre = ServeEngine(model, role="prefill", slots=2, max_len=64,
+                      buckets=(16,), prefill_chunk=16,
+                      kv_block_size=kv_block_size, kv_blocks=pool(12))
+    dec = ServeEngine(model, role="decode", slots=2, max_len=64,
+                      kv_block_size=kv_block_size, kv_blocks=pool(20),
+                      prefix_cache=False)
+    pre.warmup()
+    dec.warmup()
+    for st in dec.states:                  # no pool row is zero by chance
+        for a in (st.kv if st.kv is not None else st.rec.values()):
+            if a.is_floating_point():
+                a.normal_()
+    rng = np.random.RandomState(4)
+    req = Request(rid=0, prompt=rng.randint(1, cfg.vocab_size, 27).tolist())
+    pre.submit(req)
+    while not pre.ready:
+        pre.step()
+    slot = pre.ready.popleft()
+    src_row = list(pre.kv.table[slot]) if pre.kv is not None else None
+    suitcase = pre.export_slot(slot)
+    pre.release_handoff(slot)
+    before = [[a.clone() for a in (st.kv if st.kv is not None
+                                   else st.rec.values())]
+              for st in dec.states]
+    sent = [dec.kv.sentinel] * dec.kv.blocks_per_slot \
+        if dec.kv is not None else None
+    dec._import_slot(dec._export_slot(1, sent), 1, sent)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)     # a device assert surfaces here
+    for st, old in zip(dec.states, before):
+        if isinstance(st.kv, PagedKVCache):
+            assert torch.equal(st.kv.k, old[0]) \
+                and torch.equal(st.kv.v, old[1])
+    assert dec.adopt(req, dec.stage_in(suitcase), 27) == 0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    for i, (st, old, sc) in enumerate(zip(dec.states, before, suitcase)):
+        if isinstance(st.kv, PagedKVCache):
+            owned = dec.kv.owned[0]
+            rows = dec.kv.table[0][:owned]
+            for now, was, moved in ((st.kv.k, old[0], sc.kv.k),
+                                    (st.kv.v, old[1], sc.kv.v)):
+                assert torch.equal(now[rows], moved[:owned])
+                rest = [b for b in range(now.shape[0]) if b not in rows]
+                assert torch.equal(now[rest], was[rest]), i
+            assert src_row[owned:] == [pre.kv.sentinel] * (len(src_row)
+                                                           - owned)
+            assert int(st.kv.length[0]) == 27
+        else:
+            parts = st.kv if st.kv is not None else list(st.rec.values())
+            moved = sc.kv if sc.kv is not None else list(sc.rec.values())
+            for now, was, m in zip(parts, old, moved):
+                assert torch.equal(now[0], m[0]), i
+                assert torch.equal(now[1], was[1]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kv_block_size", DISAGG_ARCHS)
+def test_suitcase_round_trip_on_card(cuda, arch, kv_block_size):
+    suitcase_round_trip(arch, kv_block_size, cuda)

@@ -134,9 +134,10 @@ def test_summary_has_the_reference_schema(models, paged):
     assert _paths(got) - PORT_ONLY == {p for p in _paths(want)
                                        if not _excluded(p)}
     assert ("kv" in got) == paged
-    assert set(NOT_PORTED_STATS) >= {"programs", "handoff", "kv.shards",
+    assert set(NOT_PORTED_STATS) >= {"programs", "kv.shards",
                                      "kv.in_use_per_shard",
                                      "kv.peak_per_shard"}
+    assert "handoff" not in NOT_PORTED_STATS
     for key in ("requests_completed", "tokens_generated", "prefills",
                 "prefill_calls", "prefill_chunks", "prefill_prompt_tokens",
                 "prefill_tokens_computed", "prefill_padding_overhead",
