@@ -13,7 +13,9 @@ Phases, one line or block of output each; any failure exits non-zero:
    also at recurrentgemma's hd=256, 10 q heads over 1 kv head, and with a
    window that binds, and flash and paged decode at the heads of
    qwen2-0.5b, smollm-135m, starcoder2-7b and internvl2-2b: GQA groups of
-   7, 3, 9 and 2 at hd 64 and 128, flash at serving's buckets 16-256; the
+   7, 3, 9 and 2 at hd 64 and 128, flash at serving's buckets 16-256, and
+   at the heads of phi3.5-moe and llama4-scout, groups of 4 and 5 at hd
+   128; the
    selective scan with a carried state and ragged lengths that include a
    frozen row; the Pascal matmul at the edge zoo's TR1 hoisted input GEMMs,
    in bf16 on its tensor-core route and at a ragged shape on its SIMT
@@ -27,7 +29,8 @@ Phases, one line or block of output each; any failure exits non-zero:
    the least time the card could take (bytes and operations against the
    published H100 SXM peaks); flash in bf16 (its tensor-core route) at
    S=64, 256 and 1024 and at recurrentgemma's local layer and at each new
-   arch's heads (S=256, and S=64 at hd 64), and in float32 (its SIMT
+   arch's heads (S=256, and S=64 at hd 64 and for the MoE archs), and in
+   float32 (its SIMT
    route); paged decode at 8 slots of up to 1024 tokens (qwen3's heads and
    each new arch's) and at 16 slots of up to 8192 (a byte bound clear of
    the timing floor); the RG-LRU and the selective scan at their prefill
@@ -39,9 +42,12 @@ Phases, one line or block of output each; any failure exits non-zero:
 4. layer parity — full-width qwen3-0.6b cut to 2 layers, full-width
    recurrentgemma-2b cut to 3 (rec, rec, local), full-width falcon-mamba-7b
    cut to 2, and full-width qwen2-0.5b, smollm-135m, starcoder2-7b and
-   internvl2-2b cut to 2 (paged KV), float32: prefill and 4 decode steps on
-   the CPU (plain versions) and on the card (kernels) from the same
-   weights, logits held within a stated tolerance;
+   internvl2-2b cut to 2 (paged KV), and full-width phi3.5-moe cut to 2
+   and llama4-scout cut to 1 (paged KV; ~11.5 and ~17 GB a side), float32:
+   prefill and 4 decode steps on the CPU (plain versions) and on the card
+   (kernels) from the same weights, logits held within a stated
+   tolerance; an MoE's routing (top-k indices and keep mask) compared
+   call by call, a flip allowed only at a near-tie and printed;
 5. edge LSTM stack — the LSTM layers of the edge zoo's mobile RNN-T
    (``TR1_rnnt_mobile``) at full width, float32, random weights from the
    seed: its encoder cut to 2 layers on the CPU (plain versions) and on the
@@ -53,7 +59,7 @@ Phases, one line or block of output each; any failure exits non-zero:
    copies (``repro_torch.core``): the 24 edge models characterized,
    clustered, scheduled and evaluated (every number of the paper's modeled
    accelerators, none of the card), and each served arch's rule clusters
-   held against a seeded k-means; then seven paths through
+   held against a seeded k-means; then nine paths through
    ``launch.serve.build_engine`` with ``policy="auto"`` (the placement
    oracle's plan: characterize -> cluster -> cost; its buckets and chunk),
    random weights from the seed.  Each run's launch counters are set to 0
@@ -85,6 +91,13 @@ Phases, one line or block of output each; any failure exits non-zero:
       text only through its untied head, with a bucket ladder up to
       max_len and no prefix cache: like the JAX package's, its model
       cannot chunk a prompt;
+   e. full-width phi3.5-moe-42b-a6.6b cut to 16 of 32 layers and
+      llama4-scout-17b-a16e cut to 8 of 48 (neither fits the card whole),
+      as a.: the einsum route multiplies every expert's bank each tick;
+      each prints its decode step, tokens/s, TTFT, peak memory and the
+      expert-bank bytes a tick reads beside their time at 3.35 TB/s, and
+      the decode capacity (1 per expert at 4 slots: a tick drops every
+      second assignment to an expert, as the reference does);
 7. train — full-width qwen3-0.6b (28 layers, 3 steps) and
    seamless-m4t-medium (12 encoder + 12 decoder layers, vocab 256,206, 2
    steps) through ``launch.train.train_once`` on the card: bf16 compute on
@@ -132,6 +145,10 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: 9 do not divide flash's 64 packed rows a tile, and hd 64 runs its
 #: tensor-core route; internvl2-2b has qwen3's heads
 NEW_ARCHS = ("qwen2-0.5b", "smollm-135m", "starcoder2-7b", "internvl2-2b")
+#: the mixture-of-experts decoders: flash and paged decode at GQA groups
+#: of 4 and 5, hd 128 (their expert products are torch.bmm: the reference
+#: computes them in XLA, outside any Pallas kernel)
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
 #: the encoder-decoder: its encoder runs flash non-causal
 ENCDEC = "seamless-m4t-medium"
 PAGED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -153,6 +170,14 @@ SSM_BF16_ULP = 2.0 ** -7
 # other orders than the CPU, over d_model 1024 / 2560 / 4096 and vocab
 # 151,936 / 256,000 / 65,024
 LOGIT_TOL = 2e-3
+# float32 routing of a full-width MoE cut, the CPU against the card: the
+# router's probabilities part by ~1e-7 (a 4096-5120 long float32 dot over
+# a normed input), so a top-k may flip only between experts whose CPU
+# probabilities lie within this margin.  Its logits are held to LOGIT_TOL
+# too: the residual stream grows to ~1e3-1e4 (the banks' fan-in init draws
+# 1/sqrt(E), as the reference's), but the final norm rescales it, and its
+# float32 error stays a relative one
+ROUTE_MARGIN = 1e-5
 # a float32 product summed over K in another order than its plain version
 # (FMA chains against a multiply and an add): the rounding differences
 # walk like sqrt(K) float32 ulps of the output's scale, so sqrt(K) ulps of
@@ -482,11 +507,11 @@ def phase_kernels(seed: int, card: str, parent: dict):
                 fail(f"flash kernel disagrees with its plain version at "
                      f"hd={hd} ({err} > {tol})")
 
-    # ---- flash at the heads of slice 6's archs: serving's buckets 16-256
-    # and a ragged S, both routes; then timed in bf16 at S=256 (and S=64
-    # at hd 64)
+    # ---- flash at the heads of slice 6's archs and the MoE archs:
+    # serving's buckets 16-256 and a ragged S, both routes; then timed in
+    # bf16 at S=256 (and S=64 at hd 64 and for the MoE archs)
     b = 4
-    for arch in NEW_ARCHS:
+    for arch in (*NEW_ARCHS, *MOE_ARCHS):
         h, kvh, hd = arch_heads(arch)
         for dtype in ("bfloat16", "float32"):
             errs = {}
@@ -501,15 +526,15 @@ def phase_kernels(seed: int, card: str, parent: dict):
                 fail(f"flash kernel disagrees with its plain version at "
                      f"{arch}'s heads ({errs} > {tol})")
     rows["flash"]["archs"] = {}
-    for arch in NEW_ARCHS:
+    for arch in (*NEW_ARCHS, *MOE_ARCHS):
         h, kvh, hd = arch_heads(arch)
         rows["flash"]["archs"][f"{arch} S=256"] = flash_times(
             b, 256, h, kvh, hd, 0, "bfloat16")
-        if hd == 64:
+        if hd == 64 or arch in MOE_ARCHS:
             rows["flash"]["archs"][f"{arch} S=64"] = flash_times(
                 b, 64, h, kvh, hd, 0, "bfloat16")
     rows["paged"]["archs"] = {arch: paged_arch(gen, flush, card, floor, arch)
-                              for arch in NEW_ARCHS}
+                              for arch in (*NEW_ARCHS, *MOE_ARCHS)}
 
     # ---- non-causal flash, as seamless-m4t-medium's encoder calls it (16
     # q heads over 16 kv heads of 64): Sq == Skv at the train phase's 128,
@@ -1067,20 +1092,73 @@ def lstm_kernel(gen, flush, card: str) -> dict:
 
 
 # --------------------------------------------------------- 4. layer parity
+def record_routing(routes: dict, side: list):
+    """Keep every MoE call's routing (``models.moe.routing``'s decisions,
+    copied to the host) in ``routes[side[0]]``; returns the undo."""
+    from repro_torch.models import moe
+    orig = moe.routing
+
+    def recorded(*args, **kw):
+        r = orig(*args, **kw)
+        routes[side[0]].append({k: v.cpu() if hasattr(v, "cpu") else v
+                                for k, v in r.items()})
+        return r
+
+    moe.routing = recorded
+    return lambda: setattr(moe, "routing", orig)
+
+
+def routing_agreement(arch: str, routes: dict, layers: int, calls: int):
+    """The CPU's and the card's routings, call by call (``layers`` MoE
+    calls a model call): fails on a flip no near-tie explains; prints each
+    flip; returns how many leading model calls routed alike (their logits
+    are held), and each side's drops."""
+    from repro_torch.models import moe
+    if not len(routes["cpu"]) == len(routes["card"]) == layers * calls:
+        fail(f"{arch}: {len(routes['cpu'])} CPU and {len(routes['card'])} "
+             f"card MoE calls, expected {layers * calls}")
+    alike, drops = calls, {"cpu": 0, "card": 0}
+    for i, (want, got) in enumerate(zip(routes["cpu"], routes["card"])):
+        flips = moe.routing_flips(want, got, ROUTE_MARGIN)
+        for side, r in (("cpu", want), ("card", got)):
+            drops[side] += int((~r["keep"]).sum())
+        if flips["unexplained"]:
+            fail(f"{arch}: MoE call {i} (model call {i // layers}, layer "
+                 f"{i % layers}) routes differently on the card, not at a "
+                 f"near-tie (margin {ROUTE_MARGIN}): {flips}")
+        if flips["gate"] or flips["keep"]:
+            say(f"[parity] {arch}: routing flip at MoE call {i} (model "
+                f"call {i // layers}, layer {i % layers}), every one at a "
+                f"near-tie within {ROUTE_MARGIN}: top-k {flips['gate']}, "
+                f"keep {flips['keep']}")
+            alike = min(alike, i // layers)
+    return alike, drops
+
+
 def phase_parity(seed: int, arch: str, num_layers: int,
                  kv_block_size: int | None):
     """The arch at full width cut to ``num_layers`` layers, float32: the
     same weights on the CPU and on the card, prefill of two right-padded
-    rows and 4 greedy decode steps, logits compared."""
+    rows and 4 greedy decode steps, logits compared.  An MoE's routing is
+    compared too, call by call (``routing_agreement``): where it agrees,
+    the logits are held to the tolerance; a flip is allowed only at a
+    near-tie, and the logits from that call on are printed, not held."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.transformer import Model
     cfg = get_config(arch).replace(num_layers=num_layers,
                                    compute_dtype="float32")
-    cpu = build_model(cfg, device="cpu", seed=seed)
-    gpu = Model(cfg, device="cuda")
-    gpu.load_state_dict(cpu.state_dict())
+    moe = cfg.ffn_kind == "moe"
+    if moe:
+        # 11-17 GB of float32 weights: drawn on the card, copied to the host
+        gpu = build_model(cfg, device="cuda", seed=seed)
+        cpu = Model(cfg, device="cpu")
+        cpu.load_state_dict(gpu.state_dict())
+    else:
+        cpu = build_model(cfg, device="cpu", seed=seed)
+        gpu = Model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
     max_len, s = 512, 256
     lens = [37, 200]
     rng = torch.Generator().manual_seed(seed)
@@ -1090,39 +1168,59 @@ def phase_parity(seed: int, arch: str, num_layers: int,
     length = torch.tensor(lens, dtype=torch.int32)
     models = {"cpu": cpu, "card": gpu}
     states, logits = {}, {}
+    routes, side_now = {"cpu": [], "card": []}, ["cpu"]
+    undo = record_routing(routes, side_now) if moe else (lambda: None)
 
     def on(x, side):
         return None if x is None else x.to(models[side].device)
 
-    for side, model in models.items():
-        st = model.init_states(2, max_len, kv_block_size=kv_block_size)
-        lg, states[side] = model.prefill(on(toks, side), st,
-                                         length=on(length, side),
-                                         block_table=on(table, side))
-        logits[side] = [lg.cpu()]
-    pos = length.clone()
-    for _ in range(4):
-        # both sides decode the CPU's greedy token, so they never diverge
-        nxt = logits["cpu"][-1][:, 0].argmax(-1)[:, None]
+    try:
         for side, model in models.items():
-            lg, states[side] = model.decode_step(
-                on(nxt, side), states[side], on(pos, side),
-                block_table=on(table, side))
-            logits[side].append(lg.cpu())
-        pos = pos + 1
+            side_now[0] = side
+            st = model.init_states(2, max_len, kv_block_size=kv_block_size)
+            lg, states[side] = model.prefill(on(toks, side), st,
+                                             length=on(length, side),
+                                             block_table=on(table, side))
+            logits[side] = [lg.cpu()]
+        pos = length.clone()
+        for _ in range(4):
+            # both sides decode the CPU's greedy token, so they never
+            # diverge
+            nxt = logits["cpu"][-1][:, 0].argmax(-1)[:, None]
+            for side, model in models.items():
+                side_now[0] = side
+                lg, states[side] = model.decode_step(
+                    on(nxt, side), states[side], on(pos, side),
+                    block_table=on(table, side))
+                logits[side].append(lg.cpu())
+            pos = pos + 1
+    finally:
+        undo()
     if not all(torch.isfinite(lg).all() for lg in logits["card"]):
         fail(f"{arch}: non-finite logits on the card")
-    worst = max((a - b).abs().max().item()
-                for a, b in zip(logits["cpu"], logits["card"]))
+    held, note = len(logits["cpu"]), ""
+    if moe:
+        held, drops = routing_agreement(arch, routes, num_layers, held)
+        note = (f"; routing of {len(routes['card'])} MoE calls "
+                f"({cfg.num_experts} experts, top-{cfg.top_k}, capacity "
+                f"factor {cfg.moe_capacity}) alike in the first {held} of "
+                f"{len(logits['cpu'])} model calls, dropped assignments "
+                f"CPU {drops['cpu']} card {drops['card']}")
+    worst = max([(a - b).abs().max().item() for a, b in
+                 zip(logits["cpu"][:held], logits["card"][:held])],
+                default=0.0)
+    scale = max(lg.abs().max().item() for lg in logits["cpu"])
     kv = "no KV" if set(cfg.layer_kinds) == {"ssm"} \
         else "dense KV" if kv_block_size is None \
         else f"paged KV (blocks of {kv_block_size})"
     say(f"[parity] {arch} full width, {num_layers} layers "
         f"({', '.join(cfg.layer_kinds)}), float32, {kv}, prefill lengths "
         f"{lens} + 4 decode steps: max|cuda-cpu| logits {worst:.3e} "
-        f"(tol {LOGIT_TOL})")
+        f"(tol {LOGIT_TOL}; max|logits| {scale:.3f}){note}")
     if not worst <= LOGIT_TOL:
         fail(f"{arch} layer parity {worst} > {LOGIT_TOL}")
+    del cpu, gpu, models, states
+    release()
 
 
 def phase_parity_encdec(seed: int, enc_layers: int = 2, num_layers: int = 2):
@@ -1456,7 +1554,15 @@ SERVE_LAUNCHES = {
     "internvl2-2b": {"flash": 192, "paged": 792},
     "recurrentgemma-2b": {"flash": 32, "rglru": 1350, "rglru_decode": 1116},
     "falcon-mamba-7b": {"ssm": 4480, "ssm_decode": 3968},
+    "phi3.5-moe-42b-a6.6b": {"flash": 96, "paged": 528},
+    "llama4-scout-17b-a16e": {"flash": 48, "paged": 264},
 }
+#: the MoE archs' depth: in phase 4, float32 on both sides (phi3.5-moe
+#: 2 layers, ~11.5 GB a side; llama4-scout 1, ~17 GB, 8.3 GB of it the
+#: two vocab tables); in phase 6, bf16, cut because neither fits one 80 GB
+#: card whole (78.0 and 200.7 GiB of weights): ~39.7 and ~40.5 GiB
+MOE_PARITY_LAYERS = {"phi3.5-moe-42b-a6.6b": 2, "llama4-scout-17b-a16e": 1}
+MOE_SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 16, "llama4-scout-17b-a16e": 8}
 #: each disaggregated pair run's launches (``serve_disagg``), counted from
 #: 0 just before it: the prefill role makes the interleaved run's prefill
 #: calls and chunks and the decode role its decode steps, so each equals
@@ -1720,23 +1826,30 @@ def serve_checks(what: str, cfg, run: dict, new: int, checks: dict) -> None:
 
 def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
                 engine_kw: dict | None = None, min_chunks: int = 3,
-                min_prefix_hits: int = 1):
-    """A full-width dense decoder through the paged engine (blocks of 16,
+                min_prefix_hits: int = 1, num_layers: int | None = None):
+    """A full-width decoder through the paged engine (blocks of 16,
     max_len 1024, 4 slots, and ``engine_kw``, by default buckets up to
     256): bucketed and chunked prefill, a prefix hit with a copy-on-write
     clone, a sampled request.  Fails unless the run made at least
     ``min_chunks`` prefill chunks and ``min_prefix_hits`` prefix hits, and
-    none of either where the minimum is 0."""
+    none of either where the minimum is 0.  ``num_layers`` cuts the depth
+    (an MoE that does not fit the card whole); an MoE's run also prints
+    the peak memory and the expert-bank bytes a decode tick reads."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request
     cfg = get_config(arch)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device="cuda", seed=seed)
     torch.cuda.synchronize()
-    say(f"[serve] {arch} full width ({cfg.num_layers} layers, "
+    cut = "" if num_layers is None \
+        else f" of {get_config(arch).num_layers}"
+    say(f"[serve] {arch} full width ({cfg.num_layers}{cut} layers, "
         f"{cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads of "
         f"{cfg.head_dim}, {cfg.norm} norm, {cfg.ffn_kind} FFN, "
         f"{'tied' if cfg.tie_embeddings else 'untied'} head; "
@@ -1775,6 +1888,9 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
         run = serve_auto(arch, cfg, model, card, kw, make_requests, drive)
         counts = run["counts"]
     s = run["s"]
+    if cfg.ffn_kind == "moe":
+        moe_serve_line(arch, cfg, s, kw["slots"], card)
+        moe_decode_profile(arch, cfg, model, card)
     say(f"[serve] {arch} prefix hits {s['kv']['prefix_hits']} "
         f"({s['kv']['prefix_tokens_reused']} tokens, "
         f"{s['kv']['blocks_copied']} COW), blocks peak "
@@ -1789,6 +1905,78 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
         "decode_stalls == 0": s["kv"]["decode_stalls"] == 0,
     })
     return counts
+
+
+def moe_serve_line(arch: str, cfg, s: dict, slots: int, card: str) -> None:
+    """An MoE serve's decode step beside the expert-bank bytes one tick
+    reads (the einsum route multiplies every expert's bank each tick) at
+    the card's 3.35 TB/s, its peak memory, and the decode capacity: the
+    reference's max(1, int(capacity_factor * slots * top_k / E))."""
+    import torch
+    from repro_torch.models.moe import capacity
+    banks = 3.0 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2 \
+        * cfg.num_layers
+    cap = capacity(cfg.moe_capacity, slots, cfg.top_k, cfg.num_experts)
+    say(f"[serve] {arch} MoE on {card}: decode step "
+        f"{s['decode_step_ms']:.2f} ms, {s['tokens_per_s']:.1f} tokens/s, "
+        f"TTFT p50 {s['ttft_ms']['p50']:.2f} ms (mean "
+        f"{s['ttft_ms']['mean']:.2f}); a tick reads {banks / 1e9:.2f} GB of "
+        f"bf16 expert banks ({cfg.num_layers} layers x {cfg.num_experts} "
+        f"experts), {1e3 * banks / PEAK_BYTES_S:.2f} ms at 3.35 TB/s; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"decode capacity {cap} per expert at {slots} slots "
+        f"(max(1, int({cfg.moe_capacity} x {slots} x {cfg.top_k} / "
+        f"{cfg.num_experts}))): a tick keeps an expert's first {cap} "
+        f"assignment(s) and drops the rest, the reference's function, not "
+        f"a fault")
+
+
+#: the profiled MoE decode window: ticks, once every slot decodes
+PROFILED_TICKS = 8
+
+
+def moe_decode_profile(arch: str, cfg, model, card: str) -> None:
+    """``PROFILED_TICKS`` decode ticks of 4 busy slots under
+    ``torch.profiler`` (``obs.profile_trace``, into a temporary
+    directory), after the measured serve and outside its launch count: the
+    wall time a tick, the card's busy share, and the kernels that took
+    most of the card's time."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.obs import profile_trace
+    from repro_torch.serve.engine import Request
+    engine = build_engine(cfg, model, policy="auto", slots=4, max_len=1024,
+                          kv_block_size=16, max_bucket=256)
+    rng = np.random.RandomState(1)
+    reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size,
+                                              24).tolist(),
+                    max_new_tokens=PROFILED_TICKS + 8) for i in range(4)]
+    for r in reqs:
+        engine.submit(r)
+    while not all(r.generated for r in reqs):     # all admitted, decoding
+        engine.step()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp, \
+            profile_trace(tmp, device=torch.device("cuda")) as prof:
+        for _ in range(PROFILED_TICKS):
+            engine.step()
+    if prof["device_busy_ms"] is None:
+        fail(f"{arch}: the profiler saw no device time")
+    top = prof["top_kernels"][:5]
+    busy = prof["device_busy_ms"]
+    say(f"[serve] {arch} MoE decode profiled on {card}: {PROFILED_TICKS} "
+        f"ticks of 4 slots, {prof['wall_ms'] / PROFILED_TICKS:.2f} ms a "
+        f"tick, the card busy {busy / PROFILED_TICKS:.2f} ms a tick (idle "
+        f"{100 * prof['device_idle_share']:.2f}%), "
+        f"{prof['kernel_launches'] / PROFILED_TICKS:.0f} launches a tick; "
+        f"top kernels by device time: "
+        + "; ".join(f"{k['name'][:60]} {k['ms'] / PROFILED_TICKS:.3f} ms a "
+                    f"tick ({100 * k['ms'] / busy:.1f}% of busy)"
+                    for k in top))
+    del engine
+    release()
 
 
 def run_all(engine, reqs) -> None:
@@ -2041,6 +2229,9 @@ def main() -> None:
     phase_parity(args.seed, "falcon-mamba-7b", 2, kv_block_size=None)
     for arch in NEW_ARCHS:
         phase_parity(args.seed, arch, 2, kv_block_size=16)
+    for arch in MOE_ARCHS:
+        phase_parity(args.seed, arch, MOE_PARITY_LAYERS[arch],
+                     kv_block_size=16)
     phase_parity_encdec(args.seed)
     release()
     phase_train_parity(args.seed, "recurrentgemma-2b", 3, batch=2, seq_len=64)
@@ -2054,6 +2245,10 @@ def main() -> None:
     for arch in NEW_ARCHS:
         paths.append(phase_serve(args.seed, smi, arch,
                                  **SERVE_OPTIONS.get(arch, {})))
+        release()
+    for arch in MOE_ARCHS:
+        paths.append(phase_serve(args.seed, smi, arch,
+                                 num_layers=MOE_SERVE_LAYERS[arch]))
         release()
     paths.append(phase_train(args.seed, smi, "qwen3-0.6b", steps=3))
     paths.append(phase_train(args.seed, smi, ENCDEC, steps=2))

@@ -11,7 +11,9 @@ j`` is ``groups[str(j)][g]``.  A norm is ``{"scale"}`` (RMSNorm) or
 pattern position, and each block type declares the norms (``NORMS``) and
 parameter groups (``PARTS``) it holds: ``attn`` / ``local`` blocks hold
 ``ln1``, ``attn``, ``ln2``, ``ffn`` (``w_gate, w_up, w_down`` for a GLU,
-``w_in, b_in, w_out, b_out`` for a plain MLP); ``rec`` blocks ``ln1``,
+``w_in, b_in, w_out, b_out`` for a plain MLP; ``router`` (D, E), the expert
+banks ``w_gate, w_up`` (E, D, F) and ``w_down`` (E, F, D) for an MoE, with
+a nested ``shared`` GLU dict where the config has a shared expert); ``rec`` blocks ``ln1``,
 ``rec`` (``w_x, w_y, conv_w, w_a, w_i, lambda, w_out``), ``ln2``, ``ffn``;
 ``ssm`` blocks ``ln1`` and ``ssm`` (``in_proj, conv_w, x_proj, dt_proj,
 dt_bias, a_log, d_skip, out_proj``) only; an encoder-decoder's ``dec``
@@ -19,12 +21,13 @@ blocks hold ``ln1``, ``attn``, ``ln_x``, ``xattn`` (``wq, wk, wv, wo``),
 ``ln2``, ``ffn``, and its tree adds ``encoder`` — the ``enc`` blocks
 (``ln1``, ``attn``, ``ln2``, ``ffn``) stacked on axis 0 over
 ``enc_layers`` — and ``enc_norm``.  Every leaf of the tree is
-consumed: a tree holding anything the port's model does not, or lacking
-anything it does, is refused.  Each leaf is copied into the port's tensor,
-which casts matmul weights and biases to the compute dtype once (the JAX
-package casts them per call); the leaves the port reads in float32
-(``lambda``, Mamba's ``x_proj, dt_proj, dt_bias, a_log, d_skip``, the norm
-scales and biases, the embedding and ``lm_head``) stay float32.
+consumed, nested dicts too: a tree holding anything the port's model does
+not, or lacking anything it does, is refused.  Each leaf is copied into the
+port's tensor, which casts matmul weights and biases to the compute dtype
+once (the JAX package casts them per call); the leaves the port reads in
+float32 (``lambda``, Mamba's ``x_proj, dt_proj, dt_bias, a_log, d_skip``,
+an MoE's ``router``, the norm scales and biases, the embedding and
+``lm_head``) stay float32.
 
 A model built with ``train=True`` keeps every leaf float32, as the JAX
 package's masters.  The way back: ``to_jax_params`` rebuilds the JAX tree
@@ -33,7 +36,7 @@ parameter (gradients, the optimizer's moments) in that layout, and
 ``from_jax_tree`` takes them out again; ``layout`` says where each port
 parameter sits in it, and ``decay_mask`` what the JAX package's AdamW
 decays there (a leaf of rank 2 or more — so every stacked 1-D norm scale,
-bias and vector, but not a tail layer's).
+bias and vector, but not a tail layer's; every expert bank and router).
 
 An LSTM layer (``repro.models.recurrent.init_lstm_layer``) is a tree of its
 own, ``w_x`` (Din, 4H), ``w_h`` (H, 4H) and ``b`` (4H,): ``lstm_from_jax``
@@ -102,9 +105,17 @@ def _copy_norm(mod, name: str, node: dict, where: str) -> None:
 
 
 def _copy_dict(mod, node: dict, where: str) -> None:
+    """A ``ParameterDict`` from a dict of leaves, a nested one (an MoE's
+    ``shared`` expert) from the nested dict."""
     _keys(node, mod.keys(), where)
     for name, p in mod.items():
-        _copy(p, node[name], f"{where}.{name}")
+        if isinstance(p, torch.nn.ParameterDict):
+            if not isinstance(node[name], dict):
+                raise ValueError(f"{where}.{name}: JAX leaf where the port "
+                                 f"expects a dict")
+            _copy_dict(p, node[name], f"{where}.{name}")
+        else:
+            _copy(p, node[name], f"{where}.{name}")
 
 
 def _copy_block(blk, lt: dict, where: str) -> None:
@@ -176,8 +187,19 @@ def _block_leaves(blk, prefix: str, path: tuple,
     for norm in blk.NORMS:
         out += _norm_leaves(blk, norm, prefix, path, index)
     for part in blk.PARTS:
-        out += [Leaf(f"{prefix}{part}.{key}", path + (part, key), index)
-                for key in getattr(blk, part).keys()]
+        out += _dict_leaves(getattr(blk, part), f"{prefix}{part}.",
+                            path + (part,), index)
+    return out
+
+
+def _dict_leaves(mod, prefix: str, path: tuple,
+                 index: int | None) -> list[Leaf]:
+    out = []
+    for key, p in mod.items():
+        if isinstance(p, torch.nn.ParameterDict):
+            out += _dict_leaves(p, f"{prefix}{key}.", path + (key,), index)
+        else:
+            out.append(Leaf(prefix + key, path + (key,), index))
     return out
 
 
@@ -194,8 +216,7 @@ def layout(model: Model) -> list[Leaf]:
     if model.lm_head is not None:
         out.append(Leaf("lm_head", ("lm_head",), None))
     if model.mm_proj is not None:
-        out += [Leaf(f"mm_proj.{k}", ("mm_proj", k), None)
-                for k in model.mm_proj.keys()]
+        out += _dict_leaves(model.mm_proj, "mm_proj.", ("mm_proj",), None)
     for i, blk in enumerate(model.layers):
         if i < grouped:
             path, index = ("groups", str(i % pat)), i // pat

@@ -73,19 +73,24 @@ def scatter_paged(pool: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
 def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
                            new_v: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
-                           lengths: torch.Tensor):
+                           lengths: torch.Tensor,
+                           write_mask: torch.Tensor | None = None):
     """One-token paged attention (``repro.kernels.paged_attention.ops``).
 
     q/new_k/new_v: (B,1,H|KVH,hd); pools (N,bs,KVH,hd); block_table (B,nb)
     — entries >= N mean "no block": writes through them drop, reads clamp
     and are masked by ``lengths``; lengths (B,) tokens already cached.
     Writes each slot's new K/V at position ``lengths[b]`` (in place), attends
-    over positions 0..lengths[b], returns (out (B,1,H,hd), k_pool, v_pool)."""
+    over positions 0..lengths[b], returns (out (B,1,H,hd), k_pool, v_pool).
+    ``write_mask`` (B,) bool: rows with False drop their write and still
+    attend through their table, as the JAX package's masked rows do."""
     refuse_autograd("paged_decode_attention", q, new_k, new_v, k_pool,
                     v_pool)
     n, bs = k_pool.shape[0], k_pool.shape[1]
     lengths = lengths.long()
     blk = table_lookup(block_table, lengths // bs, n)
+    if write_mask is not None:
+        blk = torch.where(write_mask, blk, torch.full_like(blk, n))
     off = lengths % bs
     scatter_paged(k_pool, blk, off, new_k[:, 0])
     scatter_paged(v_pool, blk, off, new_v[:, 0])

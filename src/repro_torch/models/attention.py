@@ -322,14 +322,13 @@ def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
 
     q/new_k/new_v: (B,1,H|KVH,hd).  Writes the new K/V at logical position
     ``length[b]`` and attends over positions 0..length[b].  Rows with
-    ``write_mask`` False get an all-sentinel table row, so their write drops
-    and their length stays; their output is meaningless (every caller
-    discards it).  Returns (out (B,1,H,hd), cache)."""
-    if write_mask is not None:
-        block_table = torch.where(write_mask[:, None], block_table,
-                                  cache.k.shape[0])
+    ``write_mask`` False drop their write and keep their length, and attend
+    through their table row as the JAX package's do: their output is
+    discarded, but an MoE feed-forward routes it beside the live rows, so
+    it must be the reference's.  Returns (out (B,1,H,hd), cache)."""
     out, _, _ = paged_ops.paged_decode_attention(
-        q, new_k, new_v, cache.k, cache.v, block_table, cache.length)
+        q, new_k, new_v, cache.k, cache.v, block_table, cache.length,
+        write_mask=write_mask)
     inc = 1 if write_mask is None else write_mask.to(torch.int32)
     return out, cache._replace(length=cache.length + inc)
 

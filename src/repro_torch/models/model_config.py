@@ -5,6 +5,9 @@ from the JAX package).  The JAX package's execution knobs (remat, scan
 unrolling, flash block size, and the ``*_impl`` kernel-variant switches) are
 left out: the port has no tracer to unroll for, and its kernel wrappers pick
 the kernel or the plain version from the device of the tensors they get.
+``moe_impl`` stays: it picks a function, not a kernel variant — the
+``ragged`` route never drops a token, the two capacity routes do
+(``models/moe.py``).
 ``scan_chunk`` stays: it bounds a recurrent cluster's prefill chunk in the
 placement oracle (``serve/placement.py``), and it is the chunk of
 ``chunked_linear_scan``, the recurrences' differentiable route in training
@@ -41,6 +44,7 @@ class ArchConfig:
     top_k: int = 0
     moe_shared_expert: bool = False
     moe_capacity: float = 1.25
+    moe_impl: str = "einsum"          # einsum | scatter | ragged (see moe.py)
     # recurrent dims
     rglru_gate_blocks: int = 0        # 0 = dense gates; >0 = block-diagonal
     d_rnn: int = 0                    # RG-LRU width

@@ -9,8 +9,10 @@ decoder's ``dec`` blocks cross-attend to — seamless-m4t-medium.  Norms are
 RMSNorm or LayerNorm (``cfg.norm``); the unembedding is tied to the
 embedding or an untied ``lm_head``; a model with ``modality_tokens``
 carries the ``mm_proj`` stub that projects precomputed patch embeddings
-into tokens prepended to the text.  An MoE feed-forward raises
-``NotImplementedError`` until its slice lands.
+into tokens prepended to the text.  Stacks of ``attn`` and ``local``
+blocks may take a top-k routed mixture-of-experts feed-forward instead
+(``models/moe.py``) — phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e — whose
+load-balance term ``loss`` adds as the JAX package's does.
 
 The PyTorch counterpart of ``repro.models.transformer.Model``, with the
 weights held by the module instead of passed as a pytree, and the layers in
@@ -55,6 +57,7 @@ from torch import nn
 
 from ..device import resolve_device
 from . import attention as attn_lib
+from . import moe as moe_lib
 from . import recurrent as rec_lib
 from .common import (cross_entropy_loss, embed_scaled, fan_in_std, gelu,
                      layer_norm, rms_norm, torch_dtype, unembed)
@@ -69,24 +72,26 @@ FFNS = {"glu": glu_ffn, "mlp": mlp_ffn}
 
 def _check_supported(cfg: ArchConfig) -> None:
     """Stacks of attn/local/rec/dec blocks take a GLU or plain-MLP
-    feed-forward; a stack of ``ssm`` blocks has none (``ffn_kind ==
-    "none"``), and only it.  ``dec`` blocks cross-attend to an encoder's
-    memory, so they need ``enc_layers``; an encoder's ``enc`` blocks take
-    the feed-forward too.  Either norm, tied or untied heads and the
-    modality stub go with any of them."""
+    feed-forward, and decoder-only stacks of attn/local blocks also an MoE
+    one; a stack of ``ssm`` blocks has none (``ffn_kind == "none"``), and
+    only it.  ``dec`` blocks cross-attend to an encoder's memory, so they
+    need ``enc_layers``; an encoder's ``enc`` blocks take the (GLU or MLP)
+    feed-forward too.  Either norm, tied or untied heads and the modality
+    stub go with any of them."""
     kinds = set(cfg.layer_kinds)
     stack_ok = kinds == {"ssm"} and cfg.ffn_kind == "none" \
-        or "ssm" not in kinds and cfg.ffn_kind in FFNS
+        or "ssm" not in kinds and cfg.ffn_kind in FFNS \
+        or cfg.ffn_kind == "moe" and kinds <= {"attn", "local"}
     enc_ok = cfg.ffn_kind in FFNS if cfg.is_encdec else "dec" not in kinds
     if not kinds <= set(SUPPORTED_KINDS) or not stack_ok or not enc_ok \
             or cfg.norm not in ("rms", "layer"):
         raise NotImplementedError(
             f"{cfg.name}: the port runs stacks of attn, local, rec and dec "
             f"blocks with a GLU or MLP feed-forward (dec blocks behind an "
-            f"encoder), or of ssm blocks with none; block kinds "
+            f"encoder), decoder-only stacks of attn and local blocks with an "
+            f"MoE one, or of ssm blocks with none; block kinds "
             f"{sorted(kinds)}, ffn {cfg.ffn_kind!r}, norm {cfg.norm!r} and "
-            f"{cfg.enc_layers} encoder layers are not ported (MoE comes in "
-            f"a later slice)")
+            f"{cfg.enc_layers} encoder layers are not ported")
 
 
 def _weight(*shape, dtype, device, train: bool = False) -> nn.Parameter:
@@ -156,16 +161,31 @@ class BlockState(NamedTuple):
 def _ffn_params(cfg: ArchConfig, cd: torch.dtype, device: torch.device,
                 train: bool) -> nn.ParameterDict:
     """The GLU's three matrices, or the plain MLP's two with their biases,
-    all in the compute dtype."""
+    all in the compute dtype; or the MoE's float32 ``router`` (D, E), its
+    expert banks ``w_gate`` / ``w_up`` (E, D, F) and ``w_down`` (E, F, D)
+    in the compute dtype, and, with ``moe_shared_expert``, the ``shared``
+    GLU nested inside."""
     d, f = cfg.d_model, cfg.d_ff
+    glu = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+
+    def weights(shapes: dict) -> nn.ParameterDict:
+        return nn.ParameterDict({
+            name: _weight(*shape, dtype=cd, device=device, train=train)
+            for name, shape in shapes.items()})
+
     if cfg.ffn_kind == "glu":
-        shapes = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
-    else:
-        shapes = {"w_in": (d, f), "b_in": (f,), "w_out": (f, d),
-                  "b_out": (d,)}
-    return nn.ParameterDict({
-        name: _weight(*shape, dtype=cd, device=device, train=train)
-        for name, shape in shapes.items()})
+        return weights(glu)
+    if cfg.ffn_kind == "mlp":
+        return weights({"w_in": (d, f), "b_in": (f,), "w_out": (f, d),
+                        "b_out": (d,)})
+    e = cfg.num_experts
+    params = nn.ParameterDict({"router": _weight(
+        d, e, dtype=torch.float32, device=device, train=train)})
+    params.update(weights({"w_gate": (e, d, f), "w_up": (e, d, f),
+                           "w_down": (e, f, d)}))
+    if cfg.moe_shared_expert:
+        params["shared"] = weights(glu)
+    return params
 
 
 def _attn_params(cfg: ArchConfig, cd: torch.dtype, device: torch.device,
@@ -188,9 +208,19 @@ def _attn_params(cfg: ArchConfig, cd: torch.dtype, device: torch.device,
     return params
 
 
-def _ffn(cfg: ArchConfig, params: nn.ParameterDict,
-         x: torch.Tensor) -> torch.Tensor:
-    return FFNS[cfg.ffn_kind](params, x, cfg.activation)
+def _ffn(cfg: ArchConfig, params: nn.ParameterDict, x: torch.Tensor,
+         mode: str):
+    """The feed-forward's output and, for an MoE in train mode, its
+    load-balance term (None otherwise: serving has no use for it)."""
+    if cfg.ffn_kind != "moe":
+        return FFNS[cfg.ffn_kind](params, x, cfg.activation), None
+    out = moe_lib.moe_ffn(params, x, top_k=cfg.top_k,
+                          capacity_factor=cfg.moe_capacity,
+                          activation=cfg.activation,
+                          return_aux=mode == "train", impl=cfg.moe_impl)
+    if mode != "train":
+        return out, None
+    return out[0], out[1]["load_balance"]
 
 
 class AttnBlock(_Block):
@@ -243,7 +273,8 @@ class AttnBlock(_Block):
         ``kind`` in attn/local/enc/dec).  mode: train|prefill|decode.  In
         decode a 0/1 ``length`` is the activity mask.  ``memory``: the
         encoder's output, which a ``dec`` block attends to.  Returns (x,
-        new_state)."""
+        new_state, load_balance): the last an MoE's float32 term in train
+        mode, else None."""
         window = cfg.window if self.kind == "local" else 0
         h = self._normed(cfg, "ln1", x)
         q, k, v = attn_lib.qkv_project(
@@ -277,8 +308,8 @@ class AttnBlock(_Block):
         o = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
         x = x + torch.matmul(o, self.attn["wo"].to(x.dtype))
         x = self._cross(cfg, x, positions, memory, mode)
-        x = x + _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x))
-        return x, None if state is None else state._replace(kv=kv)
+        y, lb = _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x), mode)
+        return x + y, None if state is None else state._replace(kv=kv), lb
 
 
 class DecBlock(AttnBlock):
@@ -354,7 +385,8 @@ class RecBlock(_Block):
                 memory: torch.Tensor | None = None):
         """``apply_block`` for ``kind == "rec"``: in prefill the state
         resumes from the carry (zeroed where offset == 0); in decode a 0/1
-        ``length`` freezes conv and h of rows with 0."""
+        ``length`` freezes conv and h of rows with 0.  Returns (x,
+        new_state, None)."""
         h = self._normed(cfg, "ln1", x)
         if mode == "train":
             chunk = cfg.scan_chunk if _differentiable(mode) else None
@@ -365,8 +397,8 @@ class RecBlock(_Block):
                 length=length)
             state = state._replace(rec=rec)
         x = x + y
-        x = x + _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x))
-        return x, state
+        y, _ = _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x), mode)
+        return x + y, state, None
 
 
 class SsmBlock(_Block):
@@ -401,7 +433,8 @@ class SsmBlock(_Block):
                 memory: torch.Tensor | None = None):
         """``apply_block`` for ``kind == "ssm"``: in prefill the state
         resumes from the carry (zeroed where offset == 0); in decode a 0/1
-        ``length`` freezes conv and h of rows with 0."""
+        ``length`` freezes conv and h of rows with 0.  Returns (x,
+        new_state, None)."""
         h = self._normed(cfg, "ln1", x)
         kw = dict(d_state=cfg.d_state, dt_rank=self.dt_rank)
         if mode == "train":
@@ -412,7 +445,7 @@ class SsmBlock(_Block):
                 self.ssm, h, state=_resume_rec(state.rec, offset),
                 length=length, **kw)
             state = state._replace(rec=rec)
-        return x + y, state
+        return x + y, state, None
 
 
 def _resume_rec(rec: dict | None,
@@ -454,6 +487,21 @@ def _fill_cache(cache: attn_lib.KVCache, k: torch.Tensor, v: torch.Tensor,
     cache.v[:, :s] = v
     new_len = cache.length + (s if length is None else length)
     return cache._replace(length=new_len.to(torch.int32))
+
+
+def _init_tree(tree: nn.ParameterDict, normal) -> None:
+    """A block part's leaves as the JAX package draws them: the matrices
+    (``w*``) and an MoE's ``router`` normal with std 1/sqrt(shape[0]) — an
+    (E, D, F) expert bank draws 1/sqrt(E), as the reference's
+    ``fan_in_init`` — biases zero, a nested tree (the shared expert)
+    alike."""
+    for name, p in tree.items():
+        if isinstance(p, nn.ParameterDict):
+            _init_tree(p, normal)
+        elif name.startswith("w") or name == "router":
+            normal(p, fan_in_std(tuple(p.shape)))
+        else:
+            p.zero_()
 
 
 class Model(nn.Module):
@@ -525,11 +573,7 @@ class Model(nn.Module):
             else:
                 trees = [getattr(blk, part) for part in blk.PARTS]
             for tree in trees:
-                for name, p in tree.items():
-                    if name.startswith("w"):
-                        normal(p, fan_in_std(tuple(p.shape)))
-                    else:
-                        p.zero_()
+                _init_tree(tree, normal)
         return self
 
     # -------------------------------------------------------------- backbone
@@ -560,16 +604,14 @@ class Model(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[:2])
         for blk in self.encoder:
-            x, _ = blk(self.cfg, x, positions)
+            x, _, _ = blk(self.cfg, x, positions)
         return _norm(self.cfg, x, self.enc_norm, self.enc_norm_bias)
 
-    def train_forward(self, tokens: torch.Tensor,
-                      modality: torch.Tensor | None = None,
-                      src_embeds: torch.Tensor | None = None) -> torch.Tensor:
-        """Full-sequence logits: (B,S) -> (B,S,V) float32, through the
-        differentiable routes while autograd records.  With ``modality``
-        the projected modality tokens go first and their logits are
-        dropped; an encoder-decoder needs ``src_embeds`` (B,Sm,D)."""
+    def _forward(self, tokens: torch.Tensor,
+                 modality: torch.Tensor | None = None,
+                 src_embeds: torch.Tensor | None = None):
+        """``train_forward``'s logits and the load-balance terms summed
+        over the layers (None without an MoE feed-forward)."""
         memory = None
         if self.cfg.is_encdec:
             if src_embeds is None:
@@ -579,12 +621,24 @@ class Model(nn.Module):
         x = self._embed(tokens, modality)
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[:2])
+        lb_total = None
         for blk in self.layers:
-            x, _ = blk(self.cfg, x, positions, memory=memory)
+            x, _, lb = blk(self.cfg, x, positions, memory=memory)
+            if lb is not None:
+                lb_total = lb if lb_total is None else lb_total + lb
         logits = self._logits(x)
         if modality is not None and self.mm_proj is not None:
             logits = logits[:, modality.shape[1]:]
-        return logits
+        return logits, lb_total
+
+    def train_forward(self, tokens: torch.Tensor,
+                      modality: torch.Tensor | None = None,
+                      src_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Full-sequence logits: (B,S) -> (B,S,V) float32, through the
+        differentiable routes while autograd records.  With ``modality``
+        the projected modality tokens go first and their logits are
+        dropped; an encoder-decoder needs ``src_embeds`` (B,Sm,D)."""
+        return self._forward(tokens, modality, src_embeds)[0]
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
@@ -598,11 +652,19 @@ class Model(nn.Module):
         """Next-token cross-entropy of ``batch`` (``tokens``, ``labels``
         and optional ``mask``, ``modality``, ``src_embeds``), as
         ``repro.models.transformer.Model.loss``: returns (loss, {"ce_loss",
-        "loss"}), under the caller's autograd mode."""
-        logits = self.train_forward(batch["tokens"], batch.get("modality"),
-                                    batch.get("src_embeds"))
+        "loss"}), under the caller's autograd mode.  An MoE model adds
+        ``0.01`` times its load-balance term, averaged over the layers,
+        and reports that average as ``load_balance``."""
+        logits, lb = self._forward(batch["tokens"], batch.get("modality"),
+                                   batch.get("src_embeds"))
         loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
-        return loss, {"ce_loss": loss, "loss": loss}
+        metrics = {"ce_loss": loss}
+        if lb is not None:
+            lb = lb / max(self.cfg.num_layers, 1)
+            loss = loss + 0.01 * lb
+            metrics["load_balance"] = lb
+        metrics["loss"] = loss
+        return loss, metrics
 
     # ----------------------------------------------------------- serving path
     def init_block_state(self, i: int, batch: int,
@@ -666,9 +728,9 @@ class Model(nn.Module):
              block_table=None):
         new_states = []
         for blk, st in zip(self.layers, states):
-            x, st = blk(self.cfg, x, positions, mode=mode, state=st,
-                        length=length, offset=offset,
-                        block_table=block_table)
+            x, st, _ = blk(self.cfg, x, positions, mode=mode, state=st,
+                           length=length, offset=offset,
+                           block_table=block_table)
             new_states.append(st)
         return x, new_states
 

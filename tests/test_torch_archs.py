@@ -12,9 +12,10 @@ the ``mm_proj`` modality stub).
   where a dropped bias would go unseen);
 - greedy tokens of the port's engine equal the JAX engine's, paged and
   dense;
-- chunked prefill equals one-shot inside the port, and both packages
-  refuse it for the modality model;
-- the placement plan equals the JAX plan.
+- chunked prefill equals one-shot inside the port (the two MoE archs
+  too), and both packages refuse it for the modality model;
+- the placement plan equals the JAX plan (the two MoE archs too: their
+  MoE layers' cluster included).
 """
 import pytest
 
@@ -42,6 +43,9 @@ from test_torch_placement import (PLAN_FIELDS,  # noqa: E402
                                   POLICY_FIELDS)
 
 ARCHS = ("qwen2-0.5b", "smollm-135m", "starcoder2-7b", "internvl2-2b")
+#: the MoE archs (``tests/test_torch_moe.py``): chunked prefill at the
+#: reduced capacity, where nothing drops, and the plan
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
 VLM = "internvl2-2b"
 MAX_LEN, BS = 64, 8
 #: weight gain by compute dtype: float32 takes the tripled "lively" weights
@@ -246,10 +250,12 @@ def test_vlm_prefill_with_modality_matches_jax():
     assert ts[0].kv.length.tolist() == [20, 20]      # 8 modality + 12
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_chunked_prefill_equals_one_shot(arch):
     """Inside the port, paged: a 21-token prompt in chunks of 8 leaves the
-    last logits and the pool where one-shot prefill leaves them.  The
+    last logits and the pool where one-shot prefill leaves them (an MoE at
+    its reduced capacity, which drops nothing: under drops a chunk's
+    capacity differs from the whole prompt's, in the reference too).  The
     modality model refuses chunked prefill, as the JAX one does."""
     jm, jp, tree = arch_params(arch)
     tm = _port(arch, tree)
@@ -347,7 +353,7 @@ def test_engine_matches_jax_engine(arch, paged):
 
 
 # ------------------------------------------------------------- placement
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_plan_matches_reference_at_the_serving_geometry(arch):
     """The card's plan for the full-size arch at phase 6's geometry equals
     the JAX plan field for field, but for the kernel labels, which name the

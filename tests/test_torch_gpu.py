@@ -96,7 +96,10 @@ def cuda():
     (4, 16, 14, 2, 64, 0), (2, 64, 14, 2, 64, 0), (1, 256, 14, 2, 64, 0),
     (4, 16, 9, 3, 64, 0), (2, 128, 9, 3, 64, 0), (1, 256, 9, 3, 64, 0),
     (4, 32, 36, 4, 128, 0), (1, 256, 36, 4, 128, 0),
-    (2, 100, 14, 2, 64, 0), (2, 100, 36, 4, 128, 0)])   # ragged
+    (2, 100, 14, 2, 64, 0), (2, 100, 36, 4, 128, 0),    # ragged
+    # phi3.5-moe (group 4) and llama4-scout (group 5) at hd 128
+    (4, 16, 32, 8, 128, 0), (2, 64, 32, 8, 128, 0), (1, 256, 32, 8, 128, 0),
+    (2, 100, 32, 8, 128, 0), (2, 64, 40, 8, 128, 0), (1, 256, 40, 8, 128, 0)])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, b, s, h, kvh,
                                             hd, window):
     gen = torch.Generator(device=cuda).manual_seed(s + hd)
@@ -244,6 +247,7 @@ def test_paged_kernel_matches_plain_at_every_width_on_card(cuda, dtype, hd,
     (10, 1, 16),        # recurrentgemma's MQA: group 10
     (18, 2, 16),        # group 9: a CTA spans one of two kv heads
     (40, 8, 16),        # llama4-scout: group 5, three kv heads a CTA
+    (32, 8, 16),        # phi3.5-moe: group 4
     (32, 1, 16),        # a group wider than a CTA's q heads
     (16, 8, 8),         # the reduced configs' block size
     (16, 8, 48)])       # a block larger than a stage, not a power of two
@@ -1064,3 +1068,95 @@ def suitcase_round_trip(arch, kv_block_size, device):
 @pytest.mark.parametrize("arch,kv_block_size", DISAGG_ARCHS)
 def test_suitcase_round_trip_on_card(cuda, arch, kv_block_size):
     suitcase_round_trip(arch, kv_block_size, cuda)
+
+
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
+#: float32 routing, the CPU against the card: a top-k may flip only
+#: between experts whose CPU probabilities lie this close
+ROUTE_MARGIN = 1e-5
+#: a full-width expert layer's float32 output, the card against the CPU,
+#: as a share of its largest entry (sums of 4096-8192 products in other
+#: orders; the output reaches ~1e4 with the banks' 1/sqrt(E) init)
+MOE_SHARE = 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [None, 1.25], ids=["nodrop", "cap1.25"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_reduced_moe_serves_with_its_launch_counts_on_card(cuda, arch, cap):
+    """Reduced MoE, float32, paged blocks of 8, the auto plan: one flash
+    launch a layer and prefill call, one paged launch a layer and decode
+    step; a second engine on the same model serves the same tokens (at
+    capacity 1.25 the dead slots and padding rows take expert places)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request
+    kw = {} if cap is None else dict(moe_capacity=cap)
+    cfg = reduced_config(arch).replace(compute_dtype="float32", **kw)
+    model = build_model(cfg, device=cuda, seed=0)
+
+    def serve():
+        eng = build_engine(cfg, model, slots=3, max_len=128, max_bucket=32,
+                           kv_block_size=8)
+        rng = np.random.RandomState(2)
+        reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size,
+                                                  n).tolist(),
+                        max_new_tokens=6,
+                        **(dict(temperature=0.8, top_k=20, seed=5)
+                           if i == 2 else {}))
+                for i, n in enumerate((5, 70, 20, 9))]
+        before = (fa.launches.n, pa.launches.n)
+        eng.run(reqs, on_truncate="raise")
+        s = eng.stats.summary()
+        assert s["requests_completed"] == 4 and s["nonfinite_logits"] == 0
+        assert fa.launches.n - before[0] \
+            == cfg.num_layers * s["prefill_calls"]
+        assert pa.launches.n - before[1] \
+            == cfg.num_layers * s["decode_steps"]
+        return [r.generated for r in reqs]
+
+    first = serve()
+    assert all(0 <= t < cfg.vocab_size for g in first for t in g)
+    assert serve() == first
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_full_width_moe_layer_matches_cpu_on_card(cuda, arch):
+    """One full-width expert layer (``moe_ffn``, the einsum route at the
+    config's capacity 1.25, 128 tokens: drops happen), float32, the same
+    weights on the CPU and the card: the routing agrees (a flip only at a
+    near-tie, within ``ROUTE_MARGIN``), and where it does the output lies
+    within ``MOE_SHARE`` of the CPU's scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f),
+              "w_down": (e, f, d)}
+    cpu = {k: torch.randn(sh, generator=gen) / sh[0] ** 0.5
+           for k, sh in shapes.items()}
+    if cfg.moe_shared_expert:
+        cpu["shared"] = {k: torch.randn(sh, generator=gen) / sh[0] ** 0.5
+                         for k, sh in (("w_gate", (d, f)), ("w_up", (d, f)),
+                                       ("w_down", (f, d)))}
+    card = {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+                if isinstance(v, dict) else v.to(cuda))
+            for k, v in cpu.items()}
+    x = torch.randn((2, 64, d), generator=gen)
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.moe_capacity,
+              activation=cfg.activation, return_aux=True)
+    want, want_aux = moe.moe_ffn(cpu, x, **kw)
+    got, aux = moe.moe_ffn(card, x.to(cuda), **kw)
+    flips = moe.routing_flips(
+        moe.routing(cpu, x.reshape(-1, d), cfg.top_k, cfg.moe_capacity),
+        moe.routing(card, x.to(cuda).reshape(-1, d), cfg.top_k,
+                    cfg.moe_capacity), ROUTE_MARGIN)
+    assert not flips["unexplained"], flips
+    assert float(want_aux["dropped_frac"]) > 0
+    if not flips["gate"] and not flips["keep"]:
+        assert float(aux["dropped_frac"]) == float(want_aux["dropped_frac"])
+        tol = MOE_SHARE * float(want.abs().max())
+        assert (got.cpu() - want).abs().max().item() <= tol

@@ -257,13 +257,27 @@ def test_other_block_kinds_raise(arch):
         bad = [cfg.replace(ffn_kind="glu", d_ff=128),
                cfg.replace(block_pattern=("ssm", "attn"))]
     if arch == "starcoder2-7b":
-        # its LayerNorm and MLP are ported, and an encoder in front of it
-        # builds (tests/test_torch_train.py): an MoE feed-forward, an enc
+        # its LayerNorm and MLP are ported, an encoder in front of it
+        # builds (tests/test_torch_train.py), and so does an MoE
+        # feed-forward on its attn stack: an MoE behind an encoder, an enc
         # block inside the decoder stack and a dec block with no encoder
         # to attend to must raise
-        bad = [cfg.replace(ffn_kind="moe", num_experts=4, top_k=2),
+        build_model(cfg.replace(ffn_kind="moe", num_experts=4, top_k=2),
+                    device="cpu")
+        bad = [cfg.replace(ffn_kind="moe", num_experts=4, top_k=2,
+                           block_pattern=("dec",), enc_layers=2),
                cfg.replace(block_pattern=("attn", "enc")),
                cfg.replace(block_pattern=("attn", "dec"))]
+    if arch == "phi3.5-moe-42b-a6.6b":
+        # its MoE feed-forward is ported on attn stacks: an MoE on a stack
+        # with ssm (or rec) blocks, and in an encoder-decoder, must raise
+        build_model(cfg, device="cpu")
+        bad = [cfg.replace(block_pattern=("ssm",), d_inner=128, d_state=4,
+                           dt_rank=8),
+               cfg.replace(block_pattern=("attn", "ssm"), d_inner=128,
+                           d_state=4, dt_rank=8),
+               cfg.replace(block_pattern=("rec", "attn"), d_rnn=64),
+               cfg.replace(block_pattern=("dec",), enc_layers=2)]
     for c in bad:
         with pytest.raises(NotImplementedError):
             build_model(c, device="cpu")

@@ -7,9 +7,10 @@ and the same batches from the copied pipeline.
   non-causal at Sq != Skv, several KV blocks) and ``chunked_linear_scan``
   against the JAX functions, values and gradients;
 - ``Model.loss`` and every gradient leaf against ``jax.value_and_grad``
-  for the eight non-MoE archs, with a mask and without (internvl2-2b with
-  ``modality``, seamless-m4t-medium with ``src_embeds``), and starcoder2-7b
-  with an encoder in front.
+  for all ten archs, with a mask and without (internvl2-2b with
+  ``modality``, seamless-m4t-medium with ``src_embeds``; the two MoE archs
+  with their load-balance term, the router's gradient among the leaves),
+  and starcoder2-7b with an encoder in front.
 
 The optimizer, the step, the pipeline, checkpoints and ``train_once`` are in
 ``tests/test_torch_trainer.py``, which shares this file's helpers.
@@ -34,10 +35,13 @@ from repro_torch.models.attention import flash_attention_xla  # noqa: E402
 from repro_torch.models.common import cross_entropy_loss  # noqa: E402
 from repro_torch.models.recurrent import chunked_linear_scan  # noqa: E402
 
-#: the eight archs with a port path (MoE waits for its slice)
+#: every arch of ``configs.archs.ARCHS``
 ARCHS = ("qwen3-0.6b", "qwen2-0.5b", "smollm-135m", "starcoder2-7b",
          "internvl2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
-         "seamless-m4t-medium")
+         "seamless-m4t-medium", "phi3.5-moe-42b-a6.6b",
+         "llama4-scout-17b-a16e")
+#: the archs whose loss adds an MoE load-balance term
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
 B, S = 2, 24
 #: float32 losses of the two frameworks (|loss| ~6-7): sums over the vocab
 #: and the batch in other orders (they part by at most 1.4e-7 relative)
@@ -210,10 +214,13 @@ def _loss_and_grads(arch: str, mask: bool, s: int = S, **kw):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_every_gradient_leaf_match_jax(arch, mask):
     (want, wm), want_g, (loss, metrics), grads = _loss_and_grads(arch, mask)
-    assert set(metrics) == set(wm) == {"ce_loss", "loss"}
+    keys = {"ce_loss", "loss"} | ({"load_balance"} if arch in MOE_ARCHS
+                                  else set())
+    assert set(metrics) == set(wm) == keys
     np.testing.assert_allclose(float(loss), float(want), rtol=LOSS_RTOL)
-    np.testing.assert_allclose(float(metrics["ce_loss"]),
-                               float(wm["ce_loss"]), rtol=LOSS_RTOL)
+    for key in keys - {"loss"}:
+        np.testing.assert_allclose(float(metrics[key]), float(wm[key]),
+                                   rtol=LOSS_RTOL, err_msg=key)
     _assert_trees(grads, want_g, what=f"{arch} grad")
 
 

@@ -4,9 +4,11 @@ functions, the loss and the gradients are in ``tests/test_torch_train.py``,
 whose helpers this file shares):
 
 - the optimizer's functions and schedules, the weight-decay mask on the
-  JAX layout (stacked and tail leaves of reduced recurrentgemma), and three
+  JAX layout (stacked and tail leaves of reduced recurrentgemma; the MoE
+  archs' routers, banks and nested shared expert), and three
   ``make_train_step`` steps with accum 1 and 2 against the JAX step;
-- the copied pipeline and watchdog, checkpoints in both directions, and
+- the copied pipeline and watchdog, checkpoints in both directions (qwen3
+  and the two MoE archs), and
   ``train_once``: resume after an injected failure is bit for bit, and its
   losses follow the JAX ``train_once``'s from the same weights; the CLI
   runs, on the card unless told otherwise.
@@ -41,8 +43,9 @@ from repro_torch.launch.train import state_tree, train_once  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
 from repro_torch.train.trainer import make_train_step  # noqa: E402
 
-from test_torch_train import (LOSS_RTOL, _assert_trees,  # noqa: E402
-                              _batch, _cfgs, _flat, _init, _np, _torch)
+from test_torch_train import (LOSS_RTOL, MOE_ARCHS,  # noqa: E402
+                              _assert_trees, _batch, _cfgs, _flat, _init,
+                              _np, _torch)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -137,7 +140,29 @@ def test_decay_mask_follows_the_jax_leaf_rank():
     group and a 2-layer tail): the group's per-layer vectors (norm scales,
     ``lambda``) are matrices in the JAX tree and decay; the tail's and
     ``final_norm``'s stay vectors and do not."""
-    jm, tree, tcfg = _init("recurrentgemma-2b")
+    want = _decay_mask_and_update("recurrentgemma-2b")
+    assert want["['groups']['0']['rec']['lambda']"]
+    assert not want["['tail'][0]['rec']['lambda']"]
+    assert not want["['final_norm']['scale']"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decay_mask_follows_the_jax_leaf_rank(arch):
+    """The MoE trees: the router, the expert banks and the nested shared
+    expert decay (rank 3 and 4 stacked), the stacked norm scales too."""
+    want = _decay_mask_and_update(arch)
+    ffn = "['groups']['0']['ffn']"
+    assert want[f"{ffn}['router']"] and want[f"{ffn}['w_down']"]
+    if "shared" in _init(arch)[1]["groups"]["0"]["ffn"]:
+        assert want[f"{ffn}['shared']['w_gate']"]
+    assert not want["['final_norm']['scale']"]
+
+
+def _decay_mask_and_update(arch: str) -> dict:
+    """The port's decay mask on the JAX layout equals the JAX AdamW's rule
+    (rank >= 2), and one update of the whole tree equals the JAX update;
+    returns the rule's mask by keystr."""
+    jm, tree, tcfg = _init(arch)
     tm = from_jax_params(tree, tcfg, "cpu", train=True)
     mask = decay_mask(tm)
     got = _flat(to_jax_tree(tm, {n: torch.full(p.shape, float(mask[n]))
@@ -146,9 +171,6 @@ def test_decay_mask_follows_the_jax_leaf_rank():
     assert set(got) == set(want)
     for k, v in got.items():
         assert bool(v.all()) == want[k] and bool(v.any()) == want[k], k
-    assert want["['groups']['0']['rec']['lambda']"]
-    assert not want["['tail'][0]['rec']['lambda']"]
-    assert not want["['final_norm']['scale']"]
     # and the update on the whole tree is the JAX update
     grads = jax.tree.map(
         lambda a: np.random.RandomState(a.size % 97).standard_normal(
@@ -164,6 +186,7 @@ def test_decay_mask_follows_the_jax_leaf_rank():
     tu, _ = optim.adamw_update(tg, optim.adamw_init(params), params,
                                lr=torch.tensor(0.01), decay=mask)
     _assert_trees(to_jax_tree(tm, tu), ju, share=1e-6, what="update")
+    return want
 
 
 # ---------------------------------------------------------------- the step
@@ -331,7 +354,28 @@ def test_a_jax_checkpoint_resumes_in_the_port_and_back(tmp_path):
     """JAX trains a step and saves; the port restores it and takes the
     next step, which equals the JAX step; the port saves, JAX restores
     the port's checkpoint leaf for leaf (bf16 included)."""
-    arch = "qwen3-0.6b"
+    _resume_across(tmp_path, "qwen3-0.6b")
+    # a bf16 leaf written by the port reads back in JAX as bf16
+    ckpt.save(tmp_path / "bf16", 1, {"x": torch.arange(
+        4, dtype=torch.bfloat16) / 3})
+    got = ref_ckpt.restore(tmp_path / "bf16", 1, {"x": jax.ShapeDtypeStruct(
+        (4,), jnp.bfloat16)})
+    assert got["x"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(got["x"], np.float32),
+                                  (torch.arange(4, dtype=torch.bfloat16)
+                                   / 3).float().numpy())
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_a_jax_checkpoint_of_an_moe_resumes_in_the_port_and_back(tmp_path,
+                                                                 arch):
+    """The same round trip through the MoE trees (the router, the stacked
+    banks and the nested shared expert, with their moments); the steps
+    add the load-balance term on both sides."""
+    _resume_across(tmp_path, arch)
+
+
+def _resume_across(tmp_path, arch: str) -> None:
     jm, tree, tcfg, jstep, tm, tstep = _step_pair(arch, 1)
     jp, js = jax.tree.map(jnp.asarray, tree), ref_optim.adamw_init(tree)
     for step in range(2):
@@ -362,15 +406,6 @@ def test_a_jax_checkpoint_resumes_in_the_port_and_back(tmp_path):
     _assert_trees(bst.nu, to_jax_tree(tm, ts.nu), share=0.0, floor=0.0,
                   what="JAX-restored nu")
     assert int(bst.step) == 3
-    # a bf16 leaf written by the port reads back in JAX as bf16
-    ckpt.save(tmp_path / "bf16", 1, {"x": torch.arange(
-        4, dtype=torch.bfloat16) / 3})
-    got = ref_ckpt.restore(tmp_path / "bf16", 1, {"x": jax.ShapeDtypeStruct(
-        (4,), jnp.bfloat16)})
-    assert got["x"].dtype == jnp.bfloat16
-    np.testing.assert_array_equal(np.asarray(got["x"], np.float32),
-                                  (torch.arange(4, dtype=torch.bfloat16)
-                                   / 3).float().numpy())
 
 
 # ------------------------------------------------------------ the entry point
