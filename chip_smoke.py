@@ -77,7 +77,18 @@ Phases, one line or block of output each; any failure exits non-zero:
    pending, its launches (counted from 0 just before it) the interleaved
    run's, and, on qwen3, the prefix hit rate the interleaved run's, a
    block copied and the decode pool drained; each prints its handoff time,
-   stalls, per-role tokens/s and both runs' decode TBT p50 / p99:
+   stalls, per-role tokens/s and both runs' decode TBT p50 / p99.  After
+   each serve, and for each role of each pair, one ``[programs]`` line a
+   program that ran (the summary's ``programs`` section: its analytic
+   FLOPs and bytes, invocations, mean ms, and shares of the H100's
+   FLOP/s and bytes/s at the compute dtype), which must hold: every
+   warmed program registered; ``decode`` invocations = decode steps, the
+   ``prefill[...]`` ones summing to the prefill calls, ``chunk`` = chunks,
+   ``copy`` = copied blocks, ``export`` / ``import`` = handoffs; every
+   nonzero share in (0, 1.05].  qwen3-0.6b serves (both runs) with
+   ``program_memory=True``: its largest temp (the allocator's watermark
+   around each warmup call) must be above 0, printed beside
+   ``torch.cuda.max_memory_allocated()``:
    a. full-width qwen3-0.6b, all 28 layers: paged KV, prefix cache,
       bucketed and chunked prefill, greedy and sampled decode;
    b. full-width recurrentgemma-2b, all 26 layers: dense KV (2048-token
@@ -134,11 +145,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit
-TERA = 1e12
-PEAK_BYTES_S = 3.35 * TERA
-PEAK_FLOPS = {"bfloat16": 989.4 * TERA, "float32": 67.0 * TERA}
 
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the dense decoders served beside qwen3: their GQA groups of 7, 3 and
@@ -316,8 +322,14 @@ def time_parent(what: str, module, lib, fn, flush) -> float:
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    """The least time of the work on the card: bytes over the HBM rate or
+    operations over the peak for ``dtype`` (``repro_torch.core.h100``: the
+    published H100 SXM peaks, dense, at a 700 W limit), whichever is
+    larger, in ms, and which of the two it is."""
+    from repro_torch.core.h100 import for_dtype
+    chip = for_dtype(dtype)
+    t_bytes = nbytes / chip.hbm_bw
+    t_ops = flops / chip.peak_flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1011,6 +1023,7 @@ def lstm_kernel(gen, flush, card: str) -> dict:
     bf16, and the whole layer (Pascal GEMM + bias + recurrence, 2048 ->
     2048) beside cuDNN's ``torch.nn.LSTM`` on the same weights."""
     import torch
+    from repro_torch.core.h100 import HBM_BW
     from repro_torch.kernels.pavlov_lstm import (pavlov_lstm_raw,
                                                  pavlov_lstm_ref)
     from repro_torch.models.recurrent import init_lstm_layer, lstm_layer
@@ -1056,7 +1069,7 @@ def lstm_kernel(gen, flush, card: str) -> dict:
         nbytes = item * (b * t * 4 * hd + hd * 4 * hd + b * t * hd) \
             + 4.0 * 2 * b * hd
         bnd, by = bound_ms(nbytes, 2.0 * b * t * hd * 4 * hd, str(dtype)[6:])
-        every = 1e3 * item * t * hd * 4 * hd / PEAK_BYTES_S
+        every = 1e3 * item * t * hd * 4 * hd / HBM_BW
         say(f"[kernel] on {card}: lstm {str(dtype)[6:]} B={b} T={t} H={hd}: "
             f"kernel {ms:.4f} ms (one launch), plain {plain:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}; W_h read once), {every:.4f} ms with "
@@ -1542,6 +1555,88 @@ def check_all(what: str, checks: dict) -> None:
             fail(f"{what}: {claim} does not hold")
 
 
+def warmed_programs(engine) -> set:
+    """The names of the programs ``engine.warmup()`` runs (its inventory):
+    every (batch-bucket, bucket) prefill, the chunk where it is reachable
+    and the block copy (paged) but on the decode role, the decode step but
+    on the prefill role, and a role's half of the handoff."""
+    names = set()
+    if engine.role != "decode":
+        names |= {f"prefill[{nb}x{b}]" for b in engine.buckets
+                  for nb in engine.batch_buckets}
+        if engine.max_len - 1 > engine.buckets[-1] \
+                or (engine.kv is not None and engine.kv.prefix_enabled):
+            names.add("chunk")
+        if engine.kv is not None:
+            names.add("copy")
+    if engine.role != "prefill":
+        names.add("decode")
+    names |= {"prefill": {"export"}, "decode": {"import"}}.get(engine.role,
+                                                              set())
+    return names
+
+
+#: the most of a peak a program's measured rate may read: above it, its
+#: static count of FLOPs or bytes is at fault
+SHARE_CAP = 1.05
+
+
+def programs_report(what: str, s: dict, engine, card: str) -> None:
+    """One ``[programs]`` line for each program of ``engine``'s summary
+    ``s`` that ran: its static FLOPs and bytes, invocations, mean time and
+    shares of the H100's peaks.  Fails unless every warmed program is
+    registered (and nothing else), the invocations add up to the engine's
+    counters (``decode`` its decode steps, ``prefill[...]`` its prefill
+    calls, ``chunk`` its chunks, ``copy`` its copied blocks, ``export`` /
+    ``import`` its handoffs), and every nonzero share of a program that
+    ran lies in (0, SHARE_CAP]."""
+    sec = s["programs"]
+    progs, chip = sec["programs"], sec["chip"]
+    ran = {k: p for k, p in sorted(progs.items()) if p["invocations"]}
+    for name, p in ran.items():
+        say(f"[programs] {what} {name}: {p['flops']:.6g} FLOPs, "
+            f"{p['bytes_accessed']:.6g} bytes, {p['invocations']} calls, "
+            f"mean {1e3 * p['measured_s'] / p['invocations']:.4f} ms; "
+            f"{100 * p['utilization']:.4g}% of {chip['peak_flops']:.4g} "
+            f"FLOP/s, {100 * p['bandwidth_utilization']:.4g}% of "
+            f"{chip['hbm_bw']:.4g} B/s ({chip['name']}; on {card})")
+    for phase in sorted({p["phase"] for p in ran.values()}):
+        of = [p for p in ran.values() if p["phase"] == phase]
+        secs = sum(p["measured_s"] for p in of)
+        flops = sum(p["flops"] * p["invocations"] for p in of)
+        nbytes = sum(p["bytes_accessed"] * p["invocations"] for p in of)
+        say(f"[programs] {what} phase {phase}: "
+            f"{sum(p['invocations'] for p in of)} calls in {secs:.6g} s, "
+            f"{flops:.6g} FLOPs and {nbytes:.6g} bytes; "
+            f"{100 * flops / secs / chip['peak_flops']:.4g}% of the FLOP/s "
+            f"peak, {100 * nbytes / secs / chip['hbm_bw']:.4g}% of the "
+            f"bytes/s peak (on {card})")
+    calls = lambda k: progs.get(k, {}).get("invocations", 0)  # noqa: E731
+    shares = [p[key] for p in ran.values()
+              for key, base in (("utilization", "flops"),
+                                ("bandwidth_utilization", "bytes_accessed"))
+              if p[base]]
+    check_all(f"programs {what}", {
+        "every warmed program registered, nothing else":
+            set(progs) == warmed_programs(engine)
+            and all(p["analyzed"] for p in progs.values()),
+        "decode invocations == decode_steps":
+            calls("decode") == s["decode_steps"],
+        "prefill[...] invocations sum to prefill_calls":
+            sum(p["invocations"] for k, p in progs.items()
+                if k.startswith("prefill[")) == s["prefill_calls"],
+        "chunk invocations == prefill_chunks":
+            calls("chunk") == s["prefill_chunks"],
+        "copy invocations == blocks_copied":
+            calls("copy") == s.get("kv", {}).get("blocks_copied", 0),
+        "export + import invocations == handoffs":
+            calls("export") + calls("import")
+            == s.get("handoff", {}).get("handoffs", 0),
+        f"every share in (0, {SHARE_CAP}]":
+            bool(shares) and all(0 < v <= SHARE_CAP for v in shares),
+    })
+
+
 #: each serving path's launches, counted from 0 just before its run: fixed
 #: by its requests and geometry (flash: layers x prefill calls; paged
 #: decode: layers x decode steps; the scans: layers x (prefill calls +
@@ -1578,6 +1673,8 @@ DISAGG_LAUNCHES = {
 #: cache is off (a hit resumes through a chunk)
 SERVE_OPTIONS = {"internvl2-2b": dict(engine_kw=dict(prefix_cache=False),
                                       min_chunks=0, min_prefix_hits=0)}
+#: the path served with ``program_memory=True`` (both its runs)
+MEMORY_ARCH = "qwen3-0.6b"
 #: what the plan's predicted times are of: never the card
 MODELED = "modeled: the paper's Mensa accelerators, not the card"
 
@@ -1676,6 +1773,7 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
         + ", ".join(f"{ph} {d['ratio']:.4g}"
                     for ph, d in pl["drift"].get("phases", {}).items()))
     say(f"[serve] {what} summary {json.dumps(s)}")
+    programs_report(what, s, engine, card)
     want = SERVE_LAUNCHES[what]
     paged = cfg.layer_kinds.count("attn") if "kv" in s else 0
     check_all(f"serve {what}", {
@@ -1761,6 +1859,9 @@ def serve_disagg(what: str, cfg, model, card: str, engine_kw: dict,
         f"{run['tbt_ms']['p50']:.2f} / {run['tbt_ms']['p99']:.2f} ms "
         f"interleaved (no claim: one card runs both roles in turn)")
     say(f"[disagg] {what} summary {json.dumps(s)}")
+    for role, eng in (("prefill", dis.prefill), ("decode", dis.decode)):
+        programs_report(f"{what} pair {role} role", s["roles"][role], eng,
+                        card)
     if got != want:
         say(f"[disagg] {what} first divergent token: "
             f"{first_divergence(got, want)}")
@@ -1881,6 +1982,8 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
 
     kw = dict(slots=4, max_len=1024, kv_block_size=16,
               **(engine_kw or dict(max_bucket=256)))
+    if arch == MEMORY_ARCH:
+        kw["program_memory"] = True
     if arch in DISAGG_LAUNCHES:
         run, counts = serve_pair(arch, cfg, model, card, kw, make_requests,
                                  drive)
@@ -1888,6 +1991,8 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
         run = serve_auto(arch, cfg, model, card, kw, make_requests, drive)
         counts = run["counts"]
     s = run["s"]
+    if arch == MEMORY_ARCH:
+        program_memory_line(arch, s, card)
     if cfg.ffn_kind == "moe":
         moe_serve_line(arch, cfg, s, kw["slots"], card)
         moe_decode_profile(arch, cfg, model, card)
@@ -1907,12 +2012,39 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
     return counts
 
 
+def program_memory_line(arch: str, s: dict, card: str) -> None:
+    """The interleaved serve's program memory (``program_memory=True``:
+    the caching allocator's watermarks around each warmup call): the
+    largest temp, its program, that program's peak, and the allocator's
+    high-water mark since the last call's reset; fails unless the largest
+    temp is above 0."""
+    import torch
+    progs = s["programs"]["programs"]
+    name = max(progs, key=lambda k: progs[k]["memory"].get(
+        "temp_size_in_bytes", 0))
+    mem = progs[name]["memory"]
+    peak = s["programs"].get("temp_bytes_peak", 0)
+    say(f"[programs] {arch} program memory on {card}: temp peak {peak} "
+        f"bytes ({peak / 2 ** 20:.1f} MiB, {name}: arguments "
+        f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB, outputs "
+        f"{mem['output_size_in_bytes'] / 2 ** 20:.1f} MiB, peak "
+        f"{mem['peak_memory_in_bytes'] / 2 ** 30:.3f} GiB); "
+        f"torch.cuda.max_memory_allocated() "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    check_all(f"programs {arch}", {
+        "temp_bytes_peak > 0": peak > 0,
+        "the obs gauge carries it":
+            s["obs"]["gauges"]["program_temp_bytes_peak"]["value"] == peak,
+    })
+
+
 def moe_serve_line(arch: str, cfg, s: dict, slots: int, card: str) -> None:
     """An MoE serve's decode step beside the expert-bank bytes one tick
     reads (the einsum route multiplies every expert's bank each tick) at
     the card's 3.35 TB/s, its peak memory, and the decode capacity: the
     reference's max(1, int(capacity_factor * slots * top_k / E))."""
     import torch
+    from repro_torch.core.h100 import HBM_BW
     from repro_torch.models.moe import capacity
     banks = 3.0 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2 \
         * cfg.num_layers
@@ -1922,7 +2054,7 @@ def moe_serve_line(arch: str, cfg, s: dict, slots: int, card: str) -> None:
         f"TTFT p50 {s['ttft_ms']['p50']:.2f} ms (mean "
         f"{s['ttft_ms']['mean']:.2f}); a tick reads {banks / 1e9:.2f} GB of "
         f"bf16 expert banks ({cfg.num_layers} layers x {cfg.num_experts} "
-        f"experts), {1e3 * banks / PEAK_BYTES_S:.2f} ms at 3.35 TB/s; peak "
+        f"experts), {1e3 * banks / HBM_BW:.2f} ms at 3.35 TB/s; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
         f"decode capacity {cap} per expert at {slots} slots "
         f"(max(1, int({cfg.moe_capacity} x {slots} x {cfg.top_k} / "

@@ -20,14 +20,16 @@ disaggregated prefill/decode pair (``serve/disagg.py``) on the one device.  The 
 paper's modeled accelerators, not of the card.  ``--max-new``,
 ``--min-bucket``, ``--max-prefill-per-step``, ``--max-prefill-batch``,
 ``--long-prompts``, ``--warmup``, ``--trace`` (the engine's Chrome trace),
-``--metrics-json`` (the stats summary) and ``--metrics-prom`` (the metrics
-registry in Prometheus text) are the JAX CLI's.  ``--kv-block-size``
+``--metrics-json`` (the stats summary, its ``programs`` section included:
+each warmed program's FLOPs, bytes and share of the H100's roofline),
+``--metrics-prom`` (the metrics registry in Prometheus text) and
+``--program-memory`` (each program's memory, measured at its warmup call)
+are the JAX CLI's.  ``--kv-block-size``
 defaults to paged blocks of 16 tokens (the JAX CLI's default is dense KV);
 0 keeps every KV cache dense per slot (falcon-mamba has no KV cache: its
 conv and scan states are per slot either way).  The options of
-``repro.launch.serve`` that the port does not have yet (meshes, roles and
-the program registry) are accepted by name only to fail with that
-message.
+``repro.launch.serve`` that the port does not have yet (meshes and roles)
+are accepted by name only to fail with that message.
 """
 from __future__ import annotations
 
@@ -49,10 +51,8 @@ from ..serve.placement import ExecutionOracle, PlacementPlan
 #: meshes and ``--param-strategy`` wait for the multi-device path;
 #: ``--roles`` pins each role of the disaggregated pair to a disjoint
 #: submesh of N + M devices, so it waits for the same path (the pair itself
-#: runs on one device, ``build_disagg_engine``); the program memory waits
-#: for the compiled programs
-NOT_PORTED = ("--mesh", "--dp", "--mp", "--roles", "--param-strategy",
-              "--program-memory", "--no-program-memory")
+#: runs on one device, ``build_disagg_engine``)
+NOT_PORTED = ("--mesh", "--dp", "--mp", "--roles", "--param-strategy")
 
 
 class _NotPorted(argparse.Action):
@@ -85,7 +85,8 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
                  kv_block_size: int | None = None,
                  kv_blocks: int | None = None,
                  prefix_cache: bool = True, device: str = "cuda",
-                 seed: int = 0, policy="auto") -> ServeEngine:
+                 seed: int = 0, policy="auto",
+                 program_memory: bool = False) -> ServeEngine:
     """An engine for ``cfg`` over ``model`` (default: a model with random
     weights from ``seed`` on ``device``).  ``max_bucket`` caps the prefill
     buckets below max_len so longer prompts run the chunked path;
@@ -96,7 +97,8 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
     type; "fixed" keeps the engine's own knobs; a ``PlacementPlan`` is used
     as it is.  A plan picks the bucket ladder and the prefill chunk, which
     explicit ``prefill_chunk`` still beats; every geometry serves the same
-    tokens."""
+    tokens.  ``program_memory``: measure each program's memory at warmup
+    (``ServeEngine``)."""
     backend = (model.device if model is not None
                else torch.device(device)).type
     plan = _resolve_policy(cfg, policy, backend, slots=slots,
@@ -112,7 +114,8 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
         min_bucket=min_bucket, max_prefill_per_step=max_prefill_per_step,
         max_prefill_batch=max_prefill_batch, prefill_chunk=prefill_chunk,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
-        prefix_cache=prefix_cache, policy=plan)
+        prefix_cache=prefix_cache, policy=plan,
+        program_memory=program_memory)
 
 
 def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
@@ -124,7 +127,8 @@ def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
                         kv_block_size: int | None = None,
                         kv_blocks: int | None = None,
                         prefix_cache: bool = True, device: str = "cuda",
-                        seed: int = 0, policy="auto") -> DisaggEngine:
+                        seed: int = 0, policy="auto",
+                        program_memory: bool = False) -> DisaggEngine:
     """The disaggregated counterpart of :func:`build_engine`: a prefill and
     a decode engine over ``model`` on its one device (the reference's
     ``build_disagg_engine`` with ``roles=None``).  The auto plan is resolved
@@ -148,7 +152,8 @@ def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
         max_prefill_per_step=max_prefill_per_step,
         max_prefill_batch=max_prefill_batch, prefill_chunk=prefill_chunk,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
-        prefix_cache=prefix_cache, policy=plan)
+        prefix_cache=prefix_cache, policy=plan,
+        program_memory=program_memory)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -206,6 +211,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the metrics registry in Prometheus/"
                          "OpenMetrics text exposition format here (a "
                          "node_exporter textfile-collector drop-in)")
+    ap.add_argument("--program-memory",
+                    action=argparse.BooleanOptionalAction, default=False,
+                    help="measure each warmed program's memory at its "
+                         "warmup call: argument and output bytes, and on "
+                         "the card the caching allocator's temp and peak "
+                         "watermarks around the call (the programs section "
+                         "always carries static FLOPs/bytes; pass --warmup, "
+                         "which registers the programs)")
     ap.add_argument("--profile-dir", default="",
                     help="profile the served run with torch.profiler: a "
                          "Chrome trace, ops by device time and a summary "
@@ -249,7 +262,8 @@ def main(argv=None) -> dict | None:
         prefill_chunk=args.prefill_chunk,
         kv_block_size=args.kv_block_size or None, kv_blocks=args.kv_blocks,
         prefix_cache=args.prefix_cache, device=args.device, seed=args.seed,
-        policy=plan if plan is not None else "fixed")
+        policy=plan if plan is not None else "fixed",
+        program_memory=args.program_memory)
     if args.warmup:
         engine.warmup()
     rng = np.random.RandomState(args.seed)

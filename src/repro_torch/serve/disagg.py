@@ -21,8 +21,10 @@ produces the same first token, the suitcase moves KV blocks and recurrent
 rows bit for bit, and decode math is per-slot independent.
 
 The port runs both roles on one device: the reference's submeshes
-(``prefill_mesh``/``decode_mesh``), its per-phase models and its program
-registry wait for the port's multi-device path and compiled programs.
+(``prefill_mesh``/``decode_mesh``) and its per-phase models wait for the
+port's multi-device path.  Each role registers its own programs (its
+shapes and its half of the handoff), so each role's summary under
+``roles`` carries its own ``programs`` section.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ class DisaggEngine:
 
     ``policy`` (a ``serve.placement.PlacementPlan``) supplies per-role
     bucket/chunk knobs through ``plan.per_role``; explicit constructor
-    arguments still win, as in ``ServeEngine``.
+    arguments still win, as in ``ServeEngine``.  ``program_memory`` goes to
+    both role engines (``ServeEngine``).
     """
 
     def __init__(self, model: Model, *, prefill_slots: int = 4,
@@ -59,7 +62,8 @@ class DisaggEngine:
                  kv_blocks: int | None = None,
                  prefix_cache: bool = True,
                  policy: PlacementPlan | None = None,
-                 tracer: Tracer | None = None):
+                 tracer: Tracer | None = None,
+                 program_memory: bool = False):
         self.tracer = tracer if tracer is not None else Tracer()
         per_role = policy.per_role if policy is not None else {}
         pre_kn = per_role.get("prefill", {})
@@ -74,7 +78,8 @@ class DisaggEngine:
         dec_buckets = knob(buckets, dec_kn, "buckets")
         common = dict(max_len=max_len, min_bucket=min_bucket,
                       kv_block_size=kv_block_size, kv_blocks=kv_blocks,
-                      policy=policy, tracer=self.tracer)
+                      policy=policy, tracer=self.tracer,
+                      program_memory=program_memory)
         self.prefill = ServeEngine(
             model, role="prefill", slots=prefill_slots,
             buckets=tuple(pre_buckets) if pre_buckets else None,

@@ -13,14 +13,16 @@ resuming at ``offset``; a partial-block prefix hit clones one block
 ``active`` mask freezes dead and mid-prefill slots bit for bit.
 
 Where the JAX engine compiles programs that return a new state tree, the
-port runs the model eagerly.  The state design is the JAX engine's: a
-batched prefill runs on fresh batch-N states (paged layers adopt the live
-pool, whose writes from padding rows drop through all-sentinel table rows)
-and only the real rows are spliced into their slots; a chunk runs on a
-batch-1 copy of its slot's states and is spliced back.  Decode updates the
-slot pool in place; rows frozen by ``active`` keep every bit.  A fresh
-prefill state starts at zero, and a chunk at offset 0 zeroes the carried
-recurrent state, so a recycled slot never sees its last request.
+port runs the model eagerly; each eager section keeps the name of the JAX
+program it stands for (``ProgramRegistry``, below).  The state design is
+the JAX engine's: a batched prefill runs on fresh batch-N states (paged
+layers adopt the live pool, whose writes from padding rows drop through
+all-sentinel table rows) and only the real rows are spliced into their
+slots; a chunk runs on a batch-1 copy of its slot's states and is spliced
+back.  Decode updates the slot pool in place; rows frozen by ``active``
+keep every bit.  A fresh prefill state starts at zero, and a chunk at
+offset 0 zeroes the carried recurrent state, so a recycled slot never sees
+its last request.
 
 Every engine carries a placement plan (``serve/placement.py``): the
 placement oracle's (``policy=``), whose bucket ladder and prefill chunk it
@@ -39,6 +41,15 @@ histograms, tokens per tick, prefill padding waste, memory gauges) go to
 ``EngineStats.metrics`` and come out as the ``obs`` section of
 ``summary()``, the reference's schema but for ``NOT_PORTED_STATS``.
 
+Every program of the warmed inventory — ``prefill[{nb}x{b}]``, ``chunk``,
+``copy``, ``decode``, and ``export``/``import`` on role engines — registers
+in ``self.programs`` (``obs/programs.ProgramRegistry``) right before its
+warmup call, with an analytic count of its FLOPs and bytes at that shape
+(``program_memory=True`` adds the call's memory); each timed section then
+feeds its duration back under that name.  ``summary()`` reports the
+``programs`` section (live FLOP/s, bytes/s and shares of the H100's
+roofline) and, under a plan with clusters, ``placement.drift.clusters``.
+
 Serving is optionally disaggregated (``role=``), as the reference's: a
 ``role="prefill"`` engine runs bucketed and chunked prefill only and parks
 each finished prefill on ``ready``; a ``role="decode"`` engine never admits
@@ -47,8 +58,7 @@ blocks in its own pool and scatters the visiting suitcase (the slot's
 batch-1 state row plus copies of its KV blocks) into them.
 ``serve.disagg.DisaggEngine`` couples the pair on the one device.
 
-Not ported yet: meshes and the compiled-program registry — the
-constructor takes neither.
+Not ported yet: meshes — the constructor takes none.
 """
 from __future__ import annotations
 
@@ -59,10 +69,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core.h100 import for_dtype
 from ..models.attention import KVCache, PagedKVCache
 from ..models.transformer import BlockState, Model
-from ..obs import MetricsRegistry, Timed, Tracer, drift_report, \
-    plan_predictions
+from ..obs import MetricsRegistry, ProgramRegistry, Timed, Tracer, \
+    drift_report, plan_predictions, program_cost
+from ..obs.programs import measure_call
 from .kvpool import PagedKVManager
 from .placement import PlacementPlan, fixed_plan
 from .sampling import sample_tokens
@@ -97,11 +109,17 @@ def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
 #: keys of the reference's ``EngineStats.summary()`` that the port leaves
 #: out, each with the slice that brings it (ROADMAP A)
 NOT_PORTED_STATS = {
-    "programs": "A2, the compiled programs (CUDA graphs) and their registry",
     "kv.shards": "A7, a block pool sharded over several cards",
     "kv.in_use_per_shard": "A7, a block pool sharded over several cards",
     "kv.peak_per_shard": "A7, a block pool sharded over several cards",
 }
+
+#: each program kind's phase in the ``programs`` section, as the reference
+#: registers it; its ``program`` string is the reference's jit attribute,
+#: ``"_" + kind``, and names the eager section that stands for it
+PROGRAM_PHASES = {"prefill": "prefill", "chunk": "prefill", "copy": "kv",
+                  "decode": "decode", "export": "handoff",
+                  "import": "handoff"}
 
 #: tracer track of the queue-level request events; slot ``i`` is on
 #: ``1 + i``, engine-wide spans (decode ticks, warmup, block copies) on
@@ -164,6 +182,8 @@ class EngineStats:
     #                                     no blocks on the decode pool
     # ---- placement (the plan's summary; set by the engine) ----
     placement: dict = field(default_factory=dict)
+    # ---- program cost registry (obs/programs.py; set by the engine) ----
+    programs: ProgramRegistry | None = None
 
     def record_ttft(self, v: float) -> None:
         self.ttft_count += 1
@@ -241,7 +261,15 @@ class EngineStats:
                 / max(self.decode_steps, 1),
             }
             p["drift"] = drift_report(plan_predictions(p), p["measured"])
+            if p["drift"] and self.programs is not None:
+                # per-cluster measured-vs-predicted: the registry's phase
+                # totals attributed over the plan's clusters
+                clusters = self.programs.cluster_rollup()
+                if clusters:
+                    p["drift"]["clusters"] = clusters
             out["placement"] = p
+        if self.programs is not None:
+            out["programs"] = self.programs.summary()
         out["obs"] = self.metrics.to_dict()
         return out
 
@@ -279,7 +307,8 @@ class ServeEngine:
                  policy: PlacementPlan | None = None,
                  role: str = "both",
                  track_base: int = 0,
-                 tracer: Tracer | None = None):
+                 tracer: Tracer | None = None,
+                 program_memory: bool = False):
         """``min_bucket``: the smallest prompt bucket of the default ladder.
         ``max_prefill_per_step``: queued requests admitted per tick.
         ``max_prefill_batch``: rows of one batched prefill (capped at
@@ -309,7 +338,13 @@ class ServeEngine:
         prefix their track and counter names with ``"{role}/"``.
 
         ``tracer``: an ``obs.Tracer``; default a fresh enabled one (pass
-        ``Tracer(enabled=False)`` to opt out; the tokens are the same)."""
+        ``Tracer(enabled=False)`` to opt out; the tokens are the same).
+
+        ``program_memory``: measure each program's memory at its warmup call
+        (``obs.programs.measure_call``: argument and output bytes, and on
+        the card the allocator's temp and peak watermarks); the
+        ``programs`` section carries the static FLOPs and bytes either
+        way."""
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role {role!r} not in "
                              f"('both', 'prefill', 'decode')")
@@ -344,6 +379,11 @@ class ServeEngine:
                                 prefill_chunk=self.prefill_chunk,
                                 backend=self.device.type)
         self.policy = policy
+        # utilization divides by the card's peak for the products' dtype
+        self.programs = ProgramRegistry(
+            chip=for_dtype(model.cfg.compute_dtype),
+            plan_summary=self.policy.summary())
+        self._program_memory = program_memory
         self.kv: PagedKVManager | None = None
         self._state_kw: dict = {}
         if kv_block_size is not None:
@@ -412,17 +452,22 @@ class ServeEngine:
             st.kv_pool_blocks = self.kv.pool.num_blocks
             st.kv_block_size = self.kv.block_size
         st.placement = self.policy.summary()
+        st.programs = self.programs
         # static memory gauges (the per-tick ones update in _tick_counters)
         st.metrics.gauge("slot_state_bytes", "bytes").set(
             self._slot_state_bytes)
         if self.kv is not None:
             st.metrics.gauge("kv_pool_capacity_bytes", "bytes").set(
                 self.kv.pool.num_blocks * self.kv.block_bytes)
+        tmp = self.programs.temp_bytes_peak()
+        if tmp:
+            st.metrics.gauge("program_temp_bytes_peak", "bytes").set(tmp)
 
     def reset_stats(self) -> None:
         self.stats = EngineStats()
         if self.kv is not None:
             self.kv.reset_stats()
+        self.programs.reset_observed()
         self._init_kv_stats()
         self._sync_kv_stats()
 
@@ -466,12 +511,14 @@ class ServeEngine:
 
     def save_trace(self, path) -> None:
         """Write the Chrome trace-event JSON of everything traced so far,
-        with the summary's placement section (plan, measured, drift) and
-        the metrics registry under ``otherData``."""
+        with the summary's placement section (plan, measured, drift), the
+        metrics registry and the programs section under ``otherData``."""
         summary = self.stats.summary()
         other = {"obs": summary["obs"]}
         if "placement" in summary:
             other["placement"] = summary["placement"]
+        if "programs" in summary:
+            other["programs"] = summary["programs"]
         self.tracer.save(path, other_data=other)
 
     def _sample(self, logits: torch.Tensor, slot_ids: list[int],
@@ -578,6 +625,7 @@ class ServeEngine:
         with self._timed("kv_copy") as tm:
             self._copy_blocks(src, dst)
             tm.sync()
+        self.programs.observe("copy", tm.dur, phase="kv", program="_copy")
         self.tracer.span("kv_copy", self._trk_engine, tm.t0, tm.t1,
                          (("src", src), ("dst", dst)))
 
@@ -631,6 +679,8 @@ class ServeEngine:
         st = self.stats
         st.prefill_calls += 1
         st.prefill_time_s += tm.dur
+        self.programs.observe(f"prefill[{nb}x{bucket}]", tm.dur,
+                              phase="prefill", program="_prefill")
         st.batch_counts[n] = st.batch_counts.get(n, 0) + 1
         waste = st.metrics.counter("prefill_waste_tokens", "tokens")
         for i, (slot, req) in enumerate(members):
@@ -680,6 +730,8 @@ class ServeEngine:
         st.prefill_padded_tokens += c
         st.prefill_tokens_computed += n
         st.prefill_time_s += tm.dur
+        self.programs.observe("chunk", tm.dur, phase="prefill",
+                              program="_chunk")
         st.metrics.counter("prefill_waste_tokens", "tokens").inc(c - n)
         self.tracer.span("prefill_chunk", self._slot_track(slot),
                          tm.t0, tm.t1,
@@ -780,6 +832,8 @@ class ServeEngine:
         st = self.stats
         st.handoffs += 1
         st.handoff_time_s += tm.dur
+        self.programs.observe("export", tm.dur, phase="handoff",
+                              program="_export")
         self.tracer.span("handoff_export", self._slot_track(slot),
                          tm.t0, tm.t1, (("rid", req.rid),))
         return out
@@ -824,6 +878,8 @@ class ServeEngine:
         st = self.stats
         st.handoffs += 1
         st.handoff_time_s += tm.dur
+        self.programs.observe("import", tm.dur, phase="handoff",
+                              program="_import")
         self.requests[slot] = req
         self.positions[slot] = n_tokens
         self._set_sampling(slot, req)
@@ -846,6 +902,26 @@ class ServeEngine:
         return self._tensor(np.full((rows, self.kv.blocks_per_slot),
                                     self.kv.sentinel, np.int32))
 
+    def _warm_program(self, name: str, geometry: dict, fn, *args,
+                      **kwargs):
+        """Register program ``name`` with the static cost of its kind (the
+        name up to ``[``) at ``geometry``, under the reference's phase and
+        ``program`` string, then make its warmup call ``fn(*args,
+        **kwargs)`` — measured with ``program_memory`` — and return what
+        the call returns."""
+        kind = name.split("[")[0]
+        if self.kv is not None:
+            geometry = dict(geometry, kv_block_size=self.kv.block_size)
+        e = self.programs.register(
+            name, program_cost(self.model.cfg, kind, max_len=self.max_len,
+                               **geometry),
+            phase=PROGRAM_PHASES[kind], program="_" + kind)
+        if not self._program_memory:
+            return fn(*args, **kwargs)
+        out, e.memory = measure_call(fn, args, kwargs,
+                                     params=self.model.parameters())
+        return out
+
     def warmup(self) -> None:
         """Run every shape the engine can serve once — each (batch-bucket,
         bucket) prefill on fresh states, the chunk continuation on a copy of
@@ -854,39 +930,40 @@ class ServeEngine:
         allocator so the first request is not charged for them.  A role
         engine runs only its own half: the prefill role no decode step, the
         decode role neither prefill nor block clone; each then its half of
-        the handoff (``_warm_handoff``)."""
+        the handoff (``_warm_handoff``).  Each program registers in
+        ``self.programs`` right before its call, at the call's shape."""
         if self._queue or self._prefilling \
                 or any(r is not None for r in self.requests):
             raise RuntimeError("warmup() requires an idle engine")
+        dev = self.device
         zeros = lambda rows: torch.zeros(              # noqa: E731
-            (rows,), dtype=torch.int32, device=self.device)
+            (rows,), dtype=torch.int32, device=dev)
+        tokens = lambda rows, n: torch.zeros(          # noqa: E731
+            (rows, n), dtype=torch.long, device=dev)
+        warm = self._warm_program
         with self._timed("warmup") as tm:
             if self.role != "decode":
                 for b in self.buckets:
                     for nb in self.batch_buckets:
-                        self.model.prefill(
-                            torch.zeros((nb, b), dtype=torch.long,
-                                        device=self.device),
-                            self._fresh_states(nb), length=zeros(nb) + 1,
-                            block_table=self._warm_table(nb))
+                        warm(f"prefill[{nb}x{b}]", dict(batch=nb, seq=b),
+                             self.model.prefill, tokens(nb, b),
+                             self._fresh_states(nb), length=zeros(nb) + 1,
+                             block_table=self._warm_table(nb))
                 if self.max_len - 1 > self.buckets[-1] \
                         or (self.kv is not None and self.kv.prefix_enabled):
-                    self.model.prefill(
-                        torch.zeros((1, self.prefill_chunk),
-                                    dtype=torch.long, device=self.device),
-                        _gather_slot(self.states, 0),
-                        length=zeros(1) + 1, offset=zeros(1),
-                        block_table=self._warm_table(1))
+                    warm("chunk", dict(seq=self.prefill_chunk),
+                         self.model.prefill, tokens(1, self.prefill_chunk),
+                         _gather_slot(self.states, 0), length=zeros(1) + 1,
+                         offset=zeros(1), block_table=self._warm_table(1))
                 if self.kv is not None:
-                    self._copy_blocks(0, 0)
+                    warm("copy", {}, self._copy_blocks, 0, 0)
             if self.role != "prefill":
-                self.model.decode_step(
-                    torch.zeros((self.slots, 1), dtype=torch.long,
-                                device=self.device), self.states,
-                    zeros(self.slots),
-                    active=torch.zeros((self.slots,), dtype=torch.bool,
-                                       device=self.device),
-                    block_table=self._warm_table(self.slots))
+                warm("decode", dict(batch=self.slots),
+                     self.model.decode_step, tokens(self.slots, 1),
+                     self.states, zeros(self.slots),
+                     active=torch.zeros((self.slots,), dtype=torch.bool,
+                                        device=dev),
+                     block_table=self._warm_table(self.slots))
             self._warm_handoff()
             self.states = self.model.init_states(self.slots, self.max_len,
                                                  **self._state_kw)
@@ -896,6 +973,13 @@ class ServeEngine:
             # the pool was just re-zeroed: drop every prefix that described it
             self.kv.clear()
         self.positions[:] = 0
+        tmp = self.programs.temp_bytes_peak()
+        if tmp:
+            self.stats.metrics.gauge("program_temp_bytes_peak",
+                                     "bytes").set(tmp)
+            if self.tracer.enabled:
+                self.tracer.counter(self._ctr_prefix + "program_temp_bytes",
+                                    tm.t1, (("peak", tmp),))
 
     def _warm_handoff(self) -> None:
         """A role engine's half of the handoff
@@ -908,9 +992,12 @@ class ServeEngine:
             return
         trow = [self.kv.sentinel] * self.kv.blocks_per_slot \
             if self.kv is not None else None
-        suitcase = self._export_slot(0, trow)
-        if self.role == "decode":
-            self._import_slot(self.stage_in(suitcase), 0, trow)
+        if self.role == "prefill":
+            self._warm_program("export", {}, self._export_slot, 0, trow)
+        else:
+            suitcase = self.stage_in(self._export_slot(0, trow))
+            self._warm_program("import", {}, self._import_slot, suitcase, 0,
+                               trow)
 
     # ---------------------------------------------------------------- decode
     def _decode_table(self) -> torch.Tensor | None:
@@ -986,6 +1073,8 @@ class ServeEngine:
         m = self.stats.metrics
         self.stats.decode_steps += 1
         self.stats.decode_time_s += tm.dur
+        self.programs.observe("decode", tm.dur, phase="decode",
+                              program="_decode")
         m.histogram("decode_tick_s").record(tm.dur)
         m.histogram("tokens_per_tick", base=1.0,
                     unit="tokens").record(len(active))

@@ -1160,3 +1160,44 @@ def test_full_width_moe_layer_matches_cpu_on_card(cuda, arch):
         assert float(aux["dropped_frac"]) == float(want_aux["dropped_frac"])
         tol = MOE_SHARE * float(want.abs().max())
         assert (got.cpu() - want).abs().max().item() <= tol
+
+
+# --------------------------------------------------- the program registry
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kv_block_size", [("qwen3-0.6b", 8),
+                                                ("recurrentgemma-2b", None)])
+def test_program_registry_on_card(cuda, arch, kv_block_size):
+    """Reduced size, bf16, ``program_memory=True``: the allocator's
+    watermarks give every prefill, chunk and decode program a temp above
+    0 and arguments of at least the parameters' bytes; after a trace each
+    program's invocations add up to the engine's counters, and every
+    nonzero share of a program that ran lies in (0, 1.05]."""
+    from repro_torch.serve.engine import ServeEngine
+    _, model = _lively_model(arch, "bfloat16", cuda)
+    engine = ServeEngine(model, slots=2, max_len=128, buckets=(16, 32),
+                         prefill_chunk=32, kv_block_size=kv_block_size,
+                         program_memory=True)
+    engine.warmup()
+    engine.run(_disagg_trace(model.cfg.vocab_size), on_truncate="raise")
+    params = sum(p.nbytes for p in model.parameters())
+    s = engine.stats.summary()
+    progs = s["programs"]["programs"]
+    assert s["programs"]["chip"]["name"] == "h100_sxm_bfloat16"
+    for name, p in progs.items():
+        mem = p["memory"]
+        assert mem["argument_size_in_bytes"] >= params, name
+        assert mem["peak_memory_in_bytes"] >= mem["temp_size_in_bytes"], name
+        if name != "copy":
+            assert mem["temp_size_in_bytes"] > 0, name
+        if p["invocations"]:
+            for key, base in (("utilization", "flops"),
+                              ("bandwidth_utilization", "bytes_accessed")):
+                if p[base]:
+                    assert 0 < p[key] <= 1.05, (name, key)
+    assert s["programs"]["temp_bytes_peak"] > 0
+    calls = lambda k: progs.get(k, {}).get("invocations", 0)  # noqa: E731
+    assert calls("decode") == s["decode_steps"] > 0
+    assert sum(p["invocations"] for k, p in progs.items()
+               if k.startswith("prefill[")) == s["prefill_calls"] > 0
+    assert calls("chunk") == s["prefill_chunks"] > 0
+    assert calls("copy") == s.get("kv", {}).get("blocks_copied", 0)

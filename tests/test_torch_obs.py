@@ -120,22 +120,54 @@ def _excluded(path: str) -> bool:
                for k in NOT_PORTED_STATS)
 
 
+def _plans(kw: dict):
+    """The JAX oracle's and the port's auto plans for reduced qwen3 at the
+    engines' geometry (the engines' own buckets and chunk still win)."""
+    from repro.configs import reduced_config as ref_reduced
+    from repro.serve import placement as ref_placement
+    from repro_torch.serve.placement import ExecutionOracle
+    geo = dict(slots=kw["slots"], max_len=kw["max_len"])
+    return (ref_placement.ExecutionOracle(ref_reduced(ARCH), **geo).resolve(),
+            ExecutionOracle(reduced_config(ARCH), backend="cpu",
+                            **geo).resolve())
+
+
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
 def test_summary_has_the_reference_schema(models, paged):
     """On the same trace the port's summary holds the JAX engine's key
-    paths, the ``obs`` section's names included, but for the named
-    exclusions; counters and gauges agree; ``kv`` only with a pool."""
+    paths, the ``obs`` section's names and every observed program of the
+    ``programs`` section included, but for the named exclusions; counters
+    and gauges agree; ``kv`` only with a pool."""
+    _check_schema(models, paged, "fixed")
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_summary_has_the_reference_schema_under_auto_policy(models, paged):
+    """The same under the oracle's plans (``--policy auto``), whose
+    clusters add ``placement.drift.clusters``, the per-cluster rollup of
+    the programs' phase totals."""
+    _check_schema(models, paged, "auto")
+
+
+def _check_schema(models, paged, policy):
     jm, jp, tm = models
     kw = dict(KW) if paged else {k: v for k, v in KW.items()
                                  if k != "kv_block_size"}
-    jax_engine, engine = JaxEngine(jm, jp, **kw), ServeEngine(tm, **kw)
+    jax_kw, port_kw = {}, {}
+    if policy == "auto":
+        jax_plan, plan = _plans(kw)
+        jax_kw, port_kw = dict(policy=jax_plan), dict(policy=plan)
+    jax_engine = JaxEngine(jm, jp, **kw, **jax_kw)
+    engine = ServeEngine(tm, **kw, **port_kw)
     assert _run(engine, Request) == _run(jax_engine, JaxRequest)
     got, want = engine.stats.summary(), jax_engine.stats.summary()
     assert _paths(got) - PORT_ONLY == {p for p in _paths(want)
                                        if not _excluded(p)}
     assert ("kv" in got) == paged
-    assert set(NOT_PORTED_STATS) >= {"programs", "kv.shards",
-                                     "kv.in_use_per_shard",
+    assert ("clusters" in got["placement"]["drift"]) == (policy == "auto")
+    assert {"programs.programs.decode", "programs.chip.peak_flops"} \
+        <= _paths(got)
+    assert set(NOT_PORTED_STATS) == {"kv.shards", "kv.in_use_per_shard",
                                      "kv.peak_per_shard"}
     assert "handoff" not in NOT_PORTED_STATS
     for key in ("requests_completed", "tokens_generated", "prefills",
@@ -221,7 +253,9 @@ def test_trace_has_the_reference_events_and_tracks(models, tmp_path):
     meta = lambda d: [e for e in d["traceEvents"]  # noqa: E731
                       if e["ph"] == "M"]
     assert meta(doc) == meta(ref)
-    assert set(doc["otherData"]) == set(ref["otherData"]) - {"programs"}
+    assert set(doc["otherData"]) == set(ref["otherData"])
+    assert doc["otherData"]["programs"] \
+        == engine.stats.summary()["programs"]
     assert doc["otherData"]["obs"] == engine.stats.summary()["obs"]
     ts = [e["ts"] for e in doc["traceEvents"] if e["ph"] != "M"]
     assert ts == sorted(ts) and len(ts) == len(engine.tracer)

@@ -27,7 +27,8 @@ from repro.obs import drift as ref_drift  # noqa: E402
 from repro.serve import placement as ref_placement  # noqa: E402
 from repro_torch.bridge import from_jax_params  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced_config  # noqa: E402
-from repro_torch.launch.serve import NOT_PORTED, build_engine, main  # noqa: E402
+from repro_torch.launch.serve import (NOT_PORTED, build_engine,  # noqa: E402
+                                      build_parser, main)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.obs import drift_report, plan_predictions  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
@@ -295,6 +296,19 @@ def test_cli_long_prompts_max_new_and_warmup_run_on_cpu(capsys):
 
 
 def test_cli_refuses_exactly_the_options_not_ported():
+    """The meshes' and roles' options are refused; the program memory is
+    accepted both ways and measures each warmed program on the CPU: its
+    argument and output bytes, no watermark."""
     assert set(NOT_PORTED) == {
-        "--mesh", "--dp", "--mp", "--roles", "--param-strategy",
-        "--program-memory", "--no-program-memory"}
+        "--mesh", "--dp", "--mp", "--roles", "--param-strategy"}
+    assert not build_parser().parse_args(
+        ["--no-program-memory"]).program_memory
+    s = main(["--reduced", "--device", "cpu", "--max-len", "64",
+              "--kv-block-size", "8", "--requests", "2", "--max-new", "3",
+              "--warmup", "--program-memory"])
+    progs = s["programs"]["programs"]
+    assert {"prefill[1x16]", "chunk", "copy", "decode"} <= set(progs)
+    for rec in progs.values():
+        assert set(rec["memory"]) == {"argument_size_in_bytes",
+                                      "output_size_in_bytes"}
+    assert "temp_bytes_peak" not in s["programs"]
