@@ -59,10 +59,20 @@ Phases, one line or block of output each; any failure exits non-zero:
    copies (``repro_torch.core``): the 24 edge models characterized,
    clustered, scheduled and evaluated (every number of the paper's modeled
    accelerators, none of the card), and each served arch's rule clusters
-   held against a seeded k-means; then nine paths through
+   held against a seeded k-means; then the execution-strategy layer
+   (``core/{strategy,executor}.py``): every arch x shape of ``configs``,
+   full and reduced, priced on a 16 x 16 mesh of H100 SXM cards (a model
+   from the datasheet, not the card), one ``[strategy]`` line a cell, each
+   block's template legal and the least of its candidates before phase 2,
+   and exactly the reduced MoE decode cells raising the reference's
+   ``ValueError``; then nine paths through
    ``launch.serve.build_engine`` with ``policy="auto"`` (the placement
-   oracle's plan: characterize -> cluster -> cost; its buckets and chunk),
-   random weights from the seed.  Each run's launch counters are set to 0
+   oracle's plan: characterize -> cluster -> cost; its buckets and chunk)
+   and ``plan_cfg=get_config(arch)``, random weights from the seed.  Each
+   build (and each pair's) must go through
+   ``phase_profiles(get_config(arch))`` once, with no runtime-safe
+   override in either phase, so that its prefill and decode models are
+   its model; each prints the profiles.  Each run's launch counters are set to 0
    just before it and read just after, and must be the path's own (flash
    168 and paged 924; flash 32 and RG-LRU 1350, 1116 of them decode; SSM
    4480, 3968 of them decode; for every paged attention stack one flash
@@ -119,7 +129,12 @@ Phases, one line or block of output each; any failure exits non-zero:
    forward launches flash once a self-attention layer, the encoder's
    non-causal ones included.  Then reduced smollm-135m trains 12 steps
    twice, once failing at step 9 and auto-resuming from a checkpoint; the
-   losses agree within a stated tolerance.
+   losses agree within a stated tolerance;
+8. examples — ``examples/quickstart_torch.py``,
+   ``serve_edge_torch.py --arch qwen3-0.6b`` and ``train_lm_torch.py
+   --full --steps 20 --fail-at 7`` (smollm-135m at full width), each in a
+   process of its own on the card, its output printed: each must exit 0
+   with its ``OK`` line, and train_lm must restart exactly once.
 
 Phase 3 also checks flash non-causal (the encoder's self-attention) at
 seamless-m4t-medium's heads, Sq == Skv and Sq != Skv, and times it; phase 4
@@ -1677,6 +1692,9 @@ SERVE_OPTIONS = {"internvl2-2b": dict(engine_kw=dict(prefix_cache=False),
 MEMORY_ARCH = "qwen3-0.6b"
 #: what the plan's predicted times are of: never the card
 MODELED = "modeled: the paper's Mensa accelerators, not the card"
+#: what the execution-strategy planner's seconds are of: never the card
+PLANNED = ("modeled: a 16 x 16 mesh of H100 SXM cards at 700 W from the "
+           "datasheet's constants, not measured")
 
 
 def phase_mensa() -> None:
@@ -1724,6 +1742,105 @@ def phase_mensa() -> None:
         + ", ".join(f"{a} {v:.4f}" for a, v in scores.items()))
 
 
+def phase_strategy() -> None:
+    """The execution-strategy layer (``core/{strategy,executor}.py``),
+    priced on the H100: every arch of ``configs.ARCHS`` x every shape of
+    ``configs.SHAPES``, full size and reduced, one line a cell — its
+    profile's strategy and overrides and each block's template.  Fails
+    unless every block's template is a legal one of its class, in its
+    candidates, and their minimum before phase 2 (or a phase-2 merge names
+    it), and unless exactly the reduced MoE configs' decode cells raise
+    the reference's ``ValueError`` (4 experts do not divide model=16, and
+    128 or 1 decode tokens leave data parallelism no batch)."""
+    from repro_torch.configs import ARCHS, SHAPES, get_config, reduced_config
+    from repro_torch.core.executor import execution_profile
+    from repro_torch.core.strategy import _CANDIDATES, MeshShape
+    mesh = MeshShape()
+    say(f"[strategy] execution profiles of {len(ARCHS)} archs x "
+        f"{len(SHAPES)} shapes, full and reduced ({PLANNED})")
+    checks = {}
+    for size, get in (("full", get_config), ("reduced", reduced_config)):
+        for arch in ARCHS:
+            cfg = get(arch)
+            for shape in SHAPES.values():
+                cell = f"{arch} x {shape.name} ({size})"
+                trap = size == "reduced" and cfg.ffn_kind == "moe" \
+                    and shape.kind == "decode"
+                try:
+                    prof = execution_profile(cfg, shape, mesh)
+                except ValueError as e:
+                    say(f"[strategy] {cell}: ValueError({e})"
+                        + (f", expected: {cfg.num_experts} experts do not "
+                           f"divide model={mesh.model}, {shape.global_batch}"
+                           f" tokens give data parallelism no batch"
+                           if trap else ", NOT expected"))
+                    checks[f"{cell} raises only where expected"] = trap
+                    continue
+                checks[f"{cell} plans"] = not trap
+                merged = {m.split(":")[0] for m in prof.plan.phase2_merges}
+                for b in prof.plan.blocks:
+                    checks[f"{cell} {b.name}: {b.strategy} legal, the "
+                           f"least of {sorted(b.candidates)} before phase "
+                           f"2"] = (
+                        set(b.candidates) <= set(_CANDIDATES[b.name])
+                        and b.strategy in b.candidates
+                        and (b.name in merged or b.candidates[b.strategy]
+                             == min(b.candidates.values())))
+                say(f"[strategy] {cell}: strategy={prof.strategy} "
+                    f"overrides={prof.cfg_overrides} blocks "
+                    + ", ".join(f"{b.name} {b.strategy} ("
+                                + ", ".join(f"{k} {1e3 * v:.4g} ms" for k, v
+                                            in b.candidates.items()) + ")"
+                                for b in prof.plan.blocks)
+                    + "".join(f"; phase2 {m}"
+                              for m in prof.plan.phase2_merges))
+    check_all("strategy", checks)
+
+
+class recorded_profiles:
+    """Within it, every ``phase_profiles`` call that ``launch.serve``
+    makes is recorded: the config it planned and the (prefill, decode)
+    profiles it returned."""
+
+    def __enter__(self) -> list:
+        from repro_torch.launch import serve as serve_mod
+        self.mod, self.inner, self.calls = serve_mod, \
+            serve_mod.phase_profiles, []
+
+        def recording(cfg, *args, **kwargs):
+            out = self.inner(cfg, *args, **kwargs)
+            self.calls.append((cfg, out))
+            return out
+        serve_mod.phase_profiles = recording
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        self.mod.phase_profiles = self.inner
+
+
+def profile_checks(what: str, arch: str, calls: list, engines) -> dict:
+    """Prints the profiles a build recorded; the claims that it planned
+    ``get_config(arch)`` once, that the serving profiles' runtime-safe
+    overrides are empty, and so that every engine's phase models are its
+    model."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import RUNTIME_SAFE_KEYS
+    for cfg, (pre, dec) in calls:
+        say(f"[serve] {what} Mensa profiles of {cfg.name} ({cfg.num_layers} "
+            f"layers; {PLANNED}): prefill strategy={pre.strategy} "
+            f"overrides={pre.cfg_overrides}, decode strategy={dec.strategy} "
+            f"overrides={dec.cfg_overrides}")
+    return {
+        "built through phase_profiles(get_config(arch)) once":
+            len(calls) == 1 and calls[0][0] == get_config(arch),
+        "no runtime-safe override in either phase": all(
+            not set(p.cfg_overrides) & RUNTIME_SAFE_KEYS
+            for _, profs in calls for p in profs),
+        "prefill_model is decode_model is model": all(
+            e.prefill_model is e.decode_model is e.model for e in engines),
+    }
+
+
 def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
                make_requests, drive) -> dict:
     """Serve ``make_requests()`` through ``drive`` on an engine built by
@@ -1733,11 +1850,16 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
     ``summary()``; fails unless the plan is the card's, the launches are
     ``SERVE_LAUNCHES[what]``, and, for paged attention layers, the engine's
     own counts agree with them: one flash launch a layer and prefill call,
-    one paged launch a layer and decode step."""
+    one paged launch a layer and decode step; and unless the engine was
+    built through ``phase_profiles(get_config(arch))`` with no runtime-safe
+    override, so that its phase models are its model."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_engine
     t0 = time.perf_counter()
-    engine = build_engine(cfg, model, policy="auto", **engine_kw)
+    with recorded_profiles() as calls:
+        engine = build_engine(cfg, model, policy="auto",
+                              plan_cfg=get_config(cfg.name), **engine_kw)
     engine.warmup()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
@@ -1787,6 +1909,7 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
             and plan.backend == "cuda"
             and all(p.kernel == "cuda" for p in plan.policies),
         "the placement drift is reported": bool(pl["drift"]),
+        **profile_checks(what, cfg.name, calls, [engine]),
     })
     del engine
     release()
@@ -1823,12 +1946,15 @@ def serve_disagg(what: str, cfg, model, card: str, engine_kw: dict,
     them, and, where the interleaved run hit the prefix cache, the prefill
     role hits it as often, copies a block, and the decode pool drains."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_disagg_engine
     kw = {k: v for k, v in engine_kw.items() if k != "slots"}
     t0 = time.perf_counter()
-    dis = build_disagg_engine(cfg, model, prefill_slots=2,
-                              decode_slots=engine_kw["slots"],
-                              policy="auto", **kw)
+    with recorded_profiles() as calls:
+        dis = build_disagg_engine(cfg, model, prefill_slots=2,
+                                  decode_slots=engine_kw["slots"],
+                                  policy="auto",
+                                  plan_cfg=get_config(cfg.name), **kw)
     dis.warmup()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
@@ -1883,6 +2009,8 @@ def serve_disagg(what: str, cfg, model, card: str, engine_kw: dict,
             {k: n for k, n in counts.items() if n} == want_launches,
         "flash = attention layers x the prefill role's prefill calls":
             counts["flash"] == attn * pre["prefill_calls"],
+        **profile_checks(f"{what} pair", cfg.name, calls,
+                         [dis.prefill, dis.decode]),
     }
     if "kv" in dec:
         checks["paged = attn layers x the decode role's decode steps"] = \
@@ -2079,8 +2207,10 @@ def moe_decode_profile(arch: str, cfg, model, card: str) -> None:
     from repro_torch.launch.serve import build_engine
     from repro_torch.obs import profile_trace
     from repro_torch.serve.engine import Request
+    from repro_torch.configs import get_config
     engine = build_engine(cfg, model, policy="auto", slots=4, max_len=1024,
-                          kv_block_size=16, max_bucket=256)
+                          kv_block_size=16, max_bucket=256,
+                          plan_cfg=get_config(cfg.name))
     rng = np.random.RandomState(1)
     reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size,
                                               24).tolist(),
@@ -2338,6 +2468,50 @@ def phase_train_resume(seed: int) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------- 8. examples
+#: the port's examples as a user runs them, on the card, and the line each
+#: ends with
+EXAMPLES = (
+    (("quickstart_torch.py",), "quickstart OK"),
+    (("serve_edge_torch.py", "--arch", "qwen3-0.6b"), "serve_edge OK"),
+    (("train_lm_torch.py", "--full", "--steps", "20", "--fail-at", "7"),
+     "train_lm OK"),
+)
+EXAMPLE_TIMEOUT_S = 300
+
+
+def phase_examples(card: str) -> None:
+    """Each of ``EXAMPLES`` in a process of its own on the card (its
+    default ``--device cuda``), its output printed line by line: it must
+    exit 0 and end with its ``OK`` line, and ``train_lm_torch.py`` (full
+    width smollm-135m, a failure injected at step 7) must restart exactly
+    once."""
+    for (script, *args), ok in EXAMPLES:
+        cmd = " ".join([script, *args])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / script),
+                               *args], cwd=ROOT, capture_output=True,
+                              text=True, timeout=EXAMPLE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        out = proc.stdout.splitlines()
+        for line in out:
+            say(f"[example] {script}| {line}")
+        if proc.returncode:
+            for line in proc.stderr.splitlines()[-20:]:
+                say(f"[example] {script} stderr| {line}")
+        restarts = sum(line.startswith("[example] restart") for line in out)
+        say(f"[example] {cmd}: exit {proc.returncode} in {wall:.1f} s wall "
+            f"on {card} (the process's start, its kernel builds and its "
+            f"run)" + (f"; {restarts} restart" if "train_lm" in script
+                       else ""))
+        check_all(f"example {cmd}", {
+            "exit 0": proc.returncode == 0,
+            f"ends with {ok!r}": bool(out) and out[-1] == ok,
+            **({"exactly one restart": restarts == 1}
+               if "--fail-at" in args else {}),
+        })
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2371,6 +2545,7 @@ def main() -> None:
     paths = [phase_edge_lstm(args.seed, smi)]
     release()
     phase_mensa()
+    phase_strategy()
     for serve in (phase_serve, phase_serve_recurrent, phase_serve_mamba):
         paths.append(serve(args.seed, smi))
         release()
@@ -2385,6 +2560,8 @@ def main() -> None:
     paths.append(phase_train(args.seed, smi, "qwen3-0.6b", steps=3))
     paths.append(phase_train(args.seed, smi, ENCDEC, steps=2))
     phase_train_resume(args.seed)
+    release()
+    phase_examples(smi)
     # launches: each path's run, counted from 0 just before it
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     kernels = [

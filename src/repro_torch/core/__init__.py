@@ -1,8 +1,10 @@
 """Mensa core: layer characterization, clustering, heterogeneous-accelerator
 cost models and the two-phase scheduler (paper §3-§5) — the port's copies of
 the JAX package's ``core/`` modules, which import only the standard library
-and numpy.  Its execution-strategy layer (``strategy.py``, ``executor.py``,
-priced on a datacenter chip) is not copied."""
+and numpy.  The execution-strategy layer (``strategy.py``, ``executor.py``)
+is copied too, priced on the H100 SXM (``h100.H100_SXM``) where the
+reference prices a TPU v5e; import it from its modules, as the reference's
+callers do."""
 from .accelerators import (BASE_HB, CLUSTER_TO_ACCELERATOR, EDGE_TPU, EYERISS_V2,
                            JACQUARD, MENSA_ACCELERATORS, PASCAL, PAVLOV,
                            AcceleratorConfig, by_name)

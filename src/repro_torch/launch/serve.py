@@ -17,7 +17,12 @@ arch's full-size config (characterize -> cluster -> cost,
 ``--policy fixed`` keeps the engine's own knobs; ``--policy-dump`` prints
 the plan as JSON and exits.  ``build_disagg_engine`` builds the
 disaggregated prefill/decode pair (``serve/disagg.py``) on the one device.  The plan's predicted times are those of the
-paper's modeled accelerators, not of the card.  ``--max-new``,
+paper's modeled accelerators, not of the card.  Before it serves, the CLI
+prints the arch's full-size Mensa prefill plan and both phases' strategy
+and overrides (``core.executor.phase_profiles``, an analytic model of a
+16 x 16 mesh of H100 SXM cards at 700 W from the datasheet's constants,
+not a measurement), and the engine runs each phase through its
+profile.  ``--max-new``,
 ``--min-bucket``, ``--max-prefill-per-step``, ``--max-prefill-batch``,
 ``--long-prompts``, ``--warmup``, ``--trace`` (the engine's Chrome trace),
 ``--metrics-json`` (the stats summary, its ``programs`` section included:
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config, reduced_config
+from ..core.executor import phase_profiles
 from ..models import build_model
 from ..obs import profile_trace
 from ..serve.disagg import DisaggEngine
@@ -78,6 +84,19 @@ def _resolve_policy(cfg, policy, backend: str, *, slots: int, max_len: int,
                      f"PlacementPlan, got {policy!r}")
 
 
+def _phase_models(cfg, model, profiles) -> dict:
+    """The prefill and decode models of the Mensa execution profiles
+    ``profiles`` (a (prefill, decode) pair): each phase's config is its
+    profile applied to ``cfg`` (runtime-safe overrides only), and a phase
+    model, over ``model``'s parameter tensors, is built only where that
+    config differs from ``cfg``."""
+    out = {}
+    for key, prof in zip(("prefill_model", "decode_model"), profiles):
+        phase_cfg = prof.apply(cfg, runtime_only=True)
+        out[key] = model.with_config(phase_cfg) if phase_cfg != cfg else None
+    return out
+
+
 def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
                  min_bucket: int = 16, max_bucket: int | None = None,
                  max_prefill_per_step: int = 1, max_prefill_batch: int = 4,
@@ -85,7 +104,7 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
                  kv_block_size: int | None = None,
                  kv_blocks: int | None = None,
                  prefix_cache: bool = True, device: str = "cuda",
-                 seed: int = 0, policy="auto",
+                 seed: int = 0, plan_cfg=None, profiles=None, policy="auto",
                  program_memory: bool = False) -> ServeEngine:
     """An engine for ``cfg`` over ``model`` (default: a model with random
     weights from ``seed`` on ``device``).  ``max_bucket`` caps the prefill
@@ -98,14 +117,26 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
     as it is.  A plan picks the bucket ladder and the prefill chunk, which
     explicit ``prefill_chunk`` still beats; every geometry serves the same
     tokens.  ``program_memory``: measure each program's memory at warmup
-    (``ServeEngine``)."""
+    (``ServeEngine``).
+
+    The prefill and decode programs run through their Mensa execution
+    profiles (``core.executor.phase_profiles(plan_cfg or cfg,
+    policy=plan)``; pass ``profiles``, a (prefill, decode) pair, to reuse
+    computed ones), as the reference routes them: runtime-safe overrides
+    only, each phase model over the one set of parameters.  Plan a cut
+    config at its full size with ``plan_cfg`` (a reduced MoE's 4 experts
+    leave the decode shape no legal strategy on the 16-way model axis, so
+    its plan raises, as the reference's does)."""
     backend = (model.device if model is not None
                else torch.device(device)).type
     plan = _resolve_policy(cfg, policy, backend, slots=slots,
                            max_len=max_len, min_bucket=min_bucket,
                            max_bucket=max_bucket)
+    if profiles is None:
+        profiles = phase_profiles(plan_cfg or cfg, policy=plan)
     if model is None:
         model = build_model(cfg, device=device, seed=seed)
+    phases = _phase_models(cfg, model, profiles)
     buckets = None
     if max_bucket is not None:
         buckets = prefill_buckets(min(max_bucket, max_len), min_bucket)
@@ -115,7 +146,7 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
         max_prefill_batch=max_prefill_batch, prefill_chunk=prefill_chunk,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
         prefix_cache=prefix_cache, policy=plan,
-        program_memory=program_memory)
+        program_memory=program_memory, **phases)
 
 
 def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
@@ -127,7 +158,8 @@ def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
                         kv_block_size: int | None = None,
                         kv_blocks: int | None = None,
                         prefix_cache: bool = True, device: str = "cuda",
-                        seed: int = 0, policy="auto",
+                        seed: int = 0, plan_cfg=None, profiles=None,
+                        policy="auto",
                         program_memory: bool = False) -> DisaggEngine:
     """The disaggregated counterpart of :func:`build_engine`: a prefill and
     a decode engine over ``model`` on its one device (the reference's
@@ -135,14 +167,19 @@ def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
     at ``slots=decode_slots``, as the reference resolves it; knob
     precedence is ``build_engine``'s, and the plan's ``per_role`` knobs
     give the prefill role its buckets and chunk (the decode role takes
-    none)."""
+    none).  ``plan_cfg`` and ``profiles`` as in ``build_engine``: the
+    prefill role runs the prefill phase's model, the decode role the
+    decode phase's."""
     backend = (model.device if model is not None
                else torch.device(device)).type
     plan = _resolve_policy(cfg, policy, backend, slots=decode_slots,
                            max_len=max_len, min_bucket=min_bucket,
                            max_bucket=max_bucket)
+    if profiles is None:
+        profiles = phase_profiles(plan_cfg or cfg, policy=plan)
     if model is None:
         model = build_model(cfg, device=device, seed=seed)
+    phases = _phase_models(cfg, model, profiles)
     buckets = None
     if max_bucket is not None:
         buckets = prefill_buckets(min(max_bucket, max_len), min_bucket)
@@ -153,7 +190,7 @@ def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
         max_prefill_batch=max_prefill_batch, prefill_chunk=prefill_chunk,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
         prefix_cache=prefix_cache, policy=plan,
-        program_memory=program_memory)
+        program_memory=program_memory, **phases)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -239,11 +276,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict | None:
     args = build_parser().parse_args(argv)
+    # planned at the arch's full size, as the JAX CLI plans
+    plan_cfg = get_config(args.arch)
     plan = None
     if args.policy == "auto" or args.policy_dump:
-        # planned at the arch's full size, as the JAX CLI plans
         plan = ExecutionOracle(
-            get_config(args.arch), slots=args.slots, max_len=args.max_len,
+            plan_cfg, slots=args.slots, max_len=args.max_len,
             min_bucket=args.min_bucket, max_bucket=args.max_bucket,
             backend=args.device).resolve()
     if args.policy_dump:
@@ -253,6 +291,13 @@ def main(argv=None) -> dict | None:
         print(f"[serve] placement plan ({plan.source}, backend "
               f"{plan.backend}): clusters {list(plan.layer_clusters)} "
               f"chunk={plan.prefill_chunk} buckets={list(plan.buckets)}")
+    prefill_prof, decode_prof = phase_profiles(plan_cfg, policy=plan)
+    print(f"[serve] Mensa prefill plan for {args.arch}:")
+    print(prefill_prof.plan.summary())
+    print(f"[serve] prefill strategy={prefill_prof.strategy} "
+          f"overrides={prefill_prof.cfg_overrides}")
+    print(f"[serve] decode  strategy={decode_prof.strategy} "
+          f"overrides={decode_prof.cfg_overrides}")
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     engine = build_engine(
         cfg, slots=args.slots, max_len=args.max_len,
@@ -262,6 +307,7 @@ def main(argv=None) -> dict | None:
         prefill_chunk=args.prefill_chunk,
         kv_block_size=args.kv_block_size or None, kv_blocks=args.kv_blocks,
         prefix_cache=args.prefix_cache, device=args.device, seed=args.seed,
+        plan_cfg=plan_cfg, profiles=(prefill_prof, decode_prof),
         policy=plan if plan is not None else "fixed",
         program_memory=args.program_memory)
     if args.warmup:

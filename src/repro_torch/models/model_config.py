@@ -12,11 +12,22 @@ the kernel or the plain version from the device of the tensors they get.
 placement oracle (``serve/placement.py``), and it is the chunk of
 ``chunked_linear_scan``, the recurrences' differentiable route in training
 (as ``_chunked_linear_scan``'s in the JAX package).
+``LEFT_OUT_KNOBS`` names the knobs left out; an execution profile
+(``core/executor.py``) that sets one of them changes nothing here.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+#: the JAX package's ``ArchConfig`` fields that this copy leaves out by
+#: design: ``remat`` (the port never recomputes activations), ``unroll_scans``
+#: (no tracer to unroll for), ``attn_block_kv`` and ``attn_f32`` (the flash
+#: kernel's own tiling and float32 accumulators), and the kernel-variant
+#: switches ``attn_impl``, ``rglru_impl`` and ``ssm_impl`` (the wrappers pick
+#: the kernel or the plain version by the tensor's device)
+LEFT_OUT_KNOBS = ("remat", "unroll_scans", "attn_block_kv", "attn_f32",
+                  "attn_impl", "rglru_impl", "ssm_impl")
 
 
 @dataclass(frozen=True)
@@ -72,6 +83,12 @@ class ArchConfig:
         """Embedding rows padded to a multiple of 16, as the JAX package
         pads them (its weights bridge over row for row)."""
         return -(-self.vocab_size // 16) * 16
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when no block needs a full-length dense KV cache — the
+        assignment's criterion for running long_500k."""
+        return all(k in ("rec", "ssm", "local") for k in set(self.layer_kinds))
 
     @property
     def is_encdec(self) -> bool:

@@ -50,6 +50,8 @@ autograd differentiates through the cast.  ``H·hd`` need not equal
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -538,6 +540,26 @@ class Model(nn.Module):
             AttnBlock(cfg, "enc", dev, train) for _ in range(cfg.enc_layers))
         self.enc_norm, self.enc_norm_bias = \
             _norm_params(cfg, dev, train) if cfg.is_encdec else (None, None)
+
+    def with_config(self, cfg: ArchConfig) -> "Model":
+        """This model under ``cfg``, over the same parameter tensors (no
+        copy): a serving phase's model (``launch.serve.build_engine``).
+        ``cfg`` may differ from ``self.cfg`` only in the runtime-safe knobs
+        (``core.executor.RUNTIME_SAFE_KEYS``), which leave every
+        parameter's shape as it is; ``self`` when nothing differs."""
+        from ..core.executor import RUNTIME_SAFE_KEYS
+        if cfg == self.cfg:
+            return self
+        changed = {f.name for f in dataclasses.fields(cfg)
+                   if getattr(cfg, f.name) != getattr(self.cfg, f.name)}
+        unsafe = sorted(changed - RUNTIME_SAFE_KEYS)
+        if unsafe:
+            raise ValueError(f"{cfg.name}: a phase model shares the "
+                             f"parameters, so it may change only runtime-"
+                             f"safe knobs, not {unsafe}")
+        phase = copy.copy(self)         # the same submodules and parameters
+        phase.cfg = cfg
+        return phase
 
     # ------------------------------------------------------------------- init
     @torch.no_grad()

@@ -48,7 +48,9 @@ class DisaggEngine:
     ``policy`` (a ``serve.placement.PlacementPlan``) supplies per-role
     bucket/chunk knobs through ``plan.per_role``; explicit constructor
     arguments still win, as in ``ServeEngine``.  ``program_memory`` goes to
-    both role engines (``ServeEngine``).
+    both role engines (``ServeEngine``); ``prefill_model`` to the prefill
+    role and ``decode_model`` to the decode role, as the reference wires
+    them.
     """
 
     def __init__(self, model: Model, *, prefill_slots: int = 4,
@@ -61,6 +63,8 @@ class DisaggEngine:
                  kv_block_size: int | None = None,
                  kv_blocks: int | None = None,
                  prefix_cache: bool = True,
+                 prefill_model: Model | None = None,
+                 decode_model: Model | None = None,
                  policy: PlacementPlan | None = None,
                  tracer: Tracer | None = None,
                  program_memory: bool = False):
@@ -86,13 +90,14 @@ class DisaggEngine:
             prefill_chunk=knob(prefill_chunk, pre_kn, "prefill_chunk"),
             max_prefill_per_step=max_prefill_per_step,
             max_prefill_batch=max_prefill_batch,
-            prefix_cache=prefix_cache, track_base=0, **common)
+            prefix_cache=prefix_cache, prefill_model=prefill_model,
+            track_base=0, **common)
         self.decode = ServeEngine(
             model, role="decode", slots=decode_slots,
             buckets=tuple(dec_buckets) if dec_buckets else None,
             prefill_chunk=knob(prefill_chunk, dec_kn, "prefill_chunk"),
-            prefix_cache=False, track_base=self.prefill._trk_engine + 1,
-            **common)
+            prefix_cache=False, decode_model=decode_model,
+            track_base=self.prefill._trk_engine + 1, **common)
         # suitcases exported but not yet adopted (FIFO; self-contained
         # copies, so the prefill slot is already free while these wait)
         self._pending: list = []

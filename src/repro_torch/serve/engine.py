@@ -308,7 +308,9 @@ class ServeEngine:
                  role: str = "both",
                  track_base: int = 0,
                  tracer: Tracer | None = None,
-                 program_memory: bool = False):
+                 program_memory: bool = False,
+                 prefill_model: Model | None = None,
+                 decode_model: Model | None = None):
         """``min_bucket``: the smallest prompt bucket of the default ladder.
         ``max_prefill_per_step``: queued requests admitted per tick.
         ``max_prefill_batch``: rows of one batched prefill (capped at
@@ -344,7 +346,13 @@ class ServeEngine:
         (``obs.programs.measure_call``: argument and output bytes, and on
         the card the allocator's temp and peak watermarks); the
         ``programs`` section carries the static FLOPs and bytes either
-        way."""
+        way.
+
+        ``prefill_model`` / ``decode_model``: the models bucketed and
+        chunked prefill and the decode step run (default ``model``), each
+        ``model`` under its phase's execution profile
+        (``Model.with_config``, over ``model``'s parameter tensors; built by
+        ``launch.serve.build_engine``)."""
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role {role!r} not in "
                              f"('both', 'prefill', 'decode')")
@@ -353,6 +361,16 @@ class ServeEngine:
         self.tracer = tracer if tracer is not None else Tracer()
         self.model = model
         self.device = model.device
+        # per-phase models (Mensa: compute-centric prefill, memory-centric
+        # decode), each over model's parameter tensors
+        self.prefill_model = prefill_model or model
+        self.decode_model = decode_model or model
+        own = [id(p) for p in model.parameters()]
+        for phase in (self.prefill_model, self.decode_model):
+            if [id(p) for p in phase.parameters()] != own:
+                raise ValueError("a phase model must share the engine "
+                                 "model's parameter tensors "
+                                 "(Model.with_config)")
         self.slots = slots
         self.max_len = max_len
         if not buckets and policy is not None and policy.buckets:
@@ -654,7 +672,8 @@ class ServeEngine:
                     st.kv.k, st.kv.v, torch.zeros(
                         (n,), dtype=torch.int32, device=self.device))))
             else:
-                out.append(self.model.init_block_state(i, n, self.max_len))
+                out.append(self.prefill_model.init_block_state(
+                    i, n, self.max_len))
         return out
 
     # -------------------------------------------------------------- prefill
@@ -668,7 +687,7 @@ class ServeEngine:
             lens[i] = len(req.prompt)
         slots_real = [slot for slot, _ in members]
         with self._timed("prefill") as tm:
-            logits, rows = self.model.prefill(
+            logits, rows = self.prefill_model.prefill(
                 self._tensor(toks), self._fresh_states(nb),
                 length=self._tensor(lens),
                 block_table=self._tables_for(slots_real, nb))
@@ -714,7 +733,7 @@ class ServeEngine:
         toks = np.zeros((1, c), np.int64)
         toks[0, :n] = piece
         with self._timed("prefill_chunk") as tm:
-            logits, rows = self.model.prefill(
+            logits, rows = self.prefill_model.prefill(
                 self._tensor(toks), _gather_slot(self.states, slot),
                 length=self._tensor(np.asarray([n], np.int32)),
                 offset=self._tensor(np.asarray([off], np.int32)),
@@ -912,8 +931,10 @@ class ServeEngine:
         kind = name.split("[")[0]
         if self.kv is not None:
             geometry = dict(geometry, kv_block_size=self.kv.block_size)
+        cfg = {"prefill": self.prefill_model, "chunk": self.prefill_model,
+               "decode": self.decode_model}.get(kind, self.model).cfg
         e = self.programs.register(
-            name, program_cost(self.model.cfg, kind, max_len=self.max_len,
+            name, program_cost(cfg, kind, max_len=self.max_len,
                                **geometry),
             phase=PROGRAM_PHASES[kind], program="_" + kind)
         if not self._program_memory:
@@ -946,20 +967,21 @@ class ServeEngine:
                 for b in self.buckets:
                     for nb in self.batch_buckets:
                         warm(f"prefill[{nb}x{b}]", dict(batch=nb, seq=b),
-                             self.model.prefill, tokens(nb, b),
+                             self.prefill_model.prefill, tokens(nb, b),
                              self._fresh_states(nb), length=zeros(nb) + 1,
                              block_table=self._warm_table(nb))
                 if self.max_len - 1 > self.buckets[-1] \
                         or (self.kv is not None and self.kv.prefix_enabled):
                     warm("chunk", dict(seq=self.prefill_chunk),
-                         self.model.prefill, tokens(1, self.prefill_chunk),
+                         self.prefill_model.prefill,
+                         tokens(1, self.prefill_chunk),
                          _gather_slot(self.states, 0), length=zeros(1) + 1,
                          offset=zeros(1), block_table=self._warm_table(1))
                 if self.kv is not None:
                     warm("copy", {}, self._copy_blocks, 0, 0)
             if self.role != "prefill":
                 warm("decode", dict(batch=self.slots),
-                     self.model.decode_step, tokens(self.slots, 1),
+                     self.decode_model.decode_step, tokens(self.slots, 1),
                      self.states, zeros(self.slots),
                      active=torch.zeros((self.slots,), dtype=torch.bool,
                                         device=dev),
@@ -1062,7 +1084,7 @@ class ServeEngine:
             toks[i, 0] = req.generated[-1] if req.generated \
                 else req.prompt[-1]
         with self._timed("decode") as tm:
-            logits, self.states = self.model.decode_step(
+            logits, self.states = self.decode_model.decode_step(
                 self._tensor(toks), self.states, self._tensor(self.positions),
                 active=self._tensor(mask), block_table=self._decode_table())
             rows = self._tensor(np.asarray(active, np.int64))

@@ -140,6 +140,14 @@ class PlacementPlan:
         """``{"prefill": {...}, "decode": {...}}`` view of ``role_knobs``."""
         return {role: dict(kv) for role, kv in self.role_knobs}
 
+    @property
+    def prefill_cfg_overrides(self) -> dict:
+        return dict(self.prefill_overrides)
+
+    @property
+    def decode_cfg_overrides(self) -> dict:
+        return dict(self.decode_overrides)
+
     def policy_for(self, kind: str) -> ExecutionPolicy | None:
         for p in self.policies:
             if kind in p.kinds:

@@ -1087,8 +1087,10 @@ def test_reduced_moe_serves_with_its_launch_counts_on_card(cuda, arch, cap):
     """Reduced MoE, float32, paged blocks of 8, the auto plan: one flash
     launch a layer and prefill call, one paged launch a layer and decode
     step; a second engine on the same model serves the same tokens (at
-    capacity 1.25 the dead slots and padding rows take expert places)."""
-    from repro_torch.configs import reduced_config
+    capacity 1.25 the dead slots and padding rows take expert places).
+    Planned at full size (``plan_cfg``): the reduced config's 4 experts
+    leave the planner's decode shape no legal strategy."""
+    from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch.serve import build_engine
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request
@@ -1098,7 +1100,7 @@ def test_reduced_moe_serves_with_its_launch_counts_on_card(cuda, arch, cap):
 
     def serve():
         eng = build_engine(cfg, model, slots=3, max_len=128, max_bucket=32,
-                           kv_block_size=8)
+                           kv_block_size=8, plan_cfg=get_config(arch))
         rng = np.random.RandomState(2)
         reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size,
                                                   n).tolist(),
@@ -1119,6 +1121,50 @@ def test_reduced_moe_serves_with_its_launch_counts_on_card(cuda, arch, cap):
     first = serve()
     assert all(0 <= t < cfg.vocab_size for g in first for t in g)
     assert serve() == first
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_profile_serves_the_same_tokens_on_card(cuda, arch):
+    """Reduced MoE, float32, planned at full size (``plan_cfg``): profiles
+    whose decode phase carries ``moe_impl="ragged"`` give the engine a
+    decode model over the same parameter storage, and at the reduced
+    capacity (no drops) it serves the tokens of the engine without
+    profiles (the einsum route at both phases), with the same launches."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.executor import ExecutionProfile, phase_profiles
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request
+    cfg = reduced_config(arch).replace(compute_dtype="float32")
+    model = build_model(cfg, device=cuda, seed=0)
+    pre, dec = phase_profiles(get_config(arch))
+    ragged = (pre, ExecutionProfile(dec.arch, dec.shape, dec.strategy,
+                                    {**dec.cfg_overrides,
+                                     "moe_impl": "ragged"}, dec.plan))
+
+    def serve(**kw):
+        eng = build_engine(cfg, model, slots=3, max_len=128, max_bucket=32,
+                           kv_block_size=8, plan_cfg=get_config(arch), **kw)
+        rng = np.random.RandomState(4)
+        reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size,
+                                                  n).tolist(),
+                        max_new_tokens=6) for i, n in enumerate((5, 70, 20))]
+        before = (fa.launches.n, pa.launches.n)
+        eng.run(reqs, on_truncate="raise")
+        launches = (fa.launches.n - before[0], pa.launches.n - before[1])
+        return eng, [r.generated for r in reqs], launches
+
+    plain, want, plain_launches = serve()
+    eng, got, launches = serve(profiles=ragged)
+    assert plain.decode_model is plain.model
+    assert eng.decode_model is not eng.model
+    assert eng.decode_model.cfg.moe_impl == "ragged"
+    assert eng.prefill_model is eng.model and model.cfg.moe_impl == "einsum"
+    assert [p.data_ptr() for p in eng.decode_model.parameters()] \
+        == [p.data_ptr() for p in model.parameters()]
+    assert got == want and launches == plain_launches
+    assert eng.stats.summary()["nonfinite_logits"] == 0
 
 
 @pytest.mark.gpu

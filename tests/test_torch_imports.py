@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package (``repro``)."""
+"""The port stands alone: no module of ``src/repro_torch``, no port example
+(``examples/*_torch.py``) and not ``chip_smoke.py`` imports JAX or the JAX
+package (``repro``)."""
 import ast
 from pathlib import Path
 
@@ -28,12 +29,16 @@ def _imported(path: Path) -> set[str]:
 
 def _files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+        + sorted((ROOT / "examples").glob("*_torch.py")) \
         + [ROOT / "chip_smoke.py"]
 
 
 def test_port_has_files():
     files = _files()
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    examples = {p.name for p in files if p.parent.name == "examples"}
+    assert {"mensa_schedule_torch.py", "quickstart_torch.py",
+            "serve_edge_torch.py", "train_lm_torch.py"} <= examples
 
 
 @pytest.mark.parametrize("path", _files(),
