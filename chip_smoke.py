@@ -119,6 +119,20 @@ Phases, one line or block of output each; any failure exits non-zero:
       expert-bank bytes a tick reads beside their time at 3.35 TB/s, and
       the decode capacity (1 per expert at 4 slots: a tick drops every
       second assignment to an expert, as the reference does);
+6b. mesh serve — a.-c. again (qwen3-0.6b, recurrentgemma-2b,
+   falcon-mamba-7b), at full width from the same seed with the same
+   requests, on ``launch.mesh.make_serve_mesh()`` (one card: a 1-rank
+   NCCL group, data 1 x model 1) through ``build_engine(mesh=...,
+   param_strategy=...)``, "tp" then "auto": the parameters and states
+   DTensors, each kernel on its shard under ``local_map``.  Each run must
+   give phase 6's meshless tokens and launches (flash 168 and paged 924;
+   flash 32 and RG-LRU 1350; SSM 4480) and every check ``serve_auto``
+   makes, and prints its decode step beside the meshless one's.  Then the
+   serving CLI at full width (qwen3-0.6b, 8 requests) with ``--mesh off``
+   and with ``--mesh auto`` under ``torch.distributed.run --standalone``,
+   one process a card; on a machine of n >= 2 cards also qwen3-0.6b at
+   (n/2)x2 and 1xn and falcon-mamba-7b at 1xn (``mesh_cli_cases``): every
+   run must exit 0 and each mesh's tokens equal ``--mesh off``'s;
 7. train — full-width qwen3-0.6b (28 layers, 3 steps) and
    seamless-m4t-medium (12 encoder + 12 decoder layers, vocab 256,206, 2
    steps) through ``launch.train.train_once`` on the card: bf16 compute on
@@ -154,6 +168,8 @@ import argparse
 import gc
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -1690,6 +1706,17 @@ SERVE_OPTIONS = {"internvl2-2b": dict(engine_kw=dict(prefix_cache=False),
                                       min_chunks=0, min_prefix_hits=0)}
 #: the path served with ``program_memory=True`` (both its runs)
 MEMORY_ARCH = "qwen3-0.6b"
+#: phase 6's meshless serves, by arch (``serve_auto``): each run with its
+#: config, engine options, requests' factory and drive function, for 6b
+SERVED: dict = {}
+#: phase 6b: phase 6's first three paths again, on a mesh of every rank
+#: (one card: a 1-rank NCCL group), under each weight layout
+MESH_ARCHS = ("qwen3-0.6b", "recurrentgemma-2b", "falcon-mamba-7b")
+MESH_STRATEGIES = ("tp", "auto")
+#: phase 6b's CLI runs, ``--mesh off`` and ``--mesh auto`` under
+#: ``torch.distributed.run`` over every card, each in processes of its own
+MESH_CLI = ("--requests", "8", "--max-new", "16", "--max-len", "256")
+MESH_CLI_TIMEOUT_S = 300
 #: what the plan's predicted times are of: never the card
 MODELED = "modeled: the paper's Mensa accelerators, not the card"
 #: what the execution-strategy planner's seconds are of: never the card
@@ -1842,7 +1869,7 @@ def profile_checks(what: str, arch: str, calls: list, engines) -> dict:
 
 
 def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
-               make_requests, drive) -> dict:
+               make_requests, drive, label: str = "") -> dict:
     """Serve ``make_requests()`` through ``drive`` on an engine built by
     ``build_engine(policy="auto")`` over ``model``, warmed up first; the
     launch counters set to 0 just before the run and read just after.
@@ -1852,7 +1879,9 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
     own counts agree with them: one flash launch a layer and prefill call,
     one paged launch a layer and decode step; and unless the engine was
     built through ``phase_profiles(get_config(arch))`` with no runtime-safe
-    override, so that its phase models are its model."""
+    override, so that its phase models are its model.  ``label`` follows
+    ``what`` on the printed lines.  A run without a mesh is kept in
+    ``SERVED`` with its requests' factory for phase 6b."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_engine
@@ -1870,23 +1899,27 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
     plan, s = engine.policy, engine.stats.summary()
     run = dict(reqs=reqs, counts=counts, plan=plan, s=s,
                tbt_ms=tbt_ms(engine.stats))
-    say(f"[serve] {what} plan (auto, backend {plan.backend}): clusters "
+    if "mesh" not in engine_kw:
+        SERVED[what] = dict(run, cfg=cfg, engine_kw=engine_kw,
+                            make_requests=make_requests, drive=drive)
+    name = what + label
+    say(f"[serve] {name} plan (auto, backend {plan.backend}): clusters "
         f"{sorted(set(plan.layer_clusters))} over {len(plan.layer_clusters)}"
         f" layers, chunk {plan.prefill_chunk}, buckets {list(plan.buckets)}, "
         f"rule-vs-k-means {plan.rule_kmeans_agreement:.4f}; policies "
         + "; ".join(f"cluster {p.cluster} {list(p.kinds)} -> {p.accelerator}"
                     f", kernel {p.kernel} {list(p.variants)}"
                     for p in plan.policies))
-    say(f"[serve] {what} --policy auto: engine + warmup {warm:.1f} s; "
+    say(f"[serve] {name} --policy auto: engine + warmup {warm:.1f} s; "
         f"buckets {list(engine.buckets)}, chunk {engine.prefill_chunk}; "
         f"completed {s['requests_completed']}, tokens "
         f"{s['tokens_generated']}, prefill calls {s['prefill_calls']}, "
         f"chunks {s['prefill_chunks']}, non-finite logit rows "
         f"{s['nonfinite_logits']}, launches {counts}")
-    say(f"[serve] {what} {serve_line(s, card)}")
+    say(f"[serve] {name} {serve_line(s, card)}")
     pl = s["placement"]
     meas = pl["measured"]
-    say(f"[serve] {what} placement, predicted ({MODELED}): prefill chunk "
+    say(f"[serve] {name} placement, predicted ({MODELED}): prefill chunk "
         f"{pl['predicted']['prefill_chunk_s']:.6g} s, decode step "
         f"{pl['predicted']['decode_step_s']:.6g} s; measured on {card}: "
         f"prefill call {meas['prefill_call_s']:.6g} s, prefill token "
@@ -1894,11 +1927,11 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
         f"{meas['decode_step_s']:.6g} s; drift (measured / predicted) "
         + ", ".join(f"{ph} {d['ratio']:.4g}"
                     for ph, d in pl["drift"].get("phases", {}).items()))
-    say(f"[serve] {what} summary {json.dumps(s)}")
-    programs_report(what, s, engine, card)
+    say(f"[serve] {name} summary {json.dumps(s)}")
+    programs_report(name, s, engine, card)
     want = SERVE_LAUNCHES[what]
     paged = cfg.layer_kinds.count("attn") if "kv" in s else 0
-    check_all(f"serve {what}", {
+    check_all(f"serve {name}", {
         f"launches are {want}": {k: n for k, n in counts.items() if n}
             == want,
         "flash = attn layers x prefill calls, paged = attn layers x decode "
@@ -1909,7 +1942,7 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
             and plan.backend == "cuda"
             and all(p.kernel == "cuda" for p in plan.policies),
         "the placement drift is reported": bool(pl["drift"]),
-        **profile_checks(what, cfg.name, calls, [engine]),
+        **profile_checks(name, cfg.name, calls, [engine]),
     })
     del engine
     release()
@@ -2327,6 +2360,142 @@ def phase_serve_mamba(seed: int, card: str):
     return counts
 
 
+# ---------------------------------------------------------- 6b. mesh serve
+def phase_serve_mesh(seed: int, card: str) -> dict:
+    """Phase 6's qwen3-0.6b, recurrentgemma-2b and falcon-mamba-7b paths
+    again, at full width from the same seed and with the same requests,
+    through ``build_engine(mesh=make_serve_mesh(), param_strategy=...)``
+    under each of ``MESH_STRATEGIES`` (``serve_auto``, launch counters set
+    to 0 just before each run).  Fails unless each run's tokens and
+    launches are phase 6's meshless run's (so the kernels, not their plain
+    versions, ran inside ``local_map``) and its plan gives every cluster a
+    mesh axis; prints each run's decode step beside the meshless one's.
+    Returns the runs' launches, added."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import build_model
+    mesh = make_serve_mesh()
+    say(f"[mesh] {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+        f"{mesh.size()} rank(s) of a {dist.get_backend()} group on {card}")
+    total: dict = {}
+    for arch in MESH_ARCHS:
+        base = SERVED[arch]
+        cfg = base["cfg"]
+        model = build_model(cfg, device="cuda", seed=seed)
+        want = [r.generated for r in base["reqs"]]
+        for strategy in MESH_STRATEGIES:
+            run = serve_auto(arch, cfg, model, card,
+                             dict(base["engine_kw"], mesh=mesh,
+                                  param_strategy=strategy),
+                             base["make_requests"], base["drive"],
+                             label=f" mesh {strategy}")
+            got = [r.generated for r in run["reqs"]]
+            s, s0 = run["s"], base["s"]
+            say(f"[mesh] {arch} {strategy} on {card}: decode step "
+                f"{s['decode_step_ms']:.3f} ms ({s0['decode_step_ms']:.3f} "
+                f"ms without the mesh), {s['tokens_per_s']:.1f} tokens/s "
+                f"({s0['tokens_per_s']:.1f}), TTFT p50 "
+                f"{s['ttft_ms']['p50']:.2f} ms ({s0['ttft_ms']['p50']:.2f}),"
+                f" over {s['decode_steps']} decode steps; sharding axes "
+                + ", ".join(f"cluster {p.cluster} {p.sharding_axis}"
+                            for p in run["plan"].policies)
+                + f"; first divergent token {first_divergence(got, want)}")
+            check_all(f"mesh {arch} {strategy}", {
+                "tokens equal phase 6's meshless run's": got == want,
+                "launches equal phase 6's meshless run's":
+                    run["counts"] == base["counts"],
+                "every cluster has a mesh axis": all(
+                    p.sharding_axis in mesh.mesh_dim_names
+                    for p in run["plan"].policies),
+            })
+            for k, n in run["counts"].items():
+                total[k] = total.get(k, 0) + n
+        del model
+        release()
+    dist.destroy_process_group()
+    return total
+
+
+def run_bounded(cmd: list, timeout: float):
+    """``cmd`` in a process group of its own, its output captured; at
+    ``timeout`` the whole group is killed (a launcher's workers too)."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"{' '.join(cmd[:6])}... did not end within {timeout} s")
+    return proc.returncode, out, err
+
+
+def mesh_cli_cases(n: int) -> list:
+    """(arch, extra CLI options, meshes) for ``n`` cards: qwen3-0.6b
+    (paged) at ``auto`` (data-parallel over every card); with two cards or
+    more also the tensor-parallel meshes ``(n/2)x2`` and ``1xn`` (the
+    striped pool and head-split caches, the Partial sums over NCCL), and
+    falcon-mamba-7b (its width split) at ``1xn``.  Each is held against
+    ``--mesh off``."""
+    if n < 2:
+        return [("qwen3-0.6b", (), ("auto",))]
+    tp = list(dict.fromkeys(f"{n // k}x{k}" for k in (2, n) if n % k == 0))
+    return [("qwen3-0.6b", (), ("auto", *tp)),
+            ("falcon-mamba-7b", ("--kv-block-size", "0"), (f"1x{n}",))]
+
+
+def phase_serve_mesh_cli(card: str) -> None:
+    """The serving CLI at full width (``MESH_CLI``) for each of
+    ``mesh_cli_cases``: once with ``--mesh off`` in a plain process and
+    once for each mesh under ``torch.distributed.run --standalone`` with
+    one process a card, each writing its tokens (``--tokens-json``, under
+    the ignored ``build/``).  Fails unless every run exits 0 and each mesh
+    run's tokens are the meshless run's."""
+    import torch
+    n = torch.cuda.device_count()
+    where = ROOT / "build" / "mesh_cli"
+    where.mkdir(parents=True, exist_ok=True)
+    dist_run = [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", f"--nproc-per-node={n}"]
+    checks = {}
+    for arch, extra, meshes in mesh_cli_cases(n):
+        runs = {}
+        for mode in ("off", *meshes):
+            path = where / f"tokens_{arch}_{mode}.json"
+            path.unlink(missing_ok=True)
+            launcher = [sys.executable] if mode == "off" else dist_run
+            t0 = time.perf_counter()
+            rc, out, err = run_bounded(
+                launcher + ["-m", "repro_torch.launch.serve", "--arch", arch,
+                            *extra, *MESH_CLI, "--mesh", mode,
+                            "--tokens-json", str(path)],
+                MESH_CLI_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            lines = [line.strip() for line in out.splitlines()
+                     if line.startswith("[serve] mesh")
+                     or line.lstrip().startswith(('"tokens_per_s"',
+                                                  '"decode_step_ms"'))]
+            say(f"[mesh] CLI {arch} --mesh {mode}"
+                + (f" on {n} card(s) under torch.distributed.run"
+                   if mode != "off" else "")
+                + f": exit {rc} in {wall:.1f} s wall on {card} (processes' "
+                f"start, kernel builds, full width); " + " ".join(lines))
+            if rc:
+                for line in err.splitlines()[-20:]:
+                    say(f"[mesh] CLI --mesh {mode} stderr| {line}")
+                fail(f"the CLI for {arch} with --mesh {mode} exited {rc}")
+            runs[mode] = json.loads(path.read_text())
+        off = runs["off"]
+        checks[f"{arch}: every request generated"] = len(off) == 8 and all(
+            len(t) == 16 for t in off.values())
+        for mode in meshes:
+            checks[f"{arch}: --mesh {mode}'s tokens equal --mesh off's"] = \
+                runs[mode] == off
+    check_all("mesh CLI", checks)
+
+
 # ---------------------------------------------------------------- 7. train
 #: the train phase's geometry: global batch 8 of 128 tokens in 2
 #: microbatches, bf16 compute on float32 masters
@@ -2557,6 +2726,8 @@ def main() -> None:
         paths.append(phase_serve(args.seed, smi, arch,
                                  num_layers=MOE_SERVE_LAYERS[arch]))
         release()
+    paths.append(phase_serve_mesh(args.seed, smi))
+    phase_serve_mesh_cli(smi)
     paths.append(phase_train(args.seed, smi, "qwen3-0.6b", steps=3))
     paths.append(phase_train(args.seed, smi, ENCDEC, steps=2))
     phase_train_resume(args.seed)

@@ -32,9 +32,21 @@ each warmed program's FLOPs, bytes and share of the H100's roofline),
 are the JAX CLI's.  ``--kv-block-size``
 defaults to paged blocks of 16 tokens (the JAX CLI's default is dense KV);
 0 keeps every KV cache dense per slot (falcon-mamba has no KV cache: its
-conv and scan states are per slot either way).  The options of
-``repro.launch.serve`` that the port does not have yet (meshes and roles)
-are accepted by name only to fail with that message.
+conv and scan states are per slot either way).
+
+``--mesh`` (``off`` by default, ``auto`` for every rank data-parallel, or
+``DPxMP``), ``--dp`` / ``--mp`` and ``--param-strategy {tp,dp,auto}`` serve
+over a (data, model) device mesh (``launch/mesh.py``), SPMD: one process a
+card under ``torch.distributed.run``, every rank serving the same requests,
+rank 0 printing the summary and writing the files::
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.serve --arch qwen3-0.6b --mesh auto
+
+Without ``torch.distributed.run`` a mesh is a 1-rank group on the one card
+(gloo ranks with ``--device cpu``).  ``--roles`` (each role of the
+disaggregated pair on a disjoint submesh) is accepted by name only, to fail
+with that message.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config, reduced_config
 from ..core.executor import phase_profiles
@@ -52,32 +65,36 @@ from ..obs import profile_trace
 from ..serve.disagg import DisaggEngine
 from ..serve.engine import Request, ServeEngine, prefill_buckets
 from ..serve.placement import ExecutionOracle, PlacementPlan
+from .mesh import make_serve_mesh, parse_mesh_arg
 
-#: options of the JAX package's serving CLI that are not ported yet: the
-#: meshes and ``--param-strategy`` wait for the multi-device path;
+#: options of the JAX package's serving CLI that are not ported yet:
 #: ``--roles`` pins each role of the disaggregated pair to a disjoint
-#: submesh of N + M devices, so it waits for the same path (the pair itself
-#: runs on one device, ``build_disagg_engine``)
-NOT_PORTED = ("--mesh", "--dp", "--mp", "--roles", "--param-strategy")
+#: submesh of N + M devices, which is the next slice of the multi-device
+#: path (the pair itself runs on one device, ``build_disagg_engine``)
+NOT_PORTED = ("--roles",)
 
 
 class _NotPorted(argparse.Action):
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is an option of repro.launch.serve "
-                     f"that the port does not have yet")
+                     f"that the port does not have yet: each role of the "
+                     f"disaggregated pair on a disjoint submesh is the next "
+                     f"slice of the multi-device path")
 
 
 def _resolve_policy(cfg, policy, backend: str, *, slots: int, max_len: int,
-                    min_bucket: int,
-                    max_bucket: int | None) -> PlacementPlan | None:
+                    min_bucket: int, max_bucket: int | None,
+                    mesh_axes: tuple = ()) -> PlacementPlan | None:
     """The plan ``policy`` names: the oracle's for ``"auto"`` (resolved
-    for ``backend``), None for ``"fixed"``, a ``PlacementPlan`` as it is."""
+    for ``backend`` and a mesh of ``mesh_axes``), None for ``"fixed"``, a
+    ``PlacementPlan`` as it is."""
     if isinstance(policy, PlacementPlan):
         return policy
     if policy == "auto":
         return ExecutionOracle(
             cfg, slots=slots, max_len=max_len, min_bucket=min_bucket,
-            max_bucket=max_bucket, backend=backend).resolve()
+            max_bucket=max_bucket, mesh_axes=tuple(mesh_axes),
+            backend=backend).resolve()
     if policy == "fixed":
         return None
     raise ValueError(f"policy must be 'auto', 'fixed', or a "
@@ -105,7 +122,8 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
                  kv_blocks: int | None = None,
                  prefix_cache: bool = True, device: str = "cuda",
                  seed: int = 0, plan_cfg=None, profiles=None, policy="auto",
-                 program_memory: bool = False) -> ServeEngine:
+                 program_memory: bool = False, mesh=None,
+                 param_strategy: str = "tp") -> ServeEngine:
     """An engine for ``cfg`` over ``model`` (default: a model with random
     weights from ``seed`` on ``device``).  ``max_bucket`` caps the prefill
     buckets below max_len so longer prompts run the chunked path;
@@ -117,7 +135,11 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
     as it is.  A plan picks the bucket ladder and the prefill chunk, which
     explicit ``prefill_chunk`` still beats; every geometry serves the same
     tokens.  ``program_memory``: measure each program's memory at warmup
-    (``ServeEngine``).
+    (``ServeEngine``).  ``mesh`` serves over a (data, model) device mesh
+    (``launch.mesh.make_serve_mesh``), the weights laid out by
+    ``param_strategy`` ("tp", "dp" or "auto": per cluster from the plan's
+    ``sharding_axis``, ``launch.shardings.param_specs``); the auto plan is
+    then resolved with the mesh's axes.
 
     The prefill and decode programs run through their Mensa execution
     profiles (``core.executor.phase_profiles(plan_cfg or cfg,
@@ -131,7 +153,9 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
                else torch.device(device)).type
     plan = _resolve_policy(cfg, policy, backend, slots=slots,
                            max_len=max_len, min_bucket=min_bucket,
-                           max_bucket=max_bucket)
+                           max_bucket=max_bucket,
+                           mesh_axes=mesh.mesh_dim_names
+                           if mesh is not None else ())
     if profiles is None:
         profiles = phase_profiles(plan_cfg or cfg, policy=plan)
     if model is None:
@@ -146,7 +170,8 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
         max_prefill_batch=max_prefill_batch, prefill_chunk=prefill_chunk,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
         prefix_cache=prefix_cache, policy=plan,
-        program_memory=program_memory, **phases)
+        program_memory=program_memory, mesh=mesh,
+        param_strategy=param_strategy, **phases)
 
 
 def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
@@ -248,6 +273,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the metrics registry in Prometheus/"
                          "OpenMetrics text exposition format here (a "
                          "node_exporter textfile-collector drop-in)")
+    ap.add_argument("--tokens-json", default="",
+                    help="write each request's generated tokens as JSON "
+                         "here ({rid: [tokens]}): two runs' outputs compare "
+                         "token for token (a mesh run against --mesh off)")
     ap.add_argument("--program-memory",
                     action=argparse.BooleanOptionalAction, default=False,
                     help="measure each warmed program's memory at its "
@@ -268,14 +297,53 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy-dump", action="store_true",
                     help="print the resolved PlacementPlan as JSON and exit "
                          "without building the engine")
+    ap.add_argument("--mesh", default="off",
+                    help="device mesh for sharded serving: 'off' (default), "
+                         "'auto' (every rank, data-parallel), or 'DPxMP' "
+                         "(e.g. '4x2'); one process a card under "
+                         "torch.distributed.run, gloo ranks with --device "
+                         "cpu")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="data-parallel mesh axis (overrides --mesh; shards "
+                         "slots and the paged block pool)")
+    ap.add_argument("--mp", type=int, default=None,
+                    help="model-parallel mesh axis (overrides --mesh; Mensa "
+                         "cluster tensor parallelism)")
+    ap.add_argument("--param-strategy", default="tp",
+                    choices=("tp", "dp", "auto"),
+                    help="weight sharding template on a mesh: Mensa cluster "
+                         "TP, replicated-dp, or 'auto' — per cluster from "
+                         "the placement plan's sharding_axis (memory-centric "
+                         "clusters replicate, compute-centric ones take TP)")
     for opt in NOT_PORTED:
         ap.add_argument(opt, nargs="?", action=_NotPorted,
                         help=argparse.SUPPRESS)
     return ap
 
 
+def mesh_from_args(args):
+    """Resolve --mesh / --dp / --mp into a DeviceMesh (or None for
+    unsharded) on ``args.device``."""
+    if args.dp is not None or args.mp is not None:
+        return make_serve_mesh(args.dp, args.mp or 1, device=args.device)
+    return parse_mesh_arg(args.mesh, device=args.device)
+
+
 def main(argv=None) -> dict | None:
     args = build_parser().parse_args(argv)
+    started = dist.is_initialized()
+    try:
+        return _serve(args)
+    finally:
+        if dist.is_initialized() and not started:
+            dist.destroy_process_group()
+
+
+def _serve(args) -> dict | None:
+    mesh = mesh_from_args(args)
+    # on a mesh every rank serves; rank 0 alone prints and writes
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     # planned at the arch's full size, as the JAX CLI plans
     plan_cfg = get_config(args.arch)
     plan = None
@@ -283,22 +351,27 @@ def main(argv=None) -> dict | None:
         plan = ExecutionOracle(
             plan_cfg, slots=args.slots, max_len=args.max_len,
             min_bucket=args.min_bucket, max_bucket=args.max_bucket,
+            mesh_axes=mesh.mesh_dim_names if mesh is not None else (),
             backend=args.device).resolve()
     if args.policy_dump:
-        print(plan.dumps())
+        say(plan.dumps())
         return None
     if plan is not None:
-        print(f"[serve] placement plan ({plan.source}, backend "
+        say(f"[serve] placement plan ({plan.source}, backend "
               f"{plan.backend}): clusters {list(plan.layer_clusters)} "
               f"chunk={plan.prefill_chunk} buckets={list(plan.buckets)}")
     prefill_prof, decode_prof = phase_profiles(plan_cfg, policy=plan)
-    print(f"[serve] Mensa prefill plan for {args.arch}:")
-    print(prefill_prof.plan.summary())
-    print(f"[serve] prefill strategy={prefill_prof.strategy} "
+    say(f"[serve] Mensa prefill plan for {args.arch}:")
+    say(prefill_prof.plan.summary())
+    say(f"[serve] prefill strategy={prefill_prof.strategy} "
           f"overrides={prefill_prof.cfg_overrides}")
-    print(f"[serve] decode  strategy={decode_prof.strategy} "
+    say(f"[serve] decode  strategy={decode_prof.strategy} "
           f"overrides={decode_prof.cfg_overrides}")
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if mesh is not None:
+        say(f"[serve] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"over {mesh.size()} devices (param strategy "
+              f"{args.param_strategy})")
     engine = build_engine(
         cfg, slots=args.slots, max_len=args.max_len,
         min_bucket=args.min_bucket, max_bucket=args.max_bucket,
@@ -309,7 +382,8 @@ def main(argv=None) -> dict | None:
         prefix_cache=args.prefix_cache, device=args.device, seed=args.seed,
         plan_cfg=plan_cfg, profiles=(prefill_prof, decode_prof),
         policy=plan if plan is not None else "fixed",
-        program_memory=args.program_memory)
+        program_memory=args.program_memory, mesh=mesh,
+        param_strategy=args.param_strategy)
     if args.warmup:
         engine.warmup()
     rng = np.random.RandomState(args.seed)
@@ -344,19 +418,24 @@ def main(argv=None) -> dict | None:
     summary = engine.stats.summary()
     if prof is not None:
         summary["profile"] = prof
-    print(json.dumps(summary, indent=1))
+    say(json.dumps(summary, indent=1))
+    if not lead:
+        return summary
     if args.trace:
         engine.save_trace(args.trace)
-        print(f"[serve] trace written to {args.trace} "
+        say(f"[serve] trace written to {args.trace} "
               f"({len(engine.tracer)} events, {engine.tracer.dropped} "
               f"dropped) — load at ui.perfetto.dev")
     if args.metrics_json:
         Path(args.metrics_json).write_text(json.dumps(summary, indent=1)
                                            + "\n")
+    if args.tokens_json:
+        Path(args.tokens_json).write_text(json.dumps(
+            {r.rid: r.generated for r in reqs}) + "\n")
     if args.metrics_prom:
         Path(args.metrics_prom).write_text(
             engine.stats.metrics.to_prometheus())
-        print(f"[serve] Prometheus metrics written to {args.metrics_prom}")
+        say(f"[serve] Prometheus metrics written to {args.metrics_prom}")
     return summary
 
 

@@ -1,0 +1,358 @@
+"""Sharding strategies for serving — the Mensa clusters mapped to mesh
+layouts: the serving half of ``repro.launch.shardings`` over
+``torch.distributed`` DTensors.
+
+Each parameter gets a spec from its Mensa strategy cluster:
+
+* Pascal (compute-centric attn/FFN matmuls): Megatron column->row pairing —
+  only one collective per block on the forward pass.
+* Jacquard (huge-footprint, low-reuse): vocab/embedding tables and MoE expert
+  banks sharded on `model` and never gathered; compute moves to the shard.
+* Pavlov (recurrent): recurrence width (d_rnn / d_inner) sharded on `model`,
+  sequence kept local so the time scan has no cross-device dependency;
+  weights stay resident across the whole scan.
+
+A spec is a plain tuple with one entry per tensor dimension: ``None``
+(replicated), an axis name, or a tuple of axis names (the dimension split
+over those mesh axes, major first) — the reference's ``PartitionSpec``
+entries.  ``to_placements`` turns one into DTensor placements.  The port's
+layers are not stacked, so a spec has no stack axis: it is the reference's
+with that leading ``None`` dropped.
+
+Not ported yet (ROADMAP A7, the training mesh): ``batch_specs``,
+``state_specs`` and ``abstract_with_sharding``.
+"""
+from __future__ import annotations
+
+import copy
+
+import torch
+from torch import nn
+
+from ..bridge import layout
+from ..core.h100 import GIGA
+from ..models.attention import KVCache, PagedKVCache
+from ..models.model_config import ArchConfig
+from ..models.transformer import BlockState, Model
+from .mesh import data_axes
+
+Spec = tuple
+
+
+# ------------------------------------------------------------------ parameters
+def _base_spec(names: list[str], rank: int, is_moe: bool,
+               blockdiag_gates: bool = False,
+               dense_2d: bool = False) -> tuple:
+    """Spec entries for the *unstacked* rank of this parameter."""
+    name = names[-1]
+    in_moe = is_moe and "ffn" in names and "shared" not in names
+    # --- Jacquard cluster: big tables / expert banks, sharded & stationary
+    if name in ("embed", "lm_head"):
+        return ("model", None)
+    if in_moe and name in ("w_gate", "w_up"):
+        # experts on `model` (EP) + d_ff on `data` (FSDP-style 2D sharding):
+        # pure EP leaves the expert bank replicated across `data`
+        return ("model", None, "data")
+    if in_moe and name == "w_down":
+        return ("model", "data", None)
+    # --- Pascal cluster: Megatron column->row pairs.  For >20B-param archs
+    # the second mesh axis also shards the non-contracted weight dim
+    # (FSDP-style 2D) so replicated dense weights never exceed HBM.
+    if name in ("wq", "wk", "wv", "w_gate", "w_up", "w_in"):
+        return ("data" if dense_2d else None, "model")
+    if name in ("wo", "w_down", "w_out", "out_proj", "x_proj"):
+        return ("model", "data" if dense_2d else None)
+    if name in ("bq", "bk", "bv", "b_in"):
+        return ("model",)
+    if name in ("b_out",):
+        return (None,)
+    # --- Pavlov cluster: recurrence width on `model`
+    if name in ("w_x", "w_y", "in_proj", "dt_proj"):
+        return (None, "model")
+    if name in ("w_a", "w_i"):
+        # dense (rank 2): row-parallel (psum).  block-diagonal (rank 3,
+        # flagged): blocks on `model` -> fully local gate matmuls
+        if blockdiag_gates:
+            return ("model", None, None)
+        return ("model", None)
+    if name == "conv_w":
+        return (None, "model")
+    if name in ("lambda", "dt_bias", "d_skip"):
+        return ("model",)
+    if name == "a_log":
+        return ("model", None)
+    if name == "b":                        # lstm bias (4H,)
+        return ("model",)
+    if name == "w_h":
+        return (None, "model")
+    # --- small/replicated
+    return (None,) * rank
+
+
+# parameter-name families, used to route each leaf to the block kinds whose
+# ExecutionPolicy governs it under strategy="auto" (plan-aware sharding)
+_ATTN_PARAMS = frozenset(
+    {"wq", "wk", "wv", "wo", "bq", "bk", "bv"})
+_REC_PARAMS = frozenset(
+    {"w_x", "w_y", "in_proj", "dt_proj", "w_a", "w_i", "conv_w", "lambda",
+     "dt_bias", "d_skip", "a_log", "w_h", "b", "out_proj", "x_proj"})
+_FAMILY_KINDS = {
+    "attn": ("attn", "local", "dec", "enc"),
+    "rec": ("rec", "ssm"),
+    "ffn": ("ffn",),
+}
+
+
+def _family_of(names: list[str]) -> str | None:
+    name = names[-1]
+    if name in _ATTN_PARAMS:
+        return "attn"
+    if name in _REC_PARAMS:
+        return "rec"
+    if "ffn" in names or name in ("w_gate", "w_up", "w_down", "w_in",
+                                  "w_out", "b_in", "b_out"):
+        return "ffn"
+    return None
+
+
+def _plan_family_axes(plan) -> dict:
+    """family -> preferred mesh axis from the plan's per-cluster policies
+    (``ExecutionPolicy.sharding_axis``).  "model" wins when a family spans
+    clusters that disagree; families the plan says nothing about map to
+    None (the TP templates decide)."""
+    out = {}
+    for family, kinds in _FAMILY_KINDS.items():
+        axes = []
+        for k in kinds:
+            pol = plan.policy_for(k)
+            if pol is not None and pol.sharding_axis:
+                axes.append(pol.sharding_axis)
+        out[family] = ("model" if "model" in axes
+                       else (axes[0] if axes else None))
+    return out
+
+
+def param_specs(cfg: ArchConfig, model: Model, strategy: str = "tp",
+                plan=None) -> dict[str, Spec]:
+    """One spec per parameter of ``model`` (by its ``named_parameters``
+    name), from the reference's leaf name (``bridge.layout``) and the
+    tensor's rank; ``cfg`` decides the MoE, block-diagonal and 2-D flags
+    (it may be the full config of a reduced ``model``: a spec depends only
+    on the leaf's name and rank and on those flags).
+
+    strategy:
+      "tp"   — the Mensa cluster templates (Pascal-TP / Jacquard / Pavlov).
+      "dp"   — pascal_dp plan: every block parameter replicated; embeddings
+               stay Jacquard vocab-sharded.
+      "auto" — per-cluster, from ``plan`` (a
+               ``serve.placement.PlacementPlan``): families whose policy
+               prefers the "data" axis (memory-centric
+               clusters — they scale by replication over slots) drop to
+               replicated specs, families preferring "model" keep the TP
+               templates.  Embeddings always stay Jacquard vocab-sharded.
+               A plan with no policies (``fixed_plan``) degrades to "tp".
+    """
+    if strategy == "auto" and plan is None:
+        raise ValueError('param_specs(strategy="auto") needs a PlacementPlan '
+                         "(build the engine with a policy, or pass plan=...)")
+    family_axes = _plan_family_axes(plan) if strategy == "auto" else {}
+    is_moe = cfg.ffn_kind == "moe"
+    blockdiag = getattr(cfg, "rglru_gate_blocks", 0) > 0
+    dense_2d = cfg.param_count() > 20 * GIGA
+    params = dict(model.named_parameters())
+
+    def spec(names: list[str], rank: int) -> Spec:
+        if names[-1] not in ("embed", "lm_head"):
+            if strategy == "dp":
+                return (None,) * rank
+            if strategy == "auto":
+                fam = _family_of(names)
+                if fam is not None and family_axes.get(fam) == "data":
+                    return (None,) * rank
+        base = _base_spec(names, rank, is_moe, blockdiag, dense_2d)
+        pad = rank - len(base)
+        if pad < 0:       # scalar-ish leaf with generic base
+            base = base[-rank:] if rank else ()
+            pad = 0
+        return (None,) * pad + tuple(base)
+
+    return {leaf.name: spec([str(p) for p in leaf.path],
+                            params[leaf.name].dim())
+            for leaf in layout(model)}
+
+
+def local_config(cfg: ArchConfig, mesh, strategy: str = "tp",
+                 plan=None) -> ArchConfig:
+    """``cfg`` at the widths one rank of ``mesh`` computes with: the heads,
+    feed-forward width and recurrence width each divided by the ``model``
+    axis where ``strategy`` (``param_specs``'s) splits that family's
+    weights over it and the width splits evenly.  The program registry
+    counts a mesh engine's work at it (``obs/programs.py``)."""
+    mp = mesh_sizes(mesh).get("model", 1)
+    if mp == 1 or strategy == "dp":
+        return cfg
+    family_axes = _plan_family_axes(plan) if strategy == "auto" else {}
+
+    def split(family: str, *widths: int) -> bool:
+        return family_axes.get(family) != "data" \
+            and all(w and w % mp == 0 for w in widths)
+
+    kw = {}
+    if cfg.num_heads and split("attn", cfg.num_heads, cfg.num_kv_heads):
+        kw.update(num_heads=cfg.num_heads // mp,
+                  num_kv_heads=cfg.num_kv_heads // mp)
+    if cfg.ffn_kind in ("glu", "mlp") and split("ffn", cfg.d_ff):
+        kw["d_ff"] = cfg.d_ff // mp
+    for name in ("d_rnn", "d_inner"):
+        width = getattr(cfg, name)
+        if width and split("rec", width):
+            kw[name] = width // mp
+    return cfg.replace(**kw) if kw else cfg
+
+
+# ----------------------------------------------------------------- serve state
+def mesh_sizes(mesh) -> dict[str, int]:
+    """Axis name -> size of a ``DeviceMesh`` (or of anything with a
+    ``shape`` mapping, as the reference's meshes have)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names:
+        return dict(zip(names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def data_shards(mesh) -> int:
+    """How many ways the data axes split a batch."""
+    sizes = mesh_sizes(mesh)
+    n = 1
+    for a in data_axes(mesh):
+        n *= sizes[a]
+    return n
+
+
+def batch_axis(mesh, batch: int):
+    """The spec entry of a batch (slot) axis of ``batch`` rows: the data
+    axes when they split it evenly, else replicated (None)."""
+    nd = data_shards(mesh)
+    return data_axes(mesh) if batch % nd == 0 and batch >= nd else None
+
+
+def serve_state_specs(model: Model, mesh, slots: int, max_len: int, *,
+                      kv_block_size: int | None = None,
+                      kv_blocks: int | None = None) -> list[BlockState]:
+    """Specs mirroring ``Model.init_states`` for the SERVING path: one
+    ``BlockState`` of specs a layer.
+
+    The slot (batch) axis goes on the data axes — per-slot decode math
+    then never crosses a shard, which keeps a pure-dp mesh's tokens the
+    single-device engine's — and per-head / recurrence-width axes go on
+    ``model`` only when they divide the axis size.  A paged KV pool has no
+    batch axis; its BLOCK axis is sharded over the data axes instead (each
+    shard owns a contiguous stripe of physical blocks — the layout
+    serve/kvpool.py's per-shard accounting mirrors), falling back to
+    replicated when ``kv_blocks`` does not divide evenly."""
+    cfg = model.cfg
+    nd = data_shards(mesh)
+    mp = mesh_sizes(mesh).get("model", 1)
+    b = batch_axis(mesh, slots)
+    d = data_axes(mesh)
+    if kv_block_size is not None and kv_blocks is None:
+        kv_blocks = slots * (-(-max_len // kv_block_size))
+    blk = d if kv_blocks is not None and kv_blocks % nd == 0 \
+        and kv_blocks >= nd else None
+
+    def wax(n: int):
+        """`model` for a width/head axis only when it splits evenly."""
+        return "model" if mp > 1 and n and n % mp == 0 else None
+
+    def one(kind: str) -> BlockState:
+        if kind == "attn" and kv_block_size is not None:
+            pool = (blk, None, wax(cfg.num_kv_heads), None)
+            return BlockState(kv=PagedKVCache(k=pool, v=pool, length=(b,)))
+        if kind in ("attn", "local"):
+            cache = (b, None, wax(cfg.num_kv_heads), None)
+            return BlockState(kv=KVCache(k=cache, v=cache, length=(b,)))
+        if kind == "rec":
+            return BlockState(rec={"conv": (b, None, wax(cfg.d_rnn)),
+                                   "h": (b, wax(cfg.d_rnn))})
+        if kind == "ssm":
+            return BlockState(rec={"conv": (b, None, wax(cfg.d_inner)),
+                                   "h": (b, wax(cfg.d_inner), None)})
+        raise ValueError(kind)
+
+    return [one(kind) for kind in model.kinds]
+
+
+# ------------------------------------------------------------------ DTensors
+def to_placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(i)`` on each mesh
+    dim that entry ``i`` names, ``Replicate()`` on the rest — and on a mesh
+    dim of size 1, which splits nothing (DTensor's view rules would treat
+    a split length-1 axis as one to redistribute)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for m, name in enumerate(mesh.mesh_dim_names):
+        dims = [i for i, e in enumerate(spec)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        if len(dims) > 1:
+            raise ValueError(f"spec {spec} names mesh axis {name!r} twice")
+        out.append(Shard(dims[0]) if dims and mesh.size(m) > 1
+                   else Replicate())
+    return tuple(out)
+
+
+def local_part(tensor: torch.Tensor, mesh, placements):
+    """``tensor`` as a DTensor of ``placements`` when every rank holds the
+    same whole ``tensor`` (zeros, a host input): each rank keeps its own
+    chunk, contiguous (a kernel reads it as a dense array), with no
+    collective.  Shards split evenly (the serving specs shard only axes
+    that divide)."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = tensor
+    for dim, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.size(dim)
+            if local.shape[p.dim] % n:
+                raise ValueError(f"axis {p.dim} of {tuple(tensor.shape)} "
+                                 f"does not split {n} ways")
+            local = local.chunk(n, p.dim)[mesh.get_local_rank(dim)]
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False, shape=tensor.shape,
+                              stride=tensor.stride())
+
+
+def place_states(states: list[BlockState], specs: list[BlockState],
+                 mesh) -> list[BlockState]:
+    """``states`` (each rank's whole copy) as DTensors of ``specs``."""
+    def place(t, s):
+        return local_part(t, mesh, to_placements(s, mesh))
+
+    out = []
+    for st, sp in zip(states, specs):
+        if st.kv is not None:
+            out.append(BlockState(kv=type(st.kv)(
+                *(place(t, s) for t, s in zip(st.kv, sp.kv)))))
+        else:
+            out.append(BlockState(rec={k: place(a, sp.rec[k])
+                                       for k, a in st.rec.items()}))
+    return out
+
+
+def distribute_models(models: list[Model], mesh, strategy: str = "tp",
+                      plan=None) -> list[Model]:
+    """Copies of ``models`` (a model and its phase models, which share its
+    parameter tensors) whose parameters are DTensors on ``mesh``, laid out
+    by ``param_specs(models[0].cfg, ..., strategy, plan)``
+    (``distribute_tensor``: rank 0's values, scattered).  The copies share
+    the distributed parameters as the originals share theirs; the
+    originals stay plain tensors (a replicated parameter's DTensor holds
+    the original's storage: no copy on one card)."""
+    from torch.distributed.tensor import distribute_tensor
+    base = models[0]
+    specs = param_specs(base.cfg, base, strategy, plan)
+    memo = {}
+    for name, p in base.named_parameters():
+        memo[id(p)] = nn.Parameter(
+            distribute_tensor(p.detach(), mesh,
+                              to_placements(specs[name], mesh)),
+            requires_grad=False)
+    return [copy.deepcopy(m, memo) for m in models]

@@ -24,6 +24,7 @@ import torch
 from ..kernels.flash_attention.ops import flash_attention  # noqa: F401
 from ..kernels.paged_attention import ops as paged_ops
 from ..kernels.paged_attention.ops import scatter_paged, table_lookup
+from . import spmd
 from .common import apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -34,7 +35,6 @@ def qkv_project(params: dict, x: torch.Tensor, num_heads: int,
                 rope_theta: float, use_rope: bool = True):
     """x: (B,S,D) -> q (B,S,H,hd), k/v (B,S,KVH,hd); qk-norm before RoPE.
     The projections and biases are cast to x's dtype per call."""
-    b, s, _ = x.shape
     dt = x.dtype
     q = torch.matmul(x, params["wq"].to(dt))
     k = torch.matmul(x, params["wk"].to(dt))
@@ -43,9 +43,9 @@ def qkv_project(params: dict, x: torch.Tensor, num_heads: int,
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = q.reshape(b, s, num_heads, head_dim)
-    k = k.reshape(b, s, num_kv_heads, head_dim)
-    v = v.reshape(b, s, num_kv_heads, head_dim)
+    q = spmd.split_heads(q, num_heads, head_dim)
+    k = spmd.split_heads(k, num_kv_heads, head_dim)
+    v = spmd.split_heads(v, num_kv_heads, head_dim)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -333,6 +333,21 @@ def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
     return out, cache._replace(length=cache.length + inc)
 
 
+def paged_write(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor, block_table: torch.Tensor,
+                pos: torch.Tensor, valid: torch.Tensor | None = None) -> None:
+    """Write k/v (B,S,KVH,hd) at logical positions ``pos`` (B,S) through
+    the block table into the pools (N,bs,KVH,hd), IN PLACE.  Rows where
+    ``valid`` (B,S) is False drop their write, as do table entries >= N
+    and positions past the table's end."""
+    n, bs = pool_k.shape[0], pool_k.shape[1]
+    blk = table_lookup(block_table, pos // bs, n)
+    if valid is not None:
+        blk = torch.where(valid, blk, torch.full_like(blk, n))
+    scatter_paged(pool_k, blk, pos % bs, k)
+    scatter_paged(pool_v, blk, pos % bs, v)
+
+
 def paged_fill_cache(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor,
                      block_table: torch.Tensor, *,
                      length: torch.Tensor | None = None) -> PagedKVCache:
@@ -340,15 +355,9 @@ def paged_fill_cache(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor,
     right-padded; only rows < ``length`` are written.  Rows whose table row
     is all sentinel (batch padding) drop every write."""
     b, s = k.shape[0], k.shape[1]
-    n, bs = cache.k.shape[0], cache.k.shape[1]
     j = torch.arange(s, device=k.device)
-    blk = table_lookup(block_table, (j // bs).expand(b, s), n)
-    off = (j % bs).expand(b, s)
-    if length is not None:
-        valid = j[None, :] < length[:, None]
-        blk = torch.where(valid, blk, torch.full_like(blk, n))
-    scatter_paged(cache.k, blk, off, k)
-    scatter_paged(cache.v, blk, off, v)
+    paged_write(cache.k, cache.v, k, v, block_table, j.expand(b, s),
+                None if length is None else j[None, :] < length[:, None])
     new_len = cache.length + (s if length is None else length)
     return PagedKVCache(cache.k, cache.v, new_len.to(torch.int32))
 
@@ -365,14 +374,10 @@ def paged_chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, c, h, hd = q.shape
     _, _, kvh, _ = k.shape
     g = h // kvh
-    n, bs = cache.k.shape[0], cache.k.shape[1]
     scale = 1.0 / math.sqrt(hd)
     q_pos = offset[:, None].long() + torch.arange(c, device=q.device)[None]
-    blk = table_lookup(block_table, q_pos // bs, n)
-    valid = torch.arange(c, device=q.device)[None, :] < length[:, None]
-    blk = torch.where(valid, blk, torch.full_like(blk, n))
-    scatter_paged(cache.k, blk, q_pos % bs, k)
-    scatter_paged(cache.v, blk, q_pos % bs, v)
+    paged_write(cache.k, cache.v, k, v, block_table, q_pos,
+                torch.arange(c, device=q.device)[None, :] < length[:, None])
     ks, vs = gather_paged_kv(cache, block_table)               # (B,Smax,..)
     smax = ks.shape[1]
     qg = (q.reshape(b, c, kvh, g, hd) * scale).float()

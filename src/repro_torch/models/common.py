@@ -13,6 +13,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from . import spmd
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -49,7 +51,13 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq) integer.
-    Split-halves rotation (not interleaved pairs), in float32."""
+    Split-halves rotation (not interleaved pairs), in float32.  On a mesh
+    (DTensors) it runs on each rank's rows and heads (``spmd.rope``)."""
+    return spmd.rope(_rope, x, positions, theta)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          theta: float) -> torch.Tensor:
     head_dim = x.shape[-1]
     inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                         device=x.device) / head_dim))
@@ -64,6 +72,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ----------------------------------------------------------------------- embeds
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Rows ``tokens`` of ``table``, in ``compute_dtype``.  A DTensor table
+    (a mesh's, vocab-sharded) goes through ``F.embedding``, whose DTensor
+    rule looks each token up on the shard that holds it; both copy rows."""
+    if spmd.is_dtensor(table):
+        return F.embedding(tokens, table).to(compute_dtype)
     return table[tokens].to(compute_dtype)
 
 

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from ..kernels.pavlov_lstm.ops import pavlov_lstm
 from ..kernels.pavlov_rglru.ops import pavlov_rglru
 from ..kernels.pavlov_ssm.ops import pavlov_ssm
+from . import spmd
 from .common import fan_in_std, gelu
 
 #: ``a = sigmoid(lambda)^(C * r)``: the RG-LRU's fixed temperature
@@ -86,7 +87,15 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     ``state``: (B,K-1,C) trailing context of the previous segment.
     ``length``: (B,) valid prefix lengths of a right-padded x — the returned
     state is then the context trailing position ``length-1``, not S-1 (a
-    row with length 0 keeps its old state).  Returns (y, new_state)."""
+    row with length 0 keeps its old state).  Returns (y, new_state).  On a
+    mesh (a DTensor ``state``) it runs on each rank's rows and channels
+    (``spmd.conv``)."""
+    return spmd.conv(_causal_conv1d, x, w, state, length)
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                   state: torch.Tensor | None,
+                   length: torch.Tensor | None):
     k = w.shape[0]
     b, s, c = x.shape
     if state is None:
@@ -165,12 +174,20 @@ def rglru_core(params: dict, x: torch.Tensor,
             h0 = torch.zeros_like(a[:, 0])
         h, h_last = chunked_linear_scan(a, b, h0, scan_chunk)
         return h.to(dt), h_last
+    h, h_last = spmd.rglru_scan(_rglru_scan, a, b, h0)
+    return h.to(dt), h_last
+
+
+def _rglru_scan(a: torch.Tensor, b: torch.Tensor,
+                h0: torch.Tensor | None):
+    """The RG-LRU kernel wrapper over a, b (B,S,W) from ``h0``: (h float32,
+    h at the last step)."""
     if h0 is not None:
         # the kernel scans from h=0; folding a_0*h0 into b_0 gives the
         # h0-seeded recurrence (h_0 = a_0*h0 + b_0 either way)
         b[:, 0] += a[:, 0] * h0
     h = pavlov_rglru(a.contiguous(), b.contiguous())
-    return h.to(dt), h[:, -1].float()
+    return h, h[:, -1].float()
 
 
 def rglru_block(params: dict, x: torch.Tensor, *,
@@ -188,8 +205,9 @@ def rglru_block(params: dict, x: torch.Tensor, *,
     u = torch.matmul(x, params["w_x"].to(dt))
     conv_state = state["conv"] if state else None
     h0 = state["h"] if state else None
-    seq_mask = None if length is None else \
-        torch.arange(x.shape[1], device=x.device)[None, :] < length[:, None]
+    seq_mask = None if length is None else spmd.rows(
+        lambda n: torch.arange(x.shape[1], device=n.device)[None, :]
+        < n[:, None], length, length)
     u, new_conv = causal_conv1d(u, params["conv_w"].to(dt), conv_state,
                                 length=length)
     h, h_last = rglru_core(params, u, h0, seq_mask, scan_chunk)
@@ -277,8 +295,8 @@ def mamba_ssm(params: dict, x: torch.Tensor, dt_rank: int, d_state: int,
     a = -torch.exp(params["a_log"].to(f32))
     d_skip = params["d_skip"].to(f32)
     if scan_chunk is None:
-        y, h_last = pavlov_ssm(delta, xf, b_in.contiguous(),
-                               c_in.contiguous(), a, d_skip, h0, length)
+        y, h_last = spmd.ssm_scan(pavlov_ssm, delta, xf, b_in.contiguous(),
+                                  c_in.contiguous(), a, d_skip, h0, length)
         return y.to(x.dtype), h_last
     alpha = torch.exp(delta[..., None] * a)                  # (B,S,di,N)
     beta = (delta * xf)[..., None] * b_in[:, :, None, :]

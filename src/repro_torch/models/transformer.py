@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -61,6 +62,7 @@ from ..device import resolve_device
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import recurrent as rec_lib
+from . import spmd
 from .common import (cross_entropy_loss, embed_scaled, fan_in_std, gelu,
                      layer_norm, rms_norm, torch_dtype, unembed)
 from .ffn import glu_ffn, mlp_ffn
@@ -258,6 +260,35 @@ class AttnBlock(_Block):
         return attn_lib.flash_attention(q, k, v, causal=causal,
                                         window=window)
 
+    def _attend(self, q, k, v, kv, length, offset, block_table, *,
+                cfg: ArchConfig, mode: str):
+        """One layer's cache op and attention on plain tensors: the new K/V
+        written into ``kv`` (a dense cache, a window's ring or the paged
+        pool) and read back, as ``mode`` and ``offset`` say.  In decode a
+        0/1 ``length`` is the activity mask.  Returns (out, kv); on a mesh
+        it runs on each rank's shard (``spmd.attention``)."""
+        window = cfg.window if self.kind == "local" else 0
+        paged = isinstance(kv, attn_lib.PagedKVCache)
+        if mode == "decode":
+            wm = None if length is None else length > 0
+            if paged:
+                return attn_lib.paged_decode_attention(
+                    q, k, v, kv, block_table, write_mask=wm)
+            return attn_lib.decode_attention(q, k, v, kv, window=window,
+                                             write_mask=wm)
+        if mode == "prefill" and offset is not None:
+            if paged:
+                return attn_lib.paged_chunk_attention(
+                    q, k, v, kv, block_table, offset=offset, length=length)
+            return attn_lib.chunk_attention(
+                q, k, v, kv, offset=offset, length=length, window=window)
+        out = self._self_attention(cfg, q, k, v, mode)
+        if mode == "prefill":
+            kv = attn_lib.paged_fill_cache(kv, k, v, block_table,
+                                           length=length) if paged \
+                else _fill_cache(kv, k, v, window=window, length=length)
+        return out, kv
+
     def _cross(self, cfg: ArchConfig, x: torch.Tensor, positions, memory,
                mode: str) -> torch.Tensor:
         """What comes between the self-attention and the feed-forward:
@@ -277,41 +308,26 @@ class AttnBlock(_Block):
         encoder's output, which a ``dec`` block attends to.  Returns (x,
         new_state, load_balance): the last an MoE's float32 term in train
         mode, else None."""
-        window = cfg.window if self.kind == "local" else 0
         h = self._normed(cfg, "ln1", x)
         q, k, v = attn_lib.qkv_project(
             self.attn, h, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             positions, rope_theta=cfg.rope_theta,
             use_rope=self.kind != "enc")
-        kv = None if state is None else state.kv
-        paged = isinstance(kv, attn_lib.PagedKVCache)
-        if mode == "decode":
-            wm = None if length is None else length > 0
-            if paged:
-                out, kv = attn_lib.paged_decode_attention(
-                    q, k, v, kv, block_table, write_mask=wm)
-            else:
-                out, kv = attn_lib.decode_attention(
-                    q, k, v, kv, window=window, write_mask=wm)
-        elif mode == "prefill" and offset is not None:
-            if paged:
-                out, kv = attn_lib.paged_chunk_attention(
-                    q, k, v, kv, block_table, offset=offset, length=length)
-            else:
-                out, kv = attn_lib.chunk_attention(
-                    q, k, v, kv, offset=offset, length=length, window=window)
-        else:
+        if state is None:
             out = self._self_attention(cfg, q, k, v, mode)
-            if mode == "prefill":
-                kv = attn_lib.paged_fill_cache(kv, k, v, block_table,
-                                               length=length) if paged \
-                    else _fill_cache(kv, k, v, window=window, length=length)
+            kv = None
+        else:
+            out, kv = spmd.attention(
+                functools.partial(self._attend, cfg=cfg, mode=mode), mode,
+                q, k, v, state.kv, length, offset, block_table)
         b, s = out.shape[:2]
         o = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
-        x = x + torch.matmul(o, self.attn["wo"].to(x.dtype))
+        x = spmd.settle(x + torch.matmul(o, self.attn["wo"].to(x.dtype)),
+                        positions)
         x = self._cross(cfg, x, positions, memory, mode)
         y, lb = _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x), mode)
-        return x + y, None if state is None else state._replace(kv=kv), lb
+        return spmd.settle(x + y, positions), \
+            None if state is None else state._replace(kv=kv), lb
 
 
 class DecBlock(AttnBlock):
@@ -398,9 +414,9 @@ class RecBlock(_Block):
                 self.rec, h, state=_resume_rec(state.rec, offset),
                 length=length)
             state = state._replace(rec=rec)
-        x = x + y
+        x = spmd.settle(x + y, positions)
         y, _ = _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x), mode)
-        return x + y, state, None
+        return spmd.settle(x + y, positions), state, None
 
 
 class SsmBlock(_Block):
@@ -447,7 +463,7 @@ class SsmBlock(_Block):
                 self.ssm, h, state=_resume_rec(state.rec, offset),
                 length=length, **kw)
             state = state._replace(rec=rec)
-        return x + y, state, None
+        return spmd.settle(x + y, positions), state, None
 
 
 def _resume_rec(rec: dict | None,
@@ -606,7 +622,8 @@ class Model(nn.Module):
         tokens (``mm_proj``: w1, tanh GELU, w2, in the compute dtype)
         first (``repro.models.transformer.Model._embed_inputs``)."""
         cd = self.compute_dtype
-        x = embed_scaled(self.embed, tokens, cd, self.cfg.d_model)
+        x = spmd.settle(embed_scaled(self.embed, tokens, cd, self.cfg.d_model),
+                        tokens)
         if modality is not None and self.mm_proj is not None:
             m = torch.matmul(modality.to(cd), self.mm_proj["w1"].to(cd))
             m = torch.matmul(gelu(m), self.mm_proj["w2"].to(cd))
@@ -780,17 +797,10 @@ class Model(nn.Module):
                 raise NotImplementedError(
                     "chunked prefill supports decoder-only token models")
         x = self._embed(tokens, modality)
-        base = torch.arange(x.shape[1], device=x.device)[None]
-        positions = base.expand(x.shape[:2]) if offset is None \
-            else offset[:, None].long() + base
+        positions = spmd.positions(tokens, offset, x.shape[1])
         x, states = self._run(states, x, positions, "prefill", length,
                               offset, block_table)
-        if length is None:
-            x_last = x[:, -1:]
-        else:
-            rows = torch.arange(x.shape[0], device=x.device)
-            x_last = x[rows, (length.long() - 1).clamp(min=0)][:, None]
-        return self._logits(x_last), states
+        return self._logits(spmd.last_rows(x, length)), states
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, states,

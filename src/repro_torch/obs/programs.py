@@ -41,6 +41,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core.accelerators import by_name
 from ..core.h100 import for_dtype
@@ -405,8 +406,11 @@ def program_cost(cfg, program: str, **geometry) -> tuple[int, int]:
 
 # ------------------------------------------------------------------ memory
 def _tensors(obj):
-    """Every tensor in a nest of lists, tuples (named ones too) and dicts."""
-    if isinstance(obj, torch.Tensor):
+    """Every tensor in a nest of lists, tuples (named ones too) and dicts;
+    a DTensor's local shard (the bytes on this rank's card)."""
+    if isinstance(obj, DTensor):
+        yield obj.to_local()
+    elif isinstance(obj, torch.Tensor):
         yield obj
     elif isinstance(obj, (list, tuple)):
         for x in obj:
@@ -439,7 +443,7 @@ def measure_call(fn, args=(), kwargs=None, *, params=()):
     mark itself (everything on the card included).  The CPU has no
     watermark: those two are omitted, never invented as zeros."""
     kwargs = kwargs or {}
-    inputs = _distinct([*params, *_tensors((args, kwargs))])
+    inputs = _distinct([*_tensors(list(params)), *_tensors((args, kwargs))])
     cuda = any(t.is_cuda for t in inputs)
     if cuda:
         torch.cuda.synchronize()

@@ -20,8 +20,10 @@ Token identity with the interleaved engine is structural: the same prefill
 produces the same first token, the suitcase moves KV blocks and recurrent
 rows bit for bit, and decode math is per-slot independent.
 
-The port runs both roles on one device: the reference's submeshes
-(``prefill_mesh``/``decode_mesh``) and its per-phase models wait for the
+The port runs both roles on one device, or both on one mesh (``mesh=``,
+``param_strategy=``: each role engine serves over it, the suitcase a slot
+row and blocks replicated over its data axis); the reference's disjoint
+submeshes (``prefill_mesh``/``decode_mesh``) are the next slice of the
 port's multi-device path.  Each role registers its own programs (its
 shapes and its half of the handoff), so each role's summary under
 ``roles`` carries its own ``programs`` section.
@@ -50,7 +52,7 @@ class DisaggEngine:
     arguments still win, as in ``ServeEngine``.  ``program_memory`` goes to
     both role engines (``ServeEngine``); ``prefill_model`` to the prefill
     role and ``decode_model`` to the decode role, as the reference wires
-    them.
+    them; ``mesh`` and ``param_strategy`` to both (``ServeEngine``).
     """
 
     def __init__(self, model: Model, *, prefill_slots: int = 4,
@@ -67,7 +69,8 @@ class DisaggEngine:
                  decode_model: Model | None = None,
                  policy: PlacementPlan | None = None,
                  tracer: Tracer | None = None,
-                 program_memory: bool = False):
+                 program_memory: bool = False,
+                 mesh=None, param_strategy: str = "tp"):
         self.tracer = tracer if tracer is not None else Tracer()
         per_role = policy.per_role if policy is not None else {}
         pre_kn = per_role.get("prefill", {})
@@ -83,7 +86,8 @@ class DisaggEngine:
         common = dict(max_len=max_len, min_bucket=min_bucket,
                       kv_block_size=kv_block_size, kv_blocks=kv_blocks,
                       policy=policy, tracer=self.tracer,
-                      program_memory=program_memory)
+                      program_memory=program_memory, mesh=mesh,
+                      param_strategy=param_strategy)
         self.prefill = ServeEngine(
             model, role="prefill", slots=prefill_slots,
             buckets=tuple(pre_buckets) if pre_buckets else None,

@@ -58,7 +58,23 @@ blocks in its own pool and scatters the visiting suitcase (the slot's
 batch-1 state row plus copies of its KV blocks) into them.
 ``serve.disagg.DisaggEngine`` couples the pair on the one device.
 
-Not ported yet: meshes — the constructor takes none.
+Serving is optionally sharded (``mesh=``, a ``launch.mesh.make_serve_mesh``
+``DeviceMesh`` with (data, model) axes), SPMD as the reference's: every rank
+runs this host logic on the same requests, and only the tensors are
+DTensors.  The parameters are distributed by ``launch.shardings.
+param_specs`` (``param_strategy``), the slot states placed by
+``serve_state_specs`` (slots, and a paged pool's blocks, over ``data``
+where they split evenly; heads and widths over ``model`` where they do),
+and each call's host inputs (tokens, positions, masks, block tables) are
+DTensors every rank builds alike: split over ``data`` when the call's batch
+splits evenly, replicated otherwise.  The model runs on them
+(``models/spmd.py``: kernels on each rank's shard); the logits are gathered
+to every rank before sampling, so every rank samples the same tokens and
+the host state stays identical.  State surgery (splicing rows, gathering a
+slot, cloning a block) acts on the local shards (``serve/sharded.py``).
+On a pure data-parallel mesh per-slot math never crosses a shard.  The
+pool's accounting is split into the same stripes (``kv.shards``), and
+the program registry counts each rank's local shapes.
 """
 from __future__ import annotations
 
@@ -70,11 +86,14 @@ import numpy as np
 import torch
 
 from ..core.h100 import for_dtype
+from ..launch import shardings as shard_lib
+from ..models import spmd
 from ..models.attention import KVCache, PagedKVCache
 from ..models.transformer import BlockState, Model
 from ..obs import MetricsRegistry, ProgramRegistry, Timed, Tracer, \
     drift_report, plan_predictions, program_cost
 from ..obs.programs import measure_call
+from . import sharded
 from .kvpool import PagedKVManager
 from .placement import PlacementPlan, fixed_plan
 from .sampling import sample_tokens
@@ -107,12 +126,9 @@ def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
 
 # --------------------------------------------------------------------- stats
 #: keys of the reference's ``EngineStats.summary()`` that the port leaves
-#: out, each with the slice that brings it (ROADMAP A)
-NOT_PORTED_STATS = {
-    "kv.shards": "A7, a block pool sharded over several cards",
-    "kv.in_use_per_shard": "A7, a block pool sharded over several cards",
-    "kv.peak_per_shard": "A7, a block pool sharded over several cards",
-}
+#: out, each with the slice that brings it (ROADMAP A): none since the
+#: mesh brought the pool's per-shard keys
+NOT_PORTED_STATS: dict[str, str] = {}
 
 #: each program kind's phase in the ``programs`` section, as the reference
 #: registers it; its ``program`` string is the reference's jit attribute,
@@ -174,6 +190,10 @@ class EngineStats:
     blocks_copied: int = 0              # copy-on-write clones
     blocks_evicted: int = 0             # LRU evictions of cached blocks
     decode_stalls: int = 0              # slot-ticks frozen waiting for blocks
+    # ---- sharded pool (mesh engines; kv_shards == 1 otherwise) ----
+    kv_shards: int = 1
+    kv_in_use_per_shard: list = field(default_factory=list)
+    kv_peak_per_shard: list = field(default_factory=list)   # sums to peak
     # ---- disaggregated handoff (role engines; all zero interleaved) ----
     handoffs: int = 0                   # slots exported (prefill role) or
     #                                     adopted (decode role)
@@ -249,6 +269,10 @@ class EngineStats:
                 "blocks_evicted": self.blocks_evicted,
                 "decode_stalls": self.decode_stalls,
             }
+            if self.kv_shards > 1:
+                out["kv"]["shards"] = self.kv_shards
+                out["kv"]["in_use_per_shard"] = list(self.kv_in_use_per_shard)
+                out["kv"]["peak_per_shard"] = list(self.kv_peak_per_shard)
         if self.placement:
             # the plan (predicted) + measured + drift, side by side
             p = dict(self.placement)
@@ -310,7 +334,8 @@ class ServeEngine:
                  tracer: Tracer | None = None,
                  program_memory: bool = False,
                  prefill_model: Model | None = None,
-                 decode_model: Model | None = None):
+                 decode_model: Model | None = None,
+                 mesh=None, param_strategy: str = "tp"):
         """``min_bucket``: the smallest prompt bucket of the default ladder.
         ``max_prefill_per_step``: queued requests admitted per tick.
         ``max_prefill_batch``: rows of one batched prefill (capped at
@@ -352,25 +377,38 @@ class ServeEngine:
         chunked prefill and the decode step run (default ``model``), each
         ``model`` under its phase's execution profile
         (``Model.with_config``, over ``model``'s parameter tensors; built by
-        ``launch.serve.build_engine``)."""
+        ``launch.serve.build_engine``).
+
+        ``mesh``: a (data, model) ``DeviceMesh`` (``launch.mesh.
+        make_serve_mesh``) to serve over, SPMD (see the module's
+        docstring); the engine then serves copies of ``model`` and its
+        phase models whose parameters are DTensors, ``model`` itself keeps
+        its tensors.  ``param_strategy``: the weights' layout on it — "tp"
+        (the Mensa cluster templates), "dp" (replicated blocks) or "auto"
+        (each block family by its cluster's ``sharding_axis`` in the
+        plan); see ``launch.shardings.param_specs``."""
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role {role!r} not in "
                              f"('both', 'prefill', 'decode')")
+        if param_strategy not in ("tp", "dp", "auto"):
+            raise ValueError(f"param_strategy {param_strategy!r} not in "
+                             f"('tp', 'dp', 'auto')")
         self.role = role
         self.track_base = track_base
         self.tracer = tracer if tracer is not None else Tracer()
-        self.model = model
         self.device = model.device
         # per-phase models (Mensa: compute-centric prefill, memory-centric
         # decode), each over model's parameter tensors
-        self.prefill_model = prefill_model or model
-        self.decode_model = decode_model or model
+        prefill_model = prefill_model or model
+        decode_model = decode_model or model
         own = [id(p) for p in model.parameters()]
-        for phase in (self.prefill_model, self.decode_model):
+        for phase in (prefill_model, decode_model):
             if [id(p) for p in phase.parameters()] != own:
                 raise ValueError("a phase model must share the engine "
                                  "model's parameter tensors "
                                  "(Model.with_config)")
+        self.mesh = mesh
+        self._nd = 1 if mesh is None else shard_lib.data_shards(mesh)
         self.slots = slots
         self.max_len = max_len
         if not buckets and policy is not None and policy.buckets:
@@ -397,6 +435,14 @@ class ServeEngine:
                                 prefill_chunk=self.prefill_chunk,
                                 backend=self.device.type)
         self.policy = policy
+        if mesh is not None:
+            model, prefill_model, decode_model = shard_lib.distribute_models(
+                [model, prefill_model, decode_model], mesh, param_strategy,
+                plan=policy)
+        self.model = model
+        self.prefill_model = prefill_model
+        self.decode_model = decode_model
+        self._param_strategy = param_strategy
         # utilization divides by the card's peak for the products' dtype
         self.programs = ProgramRegistry(
             chip=for_dtype(model.cfg.compute_dtype),
@@ -416,13 +462,18 @@ class ServeEngine:
                     f"{blocks_per_slot}: the pool must cover at least one "
                     f"request's worst case")
             prefix_ok = all(kind == "attn" for kind in model.kinds)
+            # the pool splits its blocks over the data axis only when the
+            # stripes come out equal: the accounting mirrors that layout
+            shards = self._nd if self._nd > 1 \
+                and kv_blocks % self._nd == 0 else 1
             self.kv = PagedKVManager(slots=slots, max_len=max_len,
                                      block_size=kv_block_size,
                                      num_blocks=kv_blocks,
-                                     prefix_cache=prefix_cache and prefix_ok)
+                                     prefix_cache=prefix_cache and prefix_ok,
+                                     shards=shards)
             self._state_kw = dict(kv_block_size=kv_block_size,
                                   kv_blocks=kv_blocks)
-        self.states = model.init_states(slots, max_len, **self._state_kw)
+        self.states = self._init_states()
         self.requests: list[Request | None] = [None] * slots
         self.positions = np.zeros(slots, np.int32)
         self.samp_temp = np.zeros(slots, np.float32)
@@ -464,11 +515,43 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)      # a copy, never a view
 
+    def _rows(self, a: np.ndarray) -> torch.Tensor:
+        """A batch-major host input of a model call: on a mesh a DTensor
+        every rank builds alike, its rows split over ``data`` when they
+        split evenly (``shardings.batch_axis``), replicated otherwise."""
+        t = self._tensor(a)
+        if self.mesh is None:
+            return t
+        spec = (shard_lib.batch_axis(self.mesh, a.shape[0]),) \
+            + (None,) * (a.ndim - 1)
+        return shard_lib.local_part(t, self.mesh,
+                                    shard_lib.to_placements(spec, self.mesh))
+
+    @staticmethod
+    def _full(t: torch.Tensor) -> torch.Tensor:
+        """``t`` whole on every rank (a DTensor's ``full_tensor()``)."""
+        return t.full_tensor() if spmd.is_dtensor(t) else t
+
+    def _state_specs(self, batch: int) -> list[BlockState]:
+        return shard_lib.serve_state_specs(self.model, self.mesh, batch,
+                                           self.max_len, **self._state_kw)
+
+    def _init_states(self) -> list[BlockState]:
+        """Zeroed slot states (``Model.init_states``), on a mesh placed by
+        ``serve_state_specs``."""
+        states = self.model.init_states(self.slots, self.max_len,
+                                        **self._state_kw)
+        if self.mesh is None:
+            return states
+        return shard_lib.place_states(states, self._state_specs(self.slots),
+                                      self.mesh)
+
     def _init_kv_stats(self) -> None:
         st = self.stats
         if self.kv is not None:
             st.kv_pool_blocks = self.kv.pool.num_blocks
             st.kv_block_size = self.kv.block_size
+            st.kv_shards = self.kv.shards
         st.placement = self.policy.summary()
         st.programs = self.programs
         # static memory gauges (the per-tick ones update in _tick_counters)
@@ -494,8 +577,12 @@ class ServeEngine:
         if mgr is None:
             return
         st.kv_blocks_in_use = mgr.in_use
+        st.kv_in_use_per_shard = mgr.in_use_by_shard
         # the pool keeps its high-water mark at alloc/retain time, so the
-        # peak sees blocks allocated and released within one tick
+        # peak sees blocks allocated and released within one tick; the
+        # per-shard snapshot is the split AT that peak, so it sums to it
+        if mgr.pool.peak_in_use >= st.kv_blocks_peak:
+            st.kv_peak_per_shard = mgr.peak_by_shard
         st.kv_blocks_peak = max(st.kv_blocks_peak, mgr.pool.peak_in_use)
         st.kv_blocks_cached = mgr.cached
         st.prefix_queries = mgr.stats.prefix_queries
@@ -524,6 +611,10 @@ class ServeEngine:
         if self.kv is not None:
             tr.counter(p + "kv_blocks", ts, (("in_use", self.kv.in_use),
                                              ("cached", self.kv.cached)))
+            if self.kv.shards > 1:
+                tr.counter(p + "kv_in_use_by_shard", ts, tuple(
+                    (f"shard{i}", v)
+                    for i, v in enumerate(self.kv.in_use_by_shard)))
             series.append(("kv_pool", self.kv.bytes_in_use))
         tr.counter(p + "device_memory_bytes", ts, tuple(series))
 
@@ -541,8 +632,9 @@ class ServeEngine:
 
     def _sample(self, logits: torch.Tensor, slot_ids: list[int],
                 positions) -> list[int]:
-        """Sample one token per row of ``logits`` (R,V) with the sampling
-        knobs of ``slot_ids`` (one per row) at ``positions``."""
+        """Sample one token per row of ``logits`` (R,V), whole on every
+        rank, with the sampling knobs of ``slot_ids`` (one per row) at
+        ``positions``."""
         self.stats.nonfinite_logits += int(
             (~torch.isfinite(logits)).any(dim=-1).sum())
         toks = sample_tokens(logits, self.samp_temp[slot_ids],
@@ -636,8 +728,11 @@ class ServeEngine:
         the copy-on-write step of a partial-block prefix hit."""
         for st in self.states:
             if isinstance(st.kv, PagedKVCache):
-                st.kv.k[dst] = st.kv.k[src]
-                st.kv.v[dst] = st.kv.v[src]
+                for pool in (st.kv.k, st.kv.v):
+                    if spmd.is_dtensor(pool):
+                        sharded.copy_block(pool, src, dst)
+                    else:
+                        pool[dst] = pool[src]
 
     def _run_copy(self, src: int, dst: int) -> None:
         with self._timed("kv_copy") as tm:
@@ -658,7 +753,7 @@ class ServeEngine:
                      np.int32)
         for i, s in enumerate(slot_ids):
             bt[i] = self.kv.table[s]
-        return self._tensor(bt)
+        return self._rows(bt)
 
     # ------------------------------------------------- fresh prefill states
     def _fresh_states(self, n: int) -> list[BlockState]:
@@ -669,12 +764,16 @@ class ServeEngine:
         for i, st in enumerate(self.states):
             if isinstance(st.kv, PagedKVCache):
                 out.append(BlockState(kv=PagedKVCache(
-                    st.kv.k, st.kv.v, torch.zeros(
-                        (n,), dtype=torch.int32, device=self.device))))
+                    st.kv.k, st.kv.v, self._rows(np.zeros((n,), np.int32)))))
             else:
                 out.append(self.prefill_model.init_block_state(
                     i, n, self.max_len))
-        return out
+        if self.mesh is None:
+            return out
+        specs = self._state_specs(n)
+        return [st if isinstance(st.kv, PagedKVCache)
+                else shard_lib.place_states([st], [sp], self.mesh)[0]
+                for st, sp in zip(out, specs)]
 
     # -------------------------------------------------------------- prefill
     def _prefill_group(self, bucket: int, members: list) -> None:
@@ -688,11 +787,12 @@ class ServeEngine:
         slots_real = [slot for slot, _ in members]
         with self._timed("prefill") as tm:
             logits, rows = self.prefill_model.prefill(
-                self._tensor(toks), self._fresh_states(nb),
-                length=self._tensor(lens),
+                self._rows(toks), self._fresh_states(nb),
+                length=self._rows(lens),
                 block_table=self._tables_for(slots_real, nb))
             _splice_states(self.states, rows, slots_real)
-            first = self._sample(logits[:n, 0], slots_real, lens[:n])
+            first = self._sample(self._full(logits)[:n, 0], slots_real,
+                                 lens[:n])
             tm.sync()
         now = tm.t1
         st = self.stats
@@ -734,15 +834,15 @@ class ServeEngine:
         toks[0, :n] = piece
         with self._timed("prefill_chunk") as tm:
             logits, rows = self.prefill_model.prefill(
-                self._tensor(toks), _gather_slot(self.states, slot),
-                length=self._tensor(np.asarray([n], np.int32)),
-                offset=self._tensor(np.asarray([off], np.int32)),
+                self._rows(toks), _gather_slot(self.states, slot),
+                length=self._rows(np.asarray([n], np.int32)),
+                offset=self._rows(np.asarray([off], np.int32)),
                 block_table=self._tables_for([slot], 1))
             _splice_states(self.states, rows, [slot])
             done = off + n >= len(req.prompt)
             # only the final chunk's sampled token is used
-            tok = self._sample(logits[:, -1], [slot], [off + n])[0] \
-                if done else None
+            tok = self._sample(self._full(logits)[:, -1], [slot],
+                               [off + n])[0] if done else None
             tm.sync()
         st = self.stats
         st.prefill_chunks += 1
@@ -803,6 +903,11 @@ class ServeEngine:
         row = _gather_slot(self.states, slot)
         if self.kv is None:
             return row
+        if self.mesh is not None:
+            return [BlockState(kv=PagedKVCache(
+                sharded.read_blocks(st.kv.k, table_row),
+                sharded.read_blocks(st.kv.v, table_row), st.kv.length))
+                if isinstance(st.kv, PagedKVCache) else st for st in row]
         idx = self._tensor(np.clip(np.asarray(table_row, np.int64), 0,
                                    self.kv.pool.num_blocks - 1))
         return [BlockState(kv=PagedKVCache(st.kv.k.index_select(0, idx),
@@ -818,7 +923,12 @@ class ServeEngine:
         A sentinel entry (>= the pool's size) is skipped, where the
         reference drops the write (``mode="drop"``), so the suitcase's
         padded tail changes no pool row."""
-        if self.kv is not None:
+        if self.kv is not None and self.mesh is not None:
+            for st, new in zip(self.states, suitcase):
+                if isinstance(st.kv, PagedKVCache):
+                    sharded.write_blocks(st.kv.k, table_row, new.kv.k)
+                    sharded.write_blocks(st.kv.v, table_row, new.kv.v)
+        elif self.kv is not None:
             keep = [i for i, b in enumerate(table_row)
                     if b < self.kv.pool.num_blocks]
             if keep:
@@ -918,8 +1028,8 @@ class ServeEngine:
         """All-sentinel block tables: warmup calls drop every paged write."""
         if self.kv is None:
             return None
-        return self._tensor(np.full((rows, self.kv.blocks_per_slot),
-                                    self.kv.sentinel, np.int32))
+        return self._rows(np.full((rows, self.kv.blocks_per_slot),
+                                  self.kv.sentinel, np.int32))
 
     def _warm_program(self, name: str, geometry: dict, fn, *args,
                       **kwargs):
@@ -933,6 +1043,14 @@ class ServeEngine:
             geometry = dict(geometry, kv_block_size=self.kv.block_size)
         cfg = {"prefill": self.prefill_model, "chunk": self.prefill_model,
                "decode": self.decode_model}.get(kind, self.model).cfg
+        if self.mesh is not None:
+            # the work of this rank's card: its rows and its widths
+            if "batch" in geometry \
+                    and shard_lib.batch_axis(self.mesh, geometry["batch"]):
+                geometry = dict(geometry,
+                                batch=geometry["batch"] // self._nd)
+            cfg = shard_lib.local_config(cfg, self.mesh,
+                                         self._param_strategy, self.policy)
         e = self.programs.register(
             name, program_cost(cfg, kind, max_len=self.max_len,
                                **geometry),
@@ -956,11 +1074,12 @@ class ServeEngine:
         if self._queue or self._prefilling \
                 or any(r is not None for r in self.requests):
             raise RuntimeError("warmup() requires an idle engine")
-        dev = self.device
-        zeros = lambda rows: torch.zeros(              # noqa: E731
-            (rows,), dtype=torch.int32, device=dev)
-        tokens = lambda rows, n: torch.zeros(          # noqa: E731
-            (rows, n), dtype=torch.long, device=dev)
+        zeros = lambda rows: self._rows(               # noqa: E731
+            np.zeros((rows,), np.int32))
+        tokens = lambda rows, n: self._rows(           # noqa: E731
+            np.zeros((rows, n), np.int64))
+        ones = lambda rows: self._rows(                # noqa: E731
+            np.ones((rows,), np.int32))
         warm = self._warm_program
         with self._timed("warmup") as tm:
             if self.role != "decode":
@@ -968,14 +1087,14 @@ class ServeEngine:
                     for nb in self.batch_buckets:
                         warm(f"prefill[{nb}x{b}]", dict(batch=nb, seq=b),
                              self.prefill_model.prefill, tokens(nb, b),
-                             self._fresh_states(nb), length=zeros(nb) + 1,
+                             self._fresh_states(nb), length=ones(nb),
                              block_table=self._warm_table(nb))
                 if self.max_len - 1 > self.buckets[-1] \
                         or (self.kv is not None and self.kv.prefix_enabled):
                     warm("chunk", dict(seq=self.prefill_chunk),
                          self.prefill_model.prefill,
                          tokens(1, self.prefill_chunk),
-                         _gather_slot(self.states, 0), length=zeros(1) + 1,
+                         _gather_slot(self.states, 0), length=ones(1),
                          offset=zeros(1), block_table=self._warm_table(1))
                 if self.kv is not None:
                     warm("copy", {}, self._copy_blocks, 0, 0)
@@ -983,12 +1102,10 @@ class ServeEngine:
                 warm("decode", dict(batch=self.slots),
                      self.decode_model.decode_step, tokens(self.slots, 1),
                      self.states, zeros(self.slots),
-                     active=torch.zeros((self.slots,), dtype=torch.bool,
-                                        device=dev),
+                     active=self._rows(np.zeros((self.slots,), bool)),
                      block_table=self._warm_table(self.slots))
             self._warm_handoff()
-            self.states = self.model.init_states(self.slots, self.max_len,
-                                                 **self._state_kw)
+            self.states = self._init_states()
             tm.sync()
         self.tracer.span("warmup", self._trk_engine, tm.t0, tm.t1)
         if self.kv is not None:
@@ -1028,7 +1145,7 @@ class ServeEngine:
         if self.kv is None:
             return None
         if self._bt_cache is None or self._bt_version != self.kv.version:
-            self._bt_cache = self._tensor(np.asarray(self.kv.table, np.int32))
+            self._bt_cache = self._rows(np.asarray(self.kv.table, np.int32))
             self._bt_version = self.kv.version
         return self._bt_cache
 
@@ -1085,11 +1202,11 @@ class ServeEngine:
                 else req.prompt[-1]
         with self._timed("decode") as tm:
             logits, self.states = self.decode_model.decode_step(
-                self._tensor(toks), self.states, self._tensor(self.positions),
-                active=self._tensor(mask), block_table=self._decode_table())
+                self._rows(toks), self.states, self._rows(self.positions),
+                active=self._rows(mask), block_table=self._decode_table())
             rows = self._tensor(np.asarray(active, np.int64))
-            nxt = self._sample(logits[:, 0].index_select(0, rows), active,
-                               self.positions[active] + 1)
+            nxt = self._sample(self._full(logits)[:, 0].index_select(0, rows),
+                               active, self.positions[active] + 1)
             tm.sync()
         now = tm.t1
         m = self.stats.metrics
@@ -1175,11 +1292,24 @@ def _state_byte_stats(states: list[BlockState]) -> tuple[int, int]:
     return pool_b, state_b
 
 
+def _any_leaf(st: BlockState) -> torch.Tensor:
+    return st.kv.length if st.kv is not None else st.rec["h"]
+
+
 def _gather_slot(states: list[BlockState], slot: int) -> list[BlockState]:
     """A batch-1 copy of slot ``slot`` of the pooled states
     (``repro.serve.engine._gather_slot``); paged layers keep the global pool
     and copy only the slot's length."""
     one = slice(slot, slot + 1)
+    if spmd.is_dtensor(_any_leaf(states[0])):
+        row = sharded.slot_row
+        return [BlockState(kv=st.kv._replace(length=row(st.kv.length, slot)))
+                if isinstance(st.kv, PagedKVCache)
+                else BlockState(kv=KVCache(*(row(a, slot) for a in st.kv)))
+                if st.kv is not None
+                else BlockState(rec={k: row(a, slot)
+                                     for k, a in st.rec.items()})
+                for st in states]
     out = []
     for st in states:
         if isinstance(st.kv, PagedKVCache):
@@ -1204,7 +1334,16 @@ def _splice_states(states: list[BlockState], rows: list[BlockState],
     pool's own."""
     n = len(slot_ids)
     st0 = states[0]
-    dev = (st0.kv.length if st0.kv is not None else st0.rec["h"]).device
+    if spmd.is_dtensor(_any_leaf(st0)):
+        for st, row in zip(states, rows):
+            pairs = [(st.kv.length, row.kv.length)] \
+                if isinstance(st.kv, PagedKVCache) \
+                else zip(st.kv, row.kv) if st.kv is not None \
+                else ((a, row.rec[k]) for k, a in st.rec.items())
+            for dst, src in pairs:
+                sharded.splice_rows(dst, src, slot_ids)
+        return
+    dev = _any_leaf(st0).device
     idx = torch.tensor(slot_ids, dtype=torch.long, device=dev)
     for st, row in zip(states, rows):
         if isinstance(st.kv, PagedKVCache):

@@ -30,9 +30,11 @@ kernel is ``"cuda"``, with the port's hand-written kernels that its layers
 launch as variants; on ``"cpu"`` it is ``"plain"``.  This is display
 metadata only: the port has no kernel-variant knobs, so the per-phase
 override tuples stay empty, and each kernel wrapper picks the kernel or its
-plain version from the device of the tensors it gets.  The port serves on
-one device, with no mesh, so every ``sharding_axis`` is ``None``, as the JAX
-package's is when it is given no mesh axes.
+plain version from the device of the tensors it gets.  ``mesh_axes``
+(the serving mesh's, ``launch/mesh.py``) sets each cluster's
+``sharding_axis`` as the JAX package's does: ``"model"`` for a
+compute-centric cluster, ``"data"`` for a memory-centric one, else the
+first axis; with no mesh axes every ``sharding_axis`` is ``None``.
 """
 from __future__ import annotations
 
@@ -205,6 +207,7 @@ class ExecutionOracle:
     max_len: int = 512
     min_bucket: int = 16
     max_bucket: int | None = None
+    mesh_axes: tuple[str, ...] = ()   # e.g. ("data", "model"); () = no mesh
     backend: str = "cuda"             # the engine's device type: cuda | cpu
     seed: int = 0                     # k-means verification seed
     _chars: list = field(default_factory=list, repr=False)
@@ -283,6 +286,16 @@ class ExecutionOracle:
                                  "PyTorch versions" if variants else "")
         return "cuda", variants, ""
 
+    def _sharding_axis(self, compute_centric: bool) -> str | None:
+        if not self.mesh_axes:
+            return None
+        # compute-centric clusters want their GEMMs split on the model axis;
+        # memory-centric clusters scale by replicating over data (slots)
+        want = "model" if compute_centric else "data"
+        if want in self.mesh_axes:
+            return want
+        return self.mesh_axes[0]
+
     def _chunk_for(self, cluster_kinds: tuple[str, ...],
                    ladder_top: int) -> int:
         """Recurrent clusters bound the per-tick scan length (decode latency
@@ -335,18 +348,25 @@ class ExecutionOracle:
         for cid in sorted(by_cluster):
             kinds = tuple(sorted(by_cluster[cid]))
             kernel, variants, note = self._kernel_for(kinds)
+            compute_centric = any(c.compute_centric for (_, k, c) in chars
+                                  if k in kinds)
             policies.append(ExecutionPolicy(
                 cluster=cid, kinds=kinds,
                 accelerator=CLUSTER_TO_ACCELERATOR[cid].name,
                 kernel=kernel, variants=tuple(variants),
                 prefill_chunk=self._chunk_for(kinds, buckets[-1]),
                 buckets=buckets,
-                sharding_axis=None,
+                sharding_axis=self._sharding_axis(compute_centric),
                 predicted_prefill_s=_phase_cost(prefill_specs, set(kinds)),
                 predicted_decode_s=_phase_cost(decode_specs, set(kinds)),
                 note=note))
 
         all_kinds = {k for _, k, _ in chars}
+        plan_axis = None
+        if self.mesh_axes:
+            axes = [p.sharding_axis for p in policies if p.sharding_axis]
+            plan_axis = ("model" if "model" in axes else
+                         (axes[0] if axes else self.mesh_axes[0]))
         # per-role knobs for the disaggregated pair: the interleaved chunk
         # above is bounded by the recurrent scan so a long prompt can't
         # freeze running decoders — a dedicated prefill submesh has none, so
@@ -362,11 +382,18 @@ class ExecutionOracle:
             layer_kinds=tuple(cfg.layer_kinds),
             layer_clusters=layer_clusters,
             buckets=buckets, prefill_chunk=chunk,
-            sharding_axis=None,
+            sharding_axis=plan_axis,
             predicted_prefill_s=_phase_cost(prefill_specs, all_kinds),
             predicted_decode_s=_phase_cost(decode_specs, all_kinds),
             rule_kmeans_agreement=km_agreement,
             role_knobs=role_knobs)
+
+
+def resolve_policy(cfg: ArchConfig, **kw) -> PlacementPlan:
+    """Convenience wrapper: one-shot oracle resolution (the reference's
+    entry point, kept for the parity tests; the CLI builds its oracle in
+    ``launch.serve``)."""
+    return ExecutionOracle(cfg, **kw).resolve()
 
 
 def verify_kmeans_agreement(cfg: ArchConfig, *, max_len: int = 512,

@@ -84,10 +84,11 @@ def test_sampled_requests_reproduce_and_warmup_resets(engines):
 def test_engine_refuses_what_this_slice_leaves_out(engines):
     _, _, tm = engines
     # the placement policy (tests/test_torch_placement.py), the tracer
-    # (tests/test_torch_obs.py) and the roles (tests/test_torch_disagg.py)
-    # are in
-    with pytest.raises(TypeError):
-        ServeEngine(tm, kv_block_size=8, max_len=64, mesh=None)
+    # (tests/test_torch_obs.py), the roles (tests/test_torch_disagg.py) and
+    # the mesh (tests/test_torch_distributed*.py) are in; a weight layout
+    # it does not know is refused
+    with pytest.raises(ValueError, match="param_strategy"):
+        ServeEngine(tm, kv_block_size=8, max_len=64, param_strategy="fsdp")
     with pytest.raises(ValueError, match="kv_blocks"):
         ServeEngine(tm, kv_block_size=8, max_len=64, kv_blocks=4)
 

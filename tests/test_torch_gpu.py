@@ -1247,3 +1247,64 @@ def test_program_registry_on_card(cuda, arch, kv_block_size):
                if k.startswith("prefill[")) == s["prefill_calls"] > 0
     assert calls("chunk") == s["prefill_chunks"] > 0
     assert calls("copy") == s.get("kv", {}).get("blocks_copied", 0)
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """``make_serve_mesh()`` on the card: every rank of a 1-rank NCCL group
+    this module starts, and ends."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serve_mesh
+    started = dist.is_initialized()
+    mesh = make_serve_mesh()
+    yield mesh
+    if not started:
+        dist.destroy_process_group()
+
+
+def _launches() -> tuple:
+    return (fa.launches.n, pa.launches.n, ps.launches.n, ps.decode_launches.n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["tp", "auto"])
+@pytest.mark.parametrize("arch,kv_block_size", [("qwen3-0.6b", 8),
+                                                ("falcon-mamba-7b", None)])
+def test_mesh_engine_serves_the_meshless_tokens_on_card(card_mesh, arch,
+                                                         kv_block_size,
+                                                         strategy):
+    """Reduced qwen3 (paged blocks of 8, a prefix hit) and falcon-mamba on
+    ``make_serve_mesh()``, each weight layout: the meshless engine's tokens
+    with its launch counts — the kernels ran inside ``local_map`` on the
+    local shards, not their plain versions."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request
+    cfg = reduced_config(arch)
+    model = build_model(cfg, device="cuda", seed=0)
+
+    def serve(mesh):
+        eng = build_engine(cfg, model, slots=3, max_len=128, max_bucket=32,
+                           kv_block_size=kv_block_size, mesh=mesh,
+                           param_strategy=strategy,
+                           plan_cfg=get_config(arch))
+        eng.warmup()
+        rng = np.random.RandomState(4)
+        shared = rng.randint(1, cfg.vocab_size, 20).tolist()
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate((shared + [5, 6], shared + [7],
+                                       rng.randint(1, cfg.vocab_size,
+                                                   50).tolist()))]
+        before = _launches()
+        eng.run(reqs, on_truncate="raise")
+        assert eng.stats.summary()["nonfinite_logits"] == 0
+        return ([r.generated for r in reqs],
+                tuple(b - a for a, b in zip(before, _launches())))
+
+    got, launched = serve(card_mesh)
+    want, meshless = serve(None)
+    assert got == want
+    assert launched == meshless and sum(launched) > 0

@@ -167,8 +167,7 @@ def _check_schema(models, paged, policy):
     assert ("clusters" in got["placement"]["drift"]) == (policy == "auto")
     assert {"programs.programs.decode", "programs.chip.peak_flops"} \
         <= _paths(got)
-    assert set(NOT_PORTED_STATS) == {"kv.shards", "kv.in_use_per_shard",
-                                     "kv.peak_per_shard"}
+    assert set(NOT_PORTED_STATS) == set()
     assert "handoff" not in NOT_PORTED_STATS
     for key in ("requests_completed", "tokens_generated", "prefills",
                 "prefill_calls", "prefill_chunks", "prefill_prompt_tokens",

@@ -75,6 +75,30 @@ def test_plan_matches_reference(arch, reduced, geometry):
     assert got == ExecutionOracle(cfg, backend="cpu", **geo).resolve()
 
 
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_plan_on_mesh_axes_matches_reference(arch, reduced):
+    """With a (data, model) mesh's axes the port's plan is the reference's,
+    each cluster's ``sharding_axis`` included: "model" for a
+    compute-centric cluster, "data" for a memory-centric one — at full
+    size falcon-mamba's SSM cluster "data" and every qwen3 cluster
+    "model", as the reference's auto-strategy test pins."""
+    cfg, ref_cfg = _cfgs(arch, reduced)
+    geo = dict(GEOMETRIES["serving"], mesh_axes=("data", "model"))
+    got = ExecutionOracle(cfg, backend="cpu", **geo).resolve()
+    want = ref_placement.ExecutionOracle(ref_cfg, backend="cpu",
+                                         **geo).resolve()
+    for f in PLAN_FIELDS:
+        assert getattr(got, f) == getattr(want, f), f
+    assert [(p.kinds, p.sharding_axis) for p in got.policies] \
+        == [(p.kinds, p.sharding_axis) for p in want.policies]
+    assert got.sharding_axis in ("data", "model")
+    if arch == "falcon-mamba-7b" and not reduced:
+        assert got.policy_for("ssm").sharding_axis == "data"
+    if arch == "qwen3-0.6b" and not reduced:
+        assert {p.sharding_axis for p in got.policies} == {"model"}
+
+
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "recurrentgemma-2b",
                                   "falcon-mamba-7b"])
 def test_plan_kernels_follow_the_device(arch):
@@ -296,11 +320,10 @@ def test_cli_long_prompts_max_new_and_warmup_run_on_cpu(capsys):
 
 
 def test_cli_refuses_exactly_the_options_not_ported():
-    """The meshes' and roles' options are refused; the program memory is
-    accepted both ways and measures each warmed program on the CPU: its
-    argument and output bytes, no watermark."""
-    assert set(NOT_PORTED) == {
-        "--mesh", "--dp", "--mp", "--roles", "--param-strategy"}
+    """The roles' option is refused (the meshes' are served); the program
+    memory is accepted both ways and measures each warmed program on the
+    CPU: its argument and output bytes, no watermark."""
+    assert set(NOT_PORTED) == {"--roles"}
     assert not build_parser().parse_args(
         ["--no-program-memory"]).program_memory
     s = main(["--reduced", "--device", "cpu", "--max-len", "64",
