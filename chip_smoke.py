@@ -133,6 +133,21 @@ Phases, one line or block of output each; any failure exits non-zero:
    one process a card; on a machine of n >= 2 cards also qwen3-0.6b at
    (n/2)x2 and 1xn and falcon-mamba-7b at 1xn (``mesh_cli_cases``): every
    run must exit 0 and each mesh's tokens equal ``--mesh off``'s;
+6c. roles — the disaggregated pair with each role on its own cards
+   (``--roles``).  On one card the pair cannot run (one NCCL rank a card):
+   the CLI with ``--roles prefill=1,decode=1`` must exit non-zero with the
+   reference's "need 2 devices, have 1".  On n >= 2 cards the CLI at full
+   width (8 requests of 16 tokens, warmed up) serves qwen3-0.6b (paged, prefix
+   cache), recurrentgemma-2b (dense KV) and falcon-mamba-7b at
+   ``--roles prefill=1,decode=1`` under ``torch.distributed.run``, one
+   process a card (this script's ``--serve-worker`` mode: the CLI's
+   ``main`` with the launch counters set to 0 just before it, then each
+   rank's counts), and with four cards qwen3-0.6b also at
+   ``prefill=2,decode=2`` and at ``prefill=1,decode=1 --mp 2``
+   (``role_cli_cases``): each run must exit 0 with ``--roles off``'s
+   tokens, one handoff a request and none pending, and disjoint launches —
+   the prefill ranks no paged decode and no T = 1 scan, the decode ranks
+   no flash and only T = 1 scans;
 7. train — full-width qwen3-0.6b (28 layers, 3 steps) and
    seamless-m4t-medium (12 encoder + 12 decoder layers, vocab 256,206, 2
    steps) through ``launch.train.train_once`` on the card: bf16 compute on
@@ -234,6 +249,20 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Laps:
+    """The wall time of each stretch of ``main``, printed as it ends (and
+    the whole so far), so that two runs can be compared phase by phase."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        say(f"[time] {name}: {now - self.t:.1f} s wall ({now - self.t0:.1f} "
+            f"s since the device phase)")
+        self.t = now
 
 
 # --------------------------------------------------------------- 1. device
@@ -2416,6 +2445,174 @@ def phase_serve_mesh(seed: int, card: str) -> dict:
     return total
 
 
+def role_cli_cases(n: int) -> list:
+    """(arch, extra CLI options, [(--roles spec, more options)]) for ``n``
+    cards: none on one card; qwen3-0.6b (paged), recurrentgemma-2b and
+    falcon-mamba-7b (dense) at prefill=1,decode=1, and with four cards
+    qwen3-0.6b also at prefill=2,decode=2 and at prefill=1,decode=1 with
+    ``--mp 2``."""
+    if n < 2:
+        return []
+    pair = [("prefill=1,decode=1", ())]
+    wide = [("prefill=2,decode=2", ()), ("prefill=1,decode=1", ("--mp", "2"))]
+    return [("qwen3-0.6b", (), pair + (wide if n >= 4 else [])),
+            ("recurrentgemma-2b", ("--kv-block-size", "0"), pair),
+            ("falcon-mamba-7b", ("--kv-block-size", "0"), pair)]
+
+
+#: phase 6c's CLI options: phase 6b's, warmed up, so that the runs time
+#: serving and not first calls (the kernels' builds among them)
+ROLES_CLI = MESH_CLI + ("--warmup",)
+
+#: the reference's refusal of a role pair on one device
+ROLE_REFUSAL = "roles 1+1 (mp=1) need 2 devices, have 1"
+
+#: where phase 6c's runs write their files: each ``--serve-worker`` rank
+#: its launch counts as ``launches_{rank}.json``
+ROLES_DIR = ROOT / "build" / "roles_cli"
+
+
+def role_launch_checks(arch: str, launches: list, n_pre: int) -> dict:
+    """Each rank's launches (rank order): the prefill ranks launch some
+    kernel, never paged decode and never a T = 1 scan; the decode ranks
+    some kernel, never flash, and every scan at T = 1."""
+    out = {}
+    for c in launches:
+        rank = c["rank"]
+        if rank < n_pre:
+            out[f"{arch}: prefill rank {rank} launches, none of them "
+                f"paged decode or a T = 1 scan"] = (
+                c["flash"] + c["rglru"] + c["ssm"] > 0 and c["paged"] == 0
+                and c["rglru_decode"] == c["ssm_decode"] == 0)
+        else:
+            out[f"{arch}: decode rank {rank} launches, no flash and only "
+                f"T = 1 scans"] = (
+                c["paged"] + c["rglru"] + c["ssm"] > 0 and c["flash"] == 0
+                and c["rglru"] == c["rglru_decode"]
+                and c["ssm"] == c["ssm_decode"])
+    if arch == "qwen3-0.6b":
+        out["qwen3-0.6b: the prefill ranks launch flash, the decode ranks "
+            "paged decode"] = all(
+            (c["flash"] > 0) == (c["rank"] < n_pre)
+            and (c["paged"] > 0) == (c["rank"] >= n_pre) for c in launches)
+    return out
+
+
+def phase_serve_roles(card: str) -> None:
+    """The serving CLI's ``--roles`` at full width (``ROLES_CLI``): on one
+    card, the refusal; on n >= 2 cards each of ``role_cli_cases`` under
+    ``torch.distributed.run --standalone``, one process a role card, in
+    this script's ``--serve-worker`` mode, against one plain process with
+    ``--roles off`` (tokens and summaries under the ignored ``build/``).
+    Fails unless every run exits 0 with ``--roles off``'s tokens, one
+    handoff a request and none pending, and its ranks' launches disjoint
+    (``role_launch_checks``).  Prints each run's decode step, tokens/s,
+    decode TBT and TTFT beside ``--roles off``'s."""
+    import torch
+    from repro_torch.launch.mesh import parse_roles_arg
+    n = torch.cuda.device_count()
+    serve = [sys.executable, "-m", "repro_torch.launch.serve"]
+    if n < 2:
+        rc, out, err = run_bounded(
+            serve + ["--arch", "qwen3-0.6b", *ROLES_CLI, "--roles",
+                     "prefill=1,decode=1"], MESH_CLI_TIMEOUT_S)
+        said = [line for line in err.splitlines() if "need" in line]
+        say(f"[roles] one card ({card}): --roles prefill=1,decode=1 exits "
+            f"{rc}: {said[-1] if said else err.splitlines()[-1:]}; the "
+            f"role pair needs a card a role (NCCL takes one rank a card), "
+            f"so it is not served here")
+        check_all("roles on one card", {
+            "--roles prefill=1,decode=1 exits non-zero": rc != 0,
+            "with the reference's message": ROLE_REFUSAL in err})
+        return
+    where = ROLES_DIR
+    where.mkdir(parents=True, exist_ok=True)
+    checks = {}
+    for arch, extra, runs in role_cli_cases(n):
+        results = {}
+        for spec, more in [("off", ())] + runs:
+            label = " ".join(("--roles", spec) + more)
+            files = {k: where / f"{k}_{arch}_{label.replace(' ', '_')}.json"
+                     for k in ("tokens", "metrics")}
+            for f in [*files.values(), *where.glob("launches_*.json")]:
+                f.unlink(missing_ok=True)
+            cli = ["--arch", arch, *extra, *ROLES_CLI, "--roles", spec, *more,
+                   "--tokens-json", str(files["tokens"]),
+                   "--metrics-json", str(files["metrics"])]
+            roles = parse_roles_arg(spec)
+            if roles is None:
+                cmd, ranks = serve + cli, 1
+            else:
+                mp = int(more[1]) if more else 1
+                ranks = (roles.prefill + roles.decode) * mp
+                cmd = [sys.executable, "-m", "torch.distributed.run",
+                       "--standalone", f"--nproc-per-node={ranks}",
+                       str(ROOT / "chip_smoke.py"), "--serve-worker", *cli]
+            t0 = time.perf_counter()
+            rc, out, err = run_bounded(cmd, MESH_CLI_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if rc:
+                for line in err.splitlines()[-20:]:
+                    say(f"[roles] CLI {label} stderr| {line}")
+                fail(f"the CLI for {arch} with {label} exited {rc}")
+            s = json.loads(files["metrics"].read_text())
+            launches = sorted((json.loads(f.read_text())
+                               for f in where.glob("launches_*.json")),
+                              key=lambda c: c["rank"])
+            results[spec + "".join(more)] = got = {
+                "tokens": json.loads(files["tokens"].read_text()), "s": s}
+            if roles is None:
+                say(f"[roles] CLI {arch} {label}: exit 0 in {wall:.1f} s "
+                    f"wall on {card}; decode step {s['decode_step_ms']:.3f} "
+                    f"ms, {s['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                    f"{s['ttft_ms']['p50']:.2f} ms")
+                continue
+            base = results["off"]
+            dec, pre = s["roles"]["decode"], s["roles"]["prefill"]
+            say(f"[roles] CLI {arch} {label} on {ranks} cards under "
+                f"torch.distributed.run: exit 0 in {wall:.1f} s wall on "
+                f"{card}; decode step {dec['decode_step_ms']:.3f} ms "
+                f"({base['s']['decode_step_ms']:.3f} with --roles off), "
+                f"{s['tokens_per_s']:.1f} tokens/s "
+                f"({base['s']['tokens_per_s']:.1f}), decode TBT p50 "
+                f"{s['decode_tbt_ms']['p50']:.2f} ms / p99 "
+                f"{s['decode_tbt_ms']['p99']:.2f} ms, TTFT p50 "
+                f"{pre['ttft_ms']['p50']:.2f} ms, {s['handoffs']} handoffs "
+                f"in {1e3 * s['handoff_time_s']:.2f} ms, {s['ticks']} ticks;"
+                f" launches by rank "
+                + json.dumps({c["rank"]: {k: v for k, v in c.items()
+                                          if v and k != "rank"}
+                              for c in launches})
+                + "; first divergent token " + first_divergence(
+                    list(got["tokens"].values()),
+                    list(base["tokens"].values())))
+            n_pre = roles.prefill * (int(more[1]) if more else 1)
+            checks.update({
+                f"{arch} {label}: --roles off's tokens":
+                    got["tokens"] == base["tokens"],
+                f"{arch} {label}: a handoff a request, none pending":
+                    s["handoffs"] == len(base["tokens"]) == 8
+                    and s["handoffs_pending"] == 0,
+                f"{arch} {label}: every rank's launches read":
+                    [c["rank"] for c in launches] == list(range(ranks)),
+                **role_launch_checks(f"{arch} {label}", launches, n_pre)})
+    check_all("roles CLI", checks)
+
+
+def serve_worker(cli: list) -> None:
+    """One rank of a ``phase_serve_roles`` run, under
+    ``torch.distributed.run``: the serving CLI's ``main(cli)`` with every
+    launch counter set to 0 just before it, then this rank's counts, in
+    ``ROLES_DIR``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.serve import main as serve_main
+    reset_counts()
+    serve_main(cli)
+    rank = int(os.environ["RANK"])
+    (ROLES_DIR / f"launches_{rank}.json").write_text(json.dumps(
+        {"rank": rank, **read_counts()}))
+
+
 def run_bounded(cmd: list, timeout: float):
     """``cmd`` in a process group of its own, its output captured; at
     ``timeout`` the whole group is killed (a launcher's workers too)."""
@@ -2687,7 +2884,15 @@ def main() -> None:
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked checkout of an earlier commit: time "
                          "its two scan kernels beside these in phase 3")
+    ap.add_argument("--serve-worker", nargs=argparse.REMAINDER,
+                    help="one rank of phase 6c under torch.distributed.run: "
+                         "the serving CLI with these options, then the "
+                         "rank's launch counts")
     args = ap.parse_args()
+    if args.serve_worker is not None:
+        serve_worker(args.serve_worker)
+        return
+    lap = Laps()
     name, count, smi = phase_device()
     src = ROOT / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
@@ -2698,7 +2903,10 @@ def main() -> None:
     if parent is not None and not (parent / "src" / "repro_torch"
                                    / "csrc").is_dir():
         fail(f"--parent {parent}: no src/repro_torch/csrc there")
-    rows = phase_kernels(args.seed, smi, phase_build(parent))
+    built = phase_build(parent)
+    lap("1-2 device and build")
+    rows = phase_kernels(args.seed, smi, built)
+    lap("3 kernels")
     phase_parity(args.seed, "qwen3-0.6b", 2, kv_block_size=16)
     phase_parity(args.seed, "recurrentgemma-2b", 3, kv_block_size=None)
     phase_parity(args.seed, "falcon-mamba-7b", 2, kv_block_size=None)
@@ -2709,12 +2917,16 @@ def main() -> None:
                      kv_block_size=16)
     phase_parity_encdec(args.seed)
     release()
+    lap("4 parity")
     phase_train_parity(args.seed, "recurrentgemma-2b", 3, batch=2, seq_len=64)
     phase_train_parity(args.seed, "falcon-mamba-7b", 2, batch=2, seq_len=64)
+    lap("4b train parity")
     paths = [phase_edge_lstm(args.seed, smi)]
     release()
+    lap("5 edge LSTM")
     phase_mensa()
     phase_strategy()
+    lap("5b Mensa and strategy")
     for serve in (phase_serve, phase_serve_recurrent, phase_serve_mamba):
         paths.append(serve(args.seed, smi))
         release()
@@ -2726,13 +2938,20 @@ def main() -> None:
         paths.append(phase_serve(args.seed, smi, arch,
                                  num_layers=MOE_SERVE_LAYERS[arch]))
         release()
+    lap("6 serve")
     paths.append(phase_serve_mesh(args.seed, smi))
+    lap("6b mesh engine")
     phase_serve_mesh_cli(smi)
+    lap("6b mesh CLI")
+    phase_serve_roles(smi)
+    lap("6c roles")
     paths.append(phase_train(args.seed, smi, "qwen3-0.6b", steps=3))
     paths.append(phase_train(args.seed, smi, ENCDEC, steps=2))
     phase_train_resume(args.seed)
     release()
+    lap("7 train")
     phase_examples(smi)
+    lap("8 examples")
     # launches: each path's run, counted from 0 just before it
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     kernels = [

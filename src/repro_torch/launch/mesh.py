@@ -17,12 +17,16 @@ from the environment under ``torch.distributed.run`` (``RANK``,
 else a 1-rank group of its own on an in-process store.  The mesh is built
 only when asked for, never when this module is imported.
 
-Not ported yet (ROADMAP A7): ``make_production_mesh``, ``make_host_mesh``
-and ``make_role_meshes`` (roles on disjoint submeshes).  ``RoleConfig``
-and ``parse_roles_arg`` are here ahead of that slice, which will call
-them (``--roles``); until then only the parity tests against the JAX
-package do, as for ``data_axes``'s ``"pod"`` axis, which only a
-production mesh has.
+``make_role_meshes`` splits the ranks into the disaggregated pair's two
+disjoint submeshes (``--roles``): a rank is a card, so a prefill burst on
+the prefill ranks cannot take the decode ranks' cycles::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --roles prefill=1,decode=1
+
+Not ported yet (ROADMAP A7, the training mesh): ``make_production_mesh``
+and ``make_host_mesh``; ``data_axes``'s ``"pod"`` axis, which only a
+production mesh has, is here for the parity tests against the JAX package.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ def data_axes(mesh) -> tuple[str, ...]:
     return ("pod", "data") if "pod" in names else ("data",)
 
 
-def _start_group(device: str) -> None:
+def start_group(device: str) -> None:
     """The default process group for ``device`` ("cuda": NCCL, "cpu":
     gloo), unless one is running: from ``torch.distributed.run``'s
     environment, or a 1-rank group on an in-process store."""
@@ -76,7 +80,7 @@ def make_serve_mesh(dp: int | None = None, mp: int = 1, *,
     from torch.distributed.device_mesh import DeviceMesh
     if mp < 1:
         raise ValueError(f"mp must be >= 1, got {mp}")
-    _start_group(device)
+    start_group(device)
     world = dist.get_world_size()
     if dp is None:
         dp = max(1, world // mp)
@@ -128,6 +132,37 @@ def parse_roles_arg(spec: str) -> RoleConfig | None:
         raise ValueError(f"--roles {spec!r}: expected exactly "
                          f"'prefill=N,decode=M' or 'off'")
     return RoleConfig(prefill=kv["prefill"], decode=kv["decode"])
+
+
+def make_role_meshes(roles: RoleConfig, *, device: str = "cuda"):
+    """Disjoint (data, model) submeshes for the two roles over the default
+    process group (started here if none is running): prefill takes the
+    first ``prefill*mp`` ranks as a (prefill, mp) mesh, decode the next
+    ``decode*mp`` as a (decode, mp) mesh.  Disjointness is the point — a
+    prefill burst cannot steal decode's cycles — so the partition raises
+    rather than oversubscribing.  Each rank is one card, so the group must
+    hold exactly the roles' ranks: a rank outside both would hold a card
+    and serve nothing.  Every rank builds both meshes, in the same order
+    (``new_group`` is collective).  Returns ``(prefill_mesh, decode_mesh,
+    role)``, ``role`` this rank's, "prefill" or "decode"."""
+    from torch.distributed.device_mesh import DeviceMesh
+    start_group(device)
+    world = dist.get_world_size()
+    if roles.devices > world:
+        raise RuntimeError(f"roles {roles.prefill}+{roles.decode} (mp="
+                           f"{roles.mp}) need {roles.devices} devices, "
+                           f"have {world}")
+    if roles.devices < world:
+        raise RuntimeError(f"roles {roles.prefill}+{roles.decode} (mp="
+                           f"{roles.mp}) use {roles.devices} devices, have "
+                           f"{world}: start {roles.devices} processes")
+    n_pre = roles.prefill * roles.mp
+    ranks = torch.arange(roles.devices)
+    pre = DeviceMesh(device, ranks[:n_pre].reshape(roles.prefill, roles.mp),
+                     mesh_dim_names=MESH_AXES)
+    dec = DeviceMesh(device, ranks[n_pre:].reshape(roles.decode, roles.mp),
+                     mesh_dim_names=MESH_AXES)
+    return pre, dec, "prefill" if dist.get_rank() < n_pre else "decode"
 
 
 def parse_mesh_arg(spec: str, *, device: str = "cuda"):

@@ -16,7 +16,9 @@ arch's full-size config (characterize -> cluster -> cost,
 ``serve/placement.py``) and serves at its bucket ladder and prefill chunk;
 ``--policy fixed`` keeps the engine's own knobs; ``--policy-dump`` prints
 the plan as JSON and exits.  ``build_disagg_engine`` builds the
-disaggregated prefill/decode pair (``serve/disagg.py``) on the one device.  The plan's predicted times are those of the
+disaggregated prefill/decode pair (``serve/disagg.py``): on the one
+device, or with ``roles`` each role on its own submesh of ranks.  The
+plan's predicted times are those of the
 paper's modeled accelerators, not of the card.  Before it serves, the CLI
 prints the arch's full-size Mensa prefill plan and both phases' strategy
 and overrides (``core.executor.phase_profiles``, an analytic model of a
@@ -44,9 +46,21 @@ rank 0 printing the summary and writing the files::
       -m repro_torch.launch.serve --arch qwen3-0.6b --mesh auto
 
 Without ``torch.distributed.run`` a mesh is a 1-rank group on the one card
-(gloo ranks with ``--device cpu``).  ``--roles`` (each role of the
-disaggregated pair on a disjoint submesh) is accepted by name only, to fail
-with that message.
+(gloo ranks with ``--device cpu``).
+
+``--roles prefill=N,decode=M`` serves through the disaggregated pair with
+each role on its own (N, mp) and (M, mp) submesh of ranks
+(``launch.mesh.make_role_meshes``; ``--mp`` multiplies both, ``--mesh`` and
+``--dp`` are refused beside it), one process a card, the suitcase crossing
+between the cards::
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.serve --arch qwen3-0.6b --roles prefill=1,decode=1
+
+Every rank serves its role; rank 0 prints the pair's summary (the decode
+role's gathered under ``roles``) and writes ``--trace`` (both roles'
+tracks), ``--metrics-json``, ``--metrics-prom`` (the decode role's
+registry, as the JAX CLI writes it) and ``--tokens-json``.
 """
 from __future__ import annotations
 
@@ -65,21 +79,12 @@ from ..obs import profile_trace
 from ..serve.disagg import DisaggEngine
 from ..serve.engine import Request, ServeEngine, prefill_buckets
 from ..serve.placement import ExecutionOracle, PlacementPlan
-from .mesh import make_serve_mesh, parse_mesh_arg
+from .mesh import (RoleConfig, make_role_meshes, make_serve_mesh,
+                   parse_mesh_arg, parse_roles_arg, start_group)
 
-#: options of the JAX package's serving CLI that are not ported yet:
-#: ``--roles`` pins each role of the disaggregated pair to a disjoint
-#: submesh of N + M devices, which is the next slice of the multi-device
-#: path (the pair itself runs on one device, ``build_disagg_engine``)
-NOT_PORTED = ("--roles",)
-
-
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is an option of repro.launch.serve "
-                     f"that the port does not have yet: each role of the "
-                     f"disaggregated pair on a disjoint submesh is the next "
-                     f"slice of the multi-device path")
+#: options of the JAX package's serving CLI that are not ported yet: none
+#: since ``--roles``
+NOT_PORTED: tuple[str, ...] = ()
 
 
 def _resolve_policy(cfg, policy, backend: str, *, slots: int, max_len: int,
@@ -184,12 +189,18 @@ def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
                         kv_blocks: int | None = None,
                         prefix_cache: bool = True, device: str = "cuda",
                         seed: int = 0, plan_cfg=None, profiles=None,
-                        policy="auto",
-                        program_memory: bool = False) -> DisaggEngine:
+                        policy="auto", program_memory: bool = False,
+                        roles: RoleConfig | None = None,
+                        param_strategy: str = "tp") -> DisaggEngine:
     """The disaggregated counterpart of :func:`build_engine`: a prefill and
-    a decode engine over ``model`` on its one device (the reference's
-    ``build_disagg_engine`` with ``roles=None``).  The auto plan is resolved
-    at ``slots=decode_slots``, as the reference resolves it; knob
+    a decode engine over ``model``, on its one device with ``roles=None``
+    (the reference's functional model of the split), else each role on its
+    own submesh of the ``roles`` partition (``launch.mesh.
+    make_role_meshes``, over the default process group, started here if
+    none is running; every rank calls this and builds its role's engine,
+    the weights laid out by ``param_strategy``).  The auto plan is
+    resolved at ``slots=decode_slots``, with the mesh axes ("data",
+    "model") under ``roles``, as the reference resolves it; knob
     precedence is ``build_engine``'s, and the plan's ``per_role`` knobs
     give the prefill role its buckets and chunk (the decode role takes
     none).  ``plan_cfg`` and ``profiles`` as in ``build_engine``: the
@@ -197,9 +208,14 @@ def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
     decode phase's."""
     backend = (model.device if model is not None
                else torch.device(device)).type
+    pm = dm = None
+    if roles is not None:
+        pm, dm, _ = make_role_meshes(roles, device=backend)
     plan = _resolve_policy(cfg, policy, backend, slots=decode_slots,
                            max_len=max_len, min_bucket=min_bucket,
-                           max_bucket=max_bucket)
+                           max_bucket=max_bucket,
+                           mesh_axes=pm.mesh_dim_names if pm is not None
+                           else ())
     if profiles is None:
         profiles = phase_profiles(plan_cfg or cfg, policy=plan)
     if model is None:
@@ -215,7 +231,8 @@ def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
         max_prefill_batch=max_prefill_batch, prefill_chunk=prefill_chunk,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
         prefix_cache=prefix_cache, policy=plan,
-        program_memory=program_memory, **phases)
+        program_memory=program_memory, prefill_mesh=pm, decode_mesh=dm,
+        param_strategy=param_strategy, **phases)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -309,15 +326,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mp", type=int, default=None,
                     help="model-parallel mesh axis (overrides --mesh; Mensa "
                          "cluster tensor parallelism)")
+    ap.add_argument("--roles", default="off",
+                    help="disaggregated prefill/decode serving: "
+                         "'prefill=N,decode=M' puts each role on its own "
+                         "submesh of N (resp. M) x mp ranks, one process a "
+                         "card under torch.distributed.run, with the KV "
+                         "suitcase crossing between them; 'off' (default) "
+                         "keeps the single interleaved engine; mutually "
+                         "exclusive with --mesh/--dp (tensor parallelism "
+                         "inside each role comes from --mp)")
     ap.add_argument("--param-strategy", default="tp",
                     choices=("tp", "dp", "auto"),
                     help="weight sharding template on a mesh: Mensa cluster "
                          "TP, replicated-dp, or 'auto' — per cluster from "
                          "the placement plan's sharding_axis (memory-centric "
                          "clusters replicate, compute-centric ones take TP)")
-    for opt in NOT_PORTED:
-        ap.add_argument(opt, nargs="?", action=_NotPorted,
-                        help=argparse.SUPPRESS)
     return ap
 
 
@@ -340,9 +363,19 @@ def main(argv=None) -> dict | None:
 
 
 def _serve(args) -> dict | None:
-    mesh = mesh_from_args(args)
+    roles = parse_roles_arg(args.roles)
+    if roles is not None and (args.mesh != "off" or args.dp is not None):
+        raise SystemExit("--roles is mutually exclusive with --mesh/--dp: "
+                         "each role gets its own (N, mp) submesh")
+    if roles is not None and args.mp is not None:
+        roles = RoleConfig(prefill=roles.prefill, decode=roles.decode,
+                           mp=args.mp)
+    mesh = None if roles is not None else mesh_from_args(args)
+    if roles is not None:
+        # the roles' ranks; build_disagg_engine partitions them
+        start_group(args.device)
     # on a mesh every rank serves; rank 0 alone prints and writes
-    lead = mesh is None or dist.get_rank() == 0
+    lead = (mesh is None and roles is None) or dist.get_rank() == 0
     say = print if lead else (lambda *a, **k: None)
     # planned at the arch's full size, as the JAX CLI plans
     plan_cfg = get_config(args.arch)
@@ -351,7 +384,8 @@ def _serve(args) -> dict | None:
         plan = ExecutionOracle(
             plan_cfg, slots=args.slots, max_len=args.max_len,
             min_bucket=args.min_bucket, max_bucket=args.max_bucket,
-            mesh_axes=mesh.mesh_dim_names if mesh is not None else (),
+            mesh_axes=("data", "model") if roles is not None
+            else mesh.mesh_dim_names if mesh is not None else (),
             backend=args.device).resolve()
     if args.policy_dump:
         say(plan.dumps())
@@ -372,9 +406,9 @@ def _serve(args) -> dict | None:
         say(f"[serve] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
               f"over {mesh.size()} devices (param strategy "
               f"{args.param_strategy})")
-    engine = build_engine(
-        cfg, slots=args.slots, max_len=args.max_len,
-        min_bucket=args.min_bucket, max_bucket=args.max_bucket,
+    knobs = dict(
+        max_len=args.max_len, min_bucket=args.min_bucket,
+        max_bucket=args.max_bucket,
         max_prefill_per_step=args.max_prefill_per_step,
         max_prefill_batch=args.max_prefill_batch,
         prefill_chunk=args.prefill_chunk,
@@ -382,8 +416,17 @@ def _serve(args) -> dict | None:
         prefix_cache=args.prefix_cache, device=args.device, seed=args.seed,
         plan_cfg=plan_cfg, profiles=(prefill_prof, decode_prof),
         policy=plan if plan is not None else "fixed",
-        program_memory=args.program_memory, mesh=mesh,
+        program_memory=args.program_memory,
         param_strategy=args.param_strategy)
+    if roles is not None:
+        say(f"[serve] disaggregated roles: prefill {roles.prefill}x"
+            f"{roles.mp} devices, decode {roles.decode}x{roles.mp} devices "
+            f"(param strategy {args.param_strategy})")
+        engine = build_disagg_engine(cfg, roles=roles,
+                                     prefill_slots=args.slots,
+                                     decode_slots=args.slots, **knobs)
+    else:
+        engine = build_engine(cfg, slots=args.slots, mesh=mesh, **knobs)
     if args.warmup:
         engine.warmup()
     rng = np.random.RandomState(args.seed)
@@ -415,17 +458,24 @@ def _serve(args) -> dict | None:
             # library loads, each bucket's first call)
             prof["warmed_up"] = bool(args.warmup)
         engine.run(reqs)
-    summary = engine.stats.summary()
+    pair = isinstance(engine, DisaggEngine)
+    # the pair's summary, trace and registry are collective on role meshes
+    summary = engine.summary() if pair else engine.stats.summary()
     if prof is not None:
         summary["profile"] = prof
     say(json.dumps(summary, indent=1))
+    if pair and args.trace:
+        written = engine.save_trace(args.trace)
+    prom = engine.metrics_prometheus() if pair and args.metrics_prom \
+        else None
     if not lead:
         return summary
     if args.trace:
-        engine.save_trace(args.trace)
-        say(f"[serve] trace written to {args.trace} "
-              f"({len(engine.tracer)} events, {engine.tracer.dropped} "
-              f"dropped) — load at ui.perfetto.dev")
+        if not pair:
+            engine.save_trace(args.trace)
+            written = len(engine.tracer), engine.tracer.dropped
+        say(f"[serve] trace written to {args.trace} ({written[0]} events, "
+            f"{written[1]} dropped) — load at ui.perfetto.dev")
     if args.metrics_json:
         Path(args.metrics_json).write_text(json.dumps(summary, indent=1)
                                            + "\n")
@@ -434,8 +484,10 @@ def _serve(args) -> dict | None:
             {r.rid: r.generated for r in reqs}) + "\n")
     if args.metrics_prom:
         Path(args.metrics_prom).write_text(
-            engine.stats.metrics.to_prometheus())
-        say(f"[serve] Prometheus metrics written to {args.metrics_prom}")
+            prom if pair else engine.stats.metrics.to_prometheus())
+        say(f"[serve] Prometheus metrics written to {args.metrics_prom}"
+            + (" (decode role's registry; the prefill role keeps its own)"
+               if pair else ""))
     return summary
 
 

@@ -117,6 +117,26 @@ class Tracer:
             raw = self._buf[cut:] + self._buf[:cut]
         return sorted(raw, key=lambda e: e[3])
 
+    @property
+    def tracks(self) -> dict[int, str]:
+        """The named tracks, ``{tid: name}``."""
+        return dict(self._tracks)
+
+    def merged(self, tracks: dict[int, str], events: list) -> "Tracer":
+        """A new tracer on this one's clock and epoch that holds this one's
+        retained events and tracks, then ``events`` (another tracer's raw
+        ``events()``) and its ``tracks`` — the view of two processes whose
+        clocks are one (``perf_counter`` is CLOCK_MONOTONIC, shared by
+        every process of a machine).  Losses to either ring are not
+        counted in its ``dropped``."""
+        own = self.events()
+        out = Tracer(max(1, len(own) + len(events)), clock=self.clock)
+        out._epoch = self._epoch
+        out._tracks = {**self._tracks, **tracks}
+        for e in own + list(events):
+            out.emit(*e)
+        return out
+
     # ----------------------------------------------------------------- export
     def _us(self, ts: float) -> float:
         return round((ts - self._epoch) * 1e6, 3)

@@ -56,7 +56,9 @@ each finished prefill on ``ready``; a ``role="decode"`` engine never admits
 from the queue and takes sequences through ``adopt``, which maps fresh
 blocks in its own pool and scatters the visiting suitcase (the slot's
 batch-1 state row plus copies of its KV blocks) into them.
-``serve.disagg.DisaggEngine`` couples the pair on the one device.
+``serve.disagg.DisaggEngine`` couples the pair on the one device, or each
+role on its own submesh of ranks, where the coordinator carries the
+suitcase across and each role engine runs only its half.
 
 Serving is optionally sharded (``mesh=``, a ``launch.mesh.make_serve_mesh``
 ``DeviceMesh`` with (data, model) axes), SPMD as the reference's: every rank
@@ -296,6 +298,26 @@ class EngineStats:
             out["programs"] = self.programs.summary()
         out["obs"] = self.metrics.to_dict()
         return out
+
+
+def check_request(req, max_len: int) -> None:
+    """Refuse a request no engine of cache size ``max_len`` can serve
+    (``ServeEngine.submit``'s checks, which every rank of a role pair makes
+    alike)."""
+    if not req.prompt:
+        raise ValueError("empty prompt: nothing to condition on")
+    if req.max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1 (prefill always "
+                         "samples the first token)")
+    if len(req.prompt) > max_len - 1:
+        raise ValueError(f"prompt length {len(req.prompt)} leaves no "
+                         f"cache room to decode (max_len {max_len})")
+    if req.temperature < 0:
+        raise ValueError("temperature must be >= 0 (0 = greedy)")
+    if not 0 < req.top_p <= 1:
+        raise ValueError("top_p must be in (0, 1]")
+    if req.top_k < 0:
+        raise ValueError("top_k must be >= 0 (0 = no top-k filter)")
 
 
 @dataclass
@@ -645,20 +667,7 @@ class ServeEngine:
 
     # ------------------------------------------------------------- admission
     def submit(self, req: Request) -> None:
-        if not req.prompt:
-            raise ValueError("empty prompt: nothing to condition on")
-        if req.max_new_tokens < 1:
-            raise ValueError("max_new_tokens must be >= 1 (prefill always "
-                             "samples the first token)")
-        if len(req.prompt) > self.max_len - 1:
-            raise ValueError(f"prompt length {len(req.prompt)} leaves no "
-                             f"cache room to decode (max_len {self.max_len})")
-        if req.temperature < 0:
-            raise ValueError("temperature must be >= 0 (0 = greedy)")
-        if not 0 < req.top_p <= 1:
-            raise ValueError("top_p must be in (0, 1]")
-        if req.top_k < 0:
-            raise ValueError("top_k must be >= 0 (0 = no top-k filter)")
+        check_request(req, self.max_len)
         req.t_submit = self.tracer.now()
         self.tracer.instant("submit", self._trk_req, req.t_submit,
                             (("rid", req.rid),
@@ -981,7 +990,8 @@ class ServeEngine:
 
     def stage_in(self, suitcase: list[BlockState]) -> list[BlockState]:
         """Decode role: land a visiting suitcase on this engine's device.
-        Both roles share the one device, so it passes through."""
+        Both roles share the one device, so it passes through (a suitcase
+        from another role's ranks lands in ``DisaggEngine``'s handoff)."""
         return suitcase
 
     def adopt(self, req: Request, suitcase: list[BlockState],
@@ -1061,7 +1071,7 @@ class ServeEngine:
                                      params=self.model.parameters())
         return out
 
-    def warmup(self) -> None:
+    def warmup(self, suitcase: list[BlockState] | None = None):
         """Run every shape the engine can serve once — each (batch-bucket,
         bucket) prefill on fresh states, the chunk continuation on a copy of
         slot 0, the block clone (paged) and the decode step with every row
@@ -1069,7 +1079,8 @@ class ServeEngine:
         allocator so the first request is not charged for them.  A role
         engine runs only its own half: the prefill role no decode step, the
         decode role neither prefill nor block clone; each then its half of
-        the handoff (``_warm_handoff``).  Each program registers in
+        the handoff (``_warm_handoff``, which takes ``suitcase`` and gives
+        what this method returns).  Each program registers in
         ``self.programs`` right before its call, at the call's shape."""
         if self._queue or self._prefilling \
                 or any(r is not None for r in self.requests):
@@ -1104,7 +1115,7 @@ class ServeEngine:
                      self.states, zeros(self.slots),
                      active=self._rows(np.zeros((self.slots,), bool)),
                      block_table=self._warm_table(self.slots))
-            self._warm_handoff()
+            exported = self._warm_handoff(suitcase)
             self.states = self._init_states()
             tm.sync()
         self.tracer.span("warmup", self._trk_engine, tm.t0, tm.t1)
@@ -1119,24 +1130,29 @@ class ServeEngine:
             if self.tracer.enabled:
                 self.tracer.counter(self._ctr_prefix + "program_temp_bytes",
                                     tm.t1, (("peak", tmp),))
+        return exported
 
-    def _warm_handoff(self) -> None:
+    def _warm_handoff(self, suitcase: list[BlockState] | None = None):
         """A role engine's half of the handoff
         (``repro.serve.engine._warm_handoff``): the prefill role exports slot
-        0 through an all-sentinel table row; the decode role imports a
-        suitcase made from its own idle states into slot 0 through an
+        0 through an all-sentinel table row and returns the suitcase; the
+        decode role imports ``suitcase`` (by default one made from its own
+        idle states; ``DisaggEngine`` passes the prefill role's warm export
+        when the roles are on ranks of their own) into slot 0 through an
         all-sentinel row, so every block write drops.  ``warmup``
         re-initializes the states right after."""
         if self.role == "both":
-            return
+            return None
         trow = [self.kv.sentinel] * self.kv.blocks_per_slot \
             if self.kv is not None else None
         if self.role == "prefill":
-            self._warm_program("export", {}, self._export_slot, 0, trow)
-        else:
+            return self._warm_program("export", {}, self._export_slot, 0,
+                                      trow)
+        if suitcase is None:
             suitcase = self.stage_in(self._export_slot(0, trow))
-            self._warm_program("import", {}, self._import_slot, suitcase, 0,
-                               trow)
+        self._warm_program("import", {}, self._import_slot, suitcase, 0,
+                           trow)
+        return None
 
     # ---------------------------------------------------------------- decode
     def _decode_table(self) -> torch.Tensor | None:

@@ -10,12 +10,28 @@ block ``b`` lives on data rank ``b // (blocks / n)``
 bits the meshless engine's indexing would (copies, broadcasts and
 all-gathers; no arithmetic), and every rank calls it with the same
 arguments, as SPMD host logic does.
+
+A suitcase that crosses from one role's submesh to the other's ranks
+travels in wire form (``pack``, ``Parcel``, ``unpack``): each rank's local
+parts of its leaves as one byte buffer, beside each leaf's global shape,
+dtype and placements, so the receiving ranks rebuild the DTensors on their
+own mesh with the same bits.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..models.attention import KVCache, PagedKVCache
+from ..models.transformer import BlockState
+
+#: each leaf's bytes start at a multiple of this in a packed suitcase, so
+#: every leaf's part is a view of the buffer at its own dtype
+WIRE_ALIGN = 16
 
 
 def _data(t: DTensor):
@@ -146,3 +162,113 @@ def write_blocks(pool: DTensor, ids: list[int], blocks: DTensor) -> None:
             0, torch.tensor([j for _, j in mine], device=dev),
             src.index_select(0, torch.tensor([i for i, _ in mine],
                                              device=dev)))
+
+
+# ------------------------------------------------------------------- wire
+class Parcel(NamedTuple):
+    """A suitcase in wire form: its layers' layout (``tree``: per layer
+    ``("paged" | "kv" | "rec", rec keys)``), each leaf's ``(global shape,
+    dtype name, placements)`` (``metas``: a placement is ``("S", dim)`` or
+    ``("R",)`` per mesh dim) and this rank's local parts of the leaves,
+    packed into one ``uint8`` buffer (``data``)."""
+    tree: list
+    metas: list
+    data: torch.Tensor
+
+
+def _placement_meta(p) -> tuple:
+    if isinstance(p, Shard):
+        return ("S", p.dim)
+    if isinstance(p, Replicate):
+        return ("R",)
+    raise ValueError(f"a suitcase leaf holds a {p} placement: only "
+                     f"whole or split state crosses between meshes")
+
+
+def _local_shape(meta: tuple, mesh) -> tuple:
+    """This rank's part of a leaf of ``meta`` on ``mesh`` (even splits:
+    the serving specs split only axes that divide)."""
+    shape = list(meta[0])
+    for m, p in enumerate(meta[2]):
+        if p[0] == "S":
+            n = mesh.size(m)
+            if meta[0][p[1]] % n:
+                raise ValueError(f"axis {p[1]} of {meta[0]} does not split "
+                                 f"{n} ways")
+            shape[p[1]] //= n
+    return tuple(shape)
+
+
+def _wire_sizes(metas: list, mesh) -> list[tuple[int, int]]:
+    """(byte offset, byte count) of each leaf's part in the buffer."""
+    out, off = [], 0
+    for meta in metas:
+        n = math.prod(_local_shape(meta, mesh)) \
+            * getattr(torch, meta[1]).itemsize
+        out.append((off, n))
+        off += -(-n // WIRE_ALIGN) * WIRE_ALIGN
+    return out
+
+
+def wire_bytes(metas: list, mesh) -> int:
+    """The byte length of a packed suitcase of ``metas`` on ``mesh``."""
+    off, n = _wire_sizes(metas, mesh)[-1]
+    return -(-(off + n) // WIRE_ALIGN) * WIRE_ALIGN
+
+
+def pack(suitcase: list[BlockState]) -> Parcel:
+    """The wire form of a suitcase of DTensors, each replicated over
+    ``data`` (``slot_row``, ``read_blocks``): this rank's local parts,
+    their bits copied into one byte buffer (no arithmetic)."""
+    tree, leaves = [], []
+    for st in suitcase:
+        if st.kv is not None:
+            tree.append(("paged" if isinstance(st.kv, PagedKVCache)
+                         else "kv", ()))
+            leaves += list(st.kv)
+        else:
+            tree.append(("rec", tuple(st.rec)))
+            leaves += list(st.rec.values())
+    dd = leaves[0].device_mesh.mesh_dim_names.index("data")
+    metas = []
+    for t in leaves:
+        if not isinstance(t.placements[dd], Replicate):
+            raise ValueError("a suitcase leaf must be replicated over data")
+        metas.append((tuple(t.shape), str(t.dtype).removeprefix("torch."),
+                      tuple(_placement_meta(p) for p in t.placements)))
+    mesh = leaves[0].device_mesh
+    data = torch.zeros(wire_bytes(metas, mesh), dtype=torch.uint8,
+                       device=leaves[0].to_local().device)
+    for t, (off, n) in zip(leaves, _wire_sizes(metas, mesh)):
+        data[off:off + n] = t.to_local().contiguous().view(-1) \
+            .view(torch.uint8)
+    return Parcel(tree, metas, data)
+
+
+def unpack(parcel: Parcel, mesh) -> list[BlockState]:
+    """A received ``Parcel`` as a suitcase on ``mesh``: each leaf a DTensor
+    of its sender's placements whose local part is a view of the buffer
+    (the sender's bits)."""
+    leaves = []
+    for meta, (off, n) in zip(parcel.metas, _wire_sizes(parcel.metas,
+                                                        mesh)):
+        shape, dtype = meta[0], getattr(torch, meta[1])
+        part = parcel.data[off:off + n].view(dtype).view(
+            _local_shape(meta, mesh))
+        placements = tuple(Shard(p[1]) if p[0] == "S" else Replicate()
+                           for p in meta[2])
+        leaves.append(DTensor.from_local(
+            part, mesh, placements, run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride()))
+    out, i = [], 0
+    for kind, keys in parcel.tree:
+        if kind == "rec":
+            out.append(BlockState(rec=dict(zip(keys,
+                                               leaves[i:i + len(keys)]))))
+            i += len(keys)
+        else:
+            cls = PagedKVCache if kind == "paged" else KVCache
+            n = len(cls._fields)
+            out.append(BlockState(kv=cls(*leaves[i:i + n])))
+            i += n
+    return out

@@ -17,6 +17,8 @@ both the data-parallel (8, 1) and the tensor-parallel (4, 2) cases.
 that xdist's ``loadfile`` runs the two files side by side."""
 import json
 import multiprocessing
+import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -46,10 +48,20 @@ GAINS = {"qwen3-0.6b": 3.0, "recurrentgemma-2b": 1.0,
 
 
 # ------------------------------------------------------------------ ranks
+#: how long a rank waits in one collective before it raises (gloo's own
+#: default is 30 minutes): a rank that fails or hangs mid-protocol then
+#: fails its test instead of holding the suite to its time limit
+COLLECTIVE_TIMEOUT = timedelta(minutes=3)
+
+#: how long a set of ranks may take in all before it is killed
+RANKS_TIMEOUT_S = 600
+
+
 def _rank_main(rank: int, world: int, where: str, job, args) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{where}/pg",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world,
+                            timeout=COLLECTIVE_TIMEOUT)
     try:
         out = job(rank, *args)
         # every rank's results, gathered: SPMD host logic keeps each case
@@ -63,19 +75,41 @@ def _rank_main(rank: int, world: int, where: str, job, args) -> None:
         dist.destroy_process_group()
 
 
-def run_ranks(where: Path, world: int, job, *args) -> list[dict]:
-    """``job(rank, *args)`` (a module-level function returning a JSON-able
-    dict) on ``world`` gloo ranks; each rank's result, rank 0 first.  The
-    ranks fork from one server process that imported torch and the jobs'
-    module once (``forkserver``), not from this worker, whose threads a
-    fork would copy mid-flight."""
+def start_ranks(where: Path, world: int, job, *args):
+    """Start ``job(rank, *args)`` (a module-level function returning a
+    JSON-able dict) on ``world`` gloo ranks; returns the function that
+    waits for them (at most ``RANKS_TIMEOUT_S`` in all, then kills them
+    and raises) and gives each rank's result, rank 0 first, so that this
+    process can work while the ranks run.  The ranks fork from one server
+    process that imported torch and the jobs' module once
+    (``forkserver``), not from this worker, whose threads a fork would
+    copy mid-flight."""
     where.mkdir(parents=True, exist_ok=True)
     multiprocessing.set_forkserver_preload(
         ["torch", "torch.distributed.tensor", job.__module__])
-    tmp_mp.start_processes(_rank_main, args=(world, str(where), job, args),
-                           nprocs=world, start_method="forkserver")
-    return [json.loads((where / f"rank{r}.json").read_text())
-            for r in range(world)]
+    ctx = tmp_mp.start_processes(_rank_main,
+                                 args=(world, str(where), job, args),
+                                 nprocs=world, start_method="forkserver",
+                                 join=False)
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+
+    def results() -> list[dict]:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"{world} ranks of {job.__name__} did "
+                                   f"not end within {RANKS_TIMEOUT_S} s")
+        return [json.loads((where / f"rank{r}.json").read_text())
+                for r in range(world)]
+
+    return results
+
+
+def run_ranks(where: Path, world: int, job, *args) -> list[dict]:
+    """``job(rank, *args)`` on ``world`` gloo ranks (``start_ranks``),
+    waited for; each rank's result, rank 0 first."""
+    return start_ranks(where, world, job, *args)()
 
 
 def float32_config(arch: str):
@@ -113,11 +147,11 @@ def varied(toks: list) -> bool:
     return any(len(set(t)) > 1 for t in toks)
 
 
-def jax_tokens(model, trace, *, pair: bool = False, **kw) -> list:
+def jax_run(model, trace, *, pair: bool = False, **kw) -> tuple:
     """``trace(JAX Request class, vocab)`` served by the JAX package's
     meshless ``ServeEngine`` (``pair``: its ``DisaggEngine``) with engine
-    arguments ``kw``, on ``model``'s weights; the greedy tokens.  JAX is
-    imported here, in the test process, never in a rank."""
+    arguments ``kw``, on ``model``'s weights; the engine and the greedy
+    tokens.  JAX is imported here, in the test process, never in a rank."""
     import jax
     import jax.numpy as jnp
 
@@ -133,7 +167,12 @@ def jax_tokens(model, trace, *, pair: bool = False, **kw) -> list:
         num_kv_heads=cfg.num_kv_heads, compute_dtype="float32")
     params = jax.tree.map(jnp.asarray, to_jax_params(model))
     eng = (JaxDisagg if pair else JaxEngine)(jax_build(jcfg), params, **kw)
-    return tokens(eng.run(trace(JaxRequest, cfg.vocab_size)))
+    return eng, tokens(eng.run(trace(JaxRequest, cfg.vocab_size)))
+
+
+def jax_tokens(model, trace, *, pair: bool = False, **kw) -> list:
+    """The greedy tokens of ``jax_run``."""
+    return jax_run(model, trace, pair=pair, **kw)[1]
 
 
 def oracles(model, trace, *, pair: bool = False, **kw) -> dict:

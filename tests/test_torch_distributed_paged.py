@@ -2,12 +2,13 @@
 ``tests/test_torch_distributed.py`` for how the ranks run): the paged pool
 striped over the data axis with the prefix cache (the reference's
 ``test_sharded_paged_prefix_engine``), ``param_strategy="auto"`` against
-``"tp"`` on a (1, 2) mesh (``tests/test_serve_sharding.py``), the serving
-CLI on two ranks, and the disaggregated pair on one mesh.  One set of two
-ranks serves every 2-rank case, one set of eight the 8-rank one.  The
-paged, pair and uneven-heads traces also go through the port's and the
-JAX package's meshless engines in this test process (``oracles``), and
-the mesh's tokens must equal both."""
+``"tp"`` on a (1, 2) mesh (``tests/test_serve_sharding.py``) and the
+serving CLI on two ranks.  One set of two ranks serves every 2-rank case,
+one set of eight the 8-rank one.  The paged and uneven-heads traces also
+go through the port's and the JAX package's meshless engines in this test
+process (``oracles``), and the mesh's tokens must equal both.  The
+disaggregated pair, each role on ranks of its own, is in
+``tests/test_torch_roles.py``."""
 import json
 from pathlib import Path
 
@@ -24,7 +25,6 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
 from repro_torch.launch.serve import build_engine, main  # noqa: E402
 from repro_torch.obs import program_cost  # noqa: E402
-from repro_torch.serve.disagg import DisaggEngine  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 
@@ -100,33 +100,6 @@ def _cli(rank: int, where: str) -> dict:
     return out
 
 
-def pair_trace(cls, vocab: int) -> list:
-    rng = np.random.RandomState(5)
-    shared = rng.randint(1, vocab, 20).tolist()
-    reqs = [cls(rid=i, prompt=shared + rng.randint(1, vocab, 3 + i).tolist(),
-                max_new_tokens=4) for i in range(3)]
-    reqs.append(cls(rid=9, prompt=rng.randint(1, vocab, 40).tolist(),
-                    max_new_tokens=4))
-    return reqs
-
-
-#: the disaggregated pair: 2 prefill + 4 decode slots, paged
-PAIR_KW = dict(prefill_slots=2, decode_slots=4, max_len=64,
-               buckets=(16, 32), kv_block_size=16)
-
-
-def _pair(nd: int) -> dict:
-    """The disaggregated pair (paged qwen3) with both roles on one (nd, 1)
-    mesh."""
-    model = lively_model("qwen3-0.6b")
-    dis = DisaggEngine(model, mesh=make_serve_mesh(nd, 1, device="cpu"),
-                       **PAIR_KW)
-    dis.warmup()
-    dis.reset_stats()
-    done = tokens(dis.run(pair_trace(Request, model.cfg.vocab_size)))
-    return {"mesh": done, "handoffs": dis.summary()["handoffs"]}
-
-
 def uneven_config():
     """Reduced smollm at its full head counts, 9 over 3 KV heads."""
     return float32_config("smollm-135m").replace(num_heads=9,
@@ -154,8 +127,7 @@ def _uneven() -> dict:
 
 def _two(rank: int, where: str) -> dict:
     return {"paged": _paged(2), "auto_tp": _auto_and_tp(),
-            "cli": _cli(rank, where), "pair": _pair(2),
-            "uneven": _uneven()}
+            "cli": _cli(rank, where), "uneven": _uneven()}
 
 
 def _eight(rank: int) -> dict:
@@ -234,21 +206,6 @@ def test_cli_on_two_ranks_matches_meshless(two):
     zero, one = two
     assert zero["cli"]["2x1"] is not None and one["cli"]["2x1"] is None
     assert zero["cli"]["2x1"] == zero["cli"]["off"] == one["cli"]["off"]
-
-
-def test_disagg_pair_on_one_mesh(two):
-    """Both roles of the disaggregated pair on one (2, 1) mesh: each
-    suitcase (a slot row and its blocks, gathered from their stripes)
-    lands in the decode pool's stripes, and the pair serves the meshless
-    pair's tokens and the JAX pair's, one handoff a request."""
-    want = oracles(lively_model("qwen3-0.6b"), pair_trace, pair=True,
-                   **PAIR_KW)
-    assert varied(want["ref"])
-    for res in two:
-        assert res["ranks_agree"]["pair"]
-        case = res["pair"]
-        assert case["mesh"] == want["ref"] == want["jax"]
-        assert case["handoffs"] == len(want["ref"])
 
 
 def test_heads_that_do_not_split_are_gathered(two):

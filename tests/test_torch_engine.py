@@ -184,20 +184,21 @@ def test_cli_serves_recurrentgemma_with_dense_kv(capsys):
 
 
 def test_cli_fails_loudly_on_every_option_it_lacks(capsys):
-    """Every option of the JAX package's CLI is either served by the port's
-    or refused by name (exit 2, with the reason)."""
+    """Every option of the JAX package's CLI is served by the port's: none
+    is left to refuse by name (``NOT_PORTED`` is empty since ``--roles``),
+    and the port's parser hides none.  ``--roles`` takes the JAX CLI's
+    spelling and default."""
     from repro.launch.serve import build_parser as jax_parser
     from repro_torch.launch.serve import NOT_PORTED, build_parser
     port = build_parser()
     refused = {o for a in port._actions for o in a.option_strings
                if a.help == "==SUPPRESS=="}
-    assert refused == set(NOT_PORTED)
+    assert refused == set(NOT_PORTED) == set()
     assert _options(jax_parser()) <= _options(port)
-    for opt in NOT_PORTED:
-        with pytest.raises(SystemExit) as exc:
-            port.parse_args([opt, "1"])
-        assert exc.value.code == 2
-    assert "does not have yet" in capsys.readouterr().err
+    assert port.parse_args([]).roles == jax_parser().parse_args([]).roles
+    assert port.parse_args(["--roles", "prefill=1,decode=2"]).roles \
+        == "prefill=1,decode=2"
+    assert capsys.readouterr().err == ""
 
 
 def test_cli_profile_dir_writes_a_trace_and_a_summary(tmp_path, capsys):

@@ -10,6 +10,7 @@ dominate)."""
 import contextlib
 import importlib.util
 import io
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -24,10 +25,14 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def _stdout(script: str, *args: str) -> list[str]:
+    # one thread an example: the suite's workers share the cores, and a
+    # process that starts a thread on every core of the machine for small
+    # tensors spends its time waiting for them
     proc = subprocess.run([sys.executable, str(ROOT / "examples" / script),
                            *args],
                           capture_output=True, text=True, timeout=300,
-                          check=True, cwd=ROOT)
+                          check=True, cwd=ROOT,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     return proc.stdout.splitlines()
 
 

@@ -1308,3 +1308,37 @@ def test_mesh_engine_serves_the_meshless_tokens_on_card(card_mesh, arch,
     want, meshless = serve(None)
     assert got == want
     assert launched == meshless and sum(launched) > 0
+
+
+@pytest.mark.gpu
+def test_roles_cli_on_two_cards_serves_roles_off_tokens(cuda, tmp_path):
+    """``--roles prefill=1,decode=1`` under ``torch.distributed.run`` on two
+    cards, one process a card (reduced qwen3, paged with the prefix cache),
+    warmed (the warm suitcase crosses too): ``--roles off``'s tokens, one
+    handoff a request, none pending."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the role pair puts each role on a "
+                    "card of its own (NCCL takes one rank a card)")
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cli = ["-m", "repro_torch.launch.serve", "--reduced", "--max-len", "64",
+           "--requests", "4", "--max-new", "6", "--warmup"]
+    runs = {"off": [sys.executable] + cli,
+            "roles": [sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc-per-node=2"] + cli
+            + ["--roles", "prefill=1,decode=1", "--metrics-json",
+               str(tmp_path / "m.json")]}
+    got = {}
+    for name, cmd in runs.items():
+        path = tmp_path / f"{name}.json"
+        subprocess.run(cmd + ["--tokens-json", str(path)], cwd=root, env=env,
+                       check=True, timeout=600, capture_output=True)
+        got[name] = json.loads(path.read_text())
+    assert got["roles"] == got["off"]
+    s = json.loads((tmp_path / "m.json").read_text())
+    assert s["handoffs"] == 4 and s["handoffs_pending"] == 0

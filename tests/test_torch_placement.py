@@ -12,7 +12,7 @@ JAX package's, on the CPU.
   serves the JAX auto engine's tokens in float32.
 - The CLI: ``--policy-dump`` prints the JAX dump but for the kernel labels;
   ``--long-prompts``, ``--max-new`` and ``--warmup`` run; the refused
-  options are exactly ``NOT_PORTED``."""
+  options are exactly ``NOT_PORTED``, none."""
 import json
 
 import pytest
@@ -320,10 +320,10 @@ def test_cli_long_prompts_max_new_and_warmup_run_on_cpu(capsys):
 
 
 def test_cli_refuses_exactly_the_options_not_ported():
-    """The roles' option is refused (the meshes' are served); the program
-    memory is accepted both ways and measures each warmed program on the
-    CPU: its argument and output bytes, no watermark."""
-    assert set(NOT_PORTED) == {"--roles"}
+    """No option is refused (the roles' and the meshes' are served); the
+    program memory is accepted both ways and measures each warmed program
+    on the CPU: its argument and output bytes, no watermark."""
+    assert set(NOT_PORTED) == set()
     assert not build_parser().parse_args(
         ["--no-program-memory"]).program_memory
     s = main(["--reduced", "--device", "cpu", "--max-len", "64",
