@@ -159,6 +159,24 @@ Phases, one line or block of output each; any failure exits non-zero:
    non-causal ones included.  Then reduced smollm-135m trains 12 steps
    twice, once failing at step 9 and auto-resuming from a checkpoint; the
    losses agree within a stated tolerance;
+7b. train mesh — qwen3-0.6b's phase-7 run again (the same init, data,
+   schedule and geometry) through ``make_train_step`` on DTensor
+   parameters on a 1-rank NCCL mesh (``launch.mesh.make_host_mesh``,
+   ``shardings.distribute_models``, a batch laid out by
+   ``batch_specs``): its losses and grad norms within a stated tolerance
+   of phase 7's, no launch under autograd; ``train.grad.compressed_psum``
+   on the card's NCCL group equal to the host's gloo group bit for bit;
+   the dry runs of qwen3-0.6b's ``train_4k`` cell on the reference's
+   single- and multi-pod meshes (``launch/dryrun.py`` on a fake group of
+   256 and 512 ranks, meta tensors, in processes of their own started
+   after the timed mesh run): FLOPs a device, collectives and wire bytes,
+   a rank's argument bytes against the card's memory.  On n >= 2 cards
+   also 2-layer float32 qwen3-0.6b at full width on (n, 1) and (1, n)
+   meshes, each a session under ``torch.distributed.run`` (this script's
+   ``--train-worker`` mode), held to the same model's meshless
+   ``make_train_step`` run on one card;
+   ``compressed_psum`` over n NCCL ranks against gloo; a checkpoint saved
+   on (n, 1) restored on (1, n) bit for bit;
 8. examples — ``examples/quickstart_torch.py``,
    ``serve_edge_torch.py --arch qwen3-0.6b`` and ``train_lm_torch.py
    --full --steps 20 --fail-at 7`` (smollm-135m at full width), each in a
@@ -2763,6 +2781,9 @@ def phase_train(seed: int, card: str, arch: str, steps: int) -> dict:
         f"parameter tensors moved; evaluation loss {eval_loss:.4f}; "
         f"launches in training {train_counts}, with the evaluation "
         f"{counts}")
+    TRAINED[arch] = {"losses": losses,
+                     "grad_norms": [run["grad_norms"][i] for i in range(steps)],
+                     "step_ms": step_ms, "peak": peak}
     check_all(f"train {arch}", {
         "every loss finite": all(math.isfinite(v) for v in losses),
         "evaluation loss finite": math.isfinite(eval_loss),
@@ -2834,6 +2855,400 @@ def phase_train_resume(seed: int) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ----------------------------------------------------------- 7b. train mesh
+#: phase 7's meshless runs: losses, grad norms, step ms and peak by arch
+TRAINED: dict = {}
+
+#: phase 7b's 1-rank mesh against phase 7's meshless run of qwen3-0.6b
+#: (bf16 compute, relative): the same operations but the loss's (a max,
+#: a sum of exponentials and the gold logit in place of logsumexp), and
+#: CUDA's atomic adds (the embedding's backward) in both
+TRAIN_MESH_RTOL = {"loss": 1e-3, "grad_norm": 1e-2}
+
+#: the multi-card meshes (float32 compute) against the one-card meshless
+#: run: partial sums over the cards in other orders
+TRAIN_MESH_N_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
+
+#: the multi-card runs' depth: full-width qwen3-0.6b cut to 2 layers
+TRAIN_MESH_LAYERS = 2
+TRAIN_MESH_DIR = ROOT / "build" / "train_mesh"
+TRAIN_MESH_TIMEOUT_S = 300
+MESH_AXES = ("data", "model")
+
+#: the dry runs phase 7b prints: qwen3-0.6b's train_4k cell on the
+#: reference's single- and multi-pod meshes, on a fake group on the host
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "single"),
+                ("qwen3-0.6b", "train_4k", "multi"))
+DRYRUN_DIR = ROOT / "build" / "dryrun_torch"
+DRYRUN_TIMEOUT_S = 900
+
+
+def start_dryruns() -> list:
+    """``DRYRUN_CELLS`` in processes of their own on the host (each a CPU
+    process on ``meta`` tensors, about half a minute), started after phase
+    7b's timed run so that they load the host during no timed phase;
+    ``dryrun_lines`` waits for them.  Each is killed when this script
+    exits."""
+    import atexit
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        (DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json").unlink(missing_ok=True)
+        procs.append(((arch, shape, mesh), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out",
+             str(DRYRUN_DIR)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     OMP_NUM_THREADS="1"))))
+
+    def stop():
+        for _, proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    atexit.register(stop)
+    return procs
+
+
+def train_mesh_group() -> None:
+    """A 1-rank default group on the card that also takes host tensors
+    (NCCL for the card's, gloo for the host's), on an in-process store."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+
+
+def train_steps(model, mesh, data, steps: int, accum: int) -> dict:
+    """``steps`` train steps of ``model`` (phase 7's schedule): on
+    ``mesh`` a DTensor model, each batch laid out by ``batch_specs``;
+    with ``mesh`` None the plain model, meshless.  Losses, grad norms,
+    step ms (the batch's copy, the step and a sync), params and state."""
+    import torch
+    from repro_torch.launch import shardings as sh
+    from repro_torch.obs.timing import Timed
+    from repro_torch.train import make_train_step, optim
+    step_fn = make_train_step(model, accum_steps=accum,
+                              schedule=optim.cosine_schedule(
+                                  3e-4, warmup=max(steps // 20, 5),
+                                  total=steps))
+    params = dict(model.named_parameters())
+    state = optim.adamw_init(params)
+    specs = None if mesh is None else sh.batch_specs(model.cfg, mesh,
+                                                     TRAIN_BATCH)
+    out = {"losses": [], "grad_norms": [], "step_ms": []}
+    for step in range(steps):
+        with Timed("step", device=torch.device("cuda")) as tm:
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in data.batch(step).items()}
+            if mesh is not None:
+                batch = {k: sh.local_part(v, mesh,
+                                          sh.to_placements(specs[k], mesh))
+                         for k, v in batch.items()}
+            params, state, m = step_fn(params, state, batch)
+            tm.sync()
+        out["step_ms"].append(1e3 * tm.dur)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out.update(params=params, state=state)
+    return out
+
+
+def synthetic(cfg, seed: int):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    return SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=seed))
+
+
+def seeded_train_model(cfg):
+    """``cfg``'s train model on the card with ``train_once``'s init (a
+    generator on the card seeded with 0)."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg, "cuda", train=True)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+def worst_rel(got: dict, want: dict) -> dict:
+    """The largest relative difference of ``got``'s losses and grad norms
+    from ``want``'s, step by step."""
+    return {k: max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(got[series], want[series]))
+            for k, series in (("loss", "losses"),
+                              ("grad_norm", "grad_norms"))}
+
+
+def psum_bits(seed: int, cuda_mesh, cpu_mesh) -> tuple[bool, str]:
+    """``train.grad.compressed_psum`` of the same inputs on the card's
+    NCCL group and the host's gloo group: (bit for bit, what was held)."""
+    import torch
+    from repro_torch.train import grad
+    gen = torch.Generator().manual_seed(seed)
+    g = {"w": torch.randn(1024, 1024, generator=gen),
+         "b": 3 * torch.randn(4096, generator=gen)}
+    e = {k: 1e-2 * torch.randn(v.shape, generator=gen) for k, v in g.items()}
+    mc, ec = grad.compressed_psum(g, e, cpu_mesh)
+    mg, eg = grad.compressed_psum({k: v.cuda() for k, v in g.items()},
+                                  {k: v.cuda() for k, v in e.items()},
+                                  cuda_mesh)
+    same = all(torch.equal(mc[k], mg[k].cpu()) and torch.equal(
+        ec[k], eg[k].cpu()) for k in g)
+    return same, (f"{sum(v.numel() for v in g.values())} values in "
+                  f"{len(g)} leaves")
+
+
+def dryrun_lines(procs: list, card: str) -> None:
+    """Wait for ``start_dryruns``'s cells and print each record: FLOPs a
+    device, collectives, one rank's argument bytes against the card's
+    memory.  Fails unless each is ``ok``."""
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    checks = {}
+    for (arch, shape, mesh), proc in procs:
+        try:
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            fail(f"the dry run of {arch} {shape} {mesh} did not end within "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        path = DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json"
+        if proc.returncode or not path.exists():
+            for line in err.splitlines()[-20:]:
+                say(f"[dryrun] stderr| {line}")
+            fail(f"the dry run of {arch} {shape} {mesh} exited "
+                 f"{proc.returncode}")
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            fail(f"dry run {arch} {shape} {mesh}: {rec.get('error')}")
+        c, mem = rec["collectives"], rec["memory"]
+        args = mem["argument_size_in_bytes"]
+        say(f"[dryrun] {arch} {shape} {mesh} on a fake group of "
+            f"{rec['n_devices']} ranks {rec['mesh_shape']} (host, meta "
+            f"tensors, torch {torch.__version__}): one train step in "
+            f"{rec['trace_s']} s, {rec['meta']['accum_steps']} microbatches;"
+            f" {rec['flops']:.4g} FLOPs a device ({rec['flops_counts']}); "
+            f"collectives {c['counts']}, wire bytes a device "
+            f"{c['total_wire_bytes']:.4g} "
+            f"({ {k: f'{v:.4g}' for k, v in c['wire_bytes'].items()} }); "
+            f"arguments {args / 2 ** 30:.3f} GiB a device "
+            f"({args / total:.2%} of {card}'s {total / 2 ** 30:.1f} GiB); "
+            f"parameters {rec['meta']['param_bytes'] / 2 ** 30:.3f} GiB in "
+            f"all")
+        checks[f"{arch} {shape} {mesh}: a rank's arguments fit the card"] = \
+            args < total
+    check_all("dry run", checks)
+
+
+def phase_train_mesh(seed: int, card: str) -> dict:
+    """Phase 7's qwen3-0.6b run again on a 1-rank NCCL mesh: the same
+    init, data, schedule and geometry through ``make_train_step`` on
+    DTensor parameters (``shardings.distribute_models``) and a batch laid
+    out by ``batch_specs``; launch counters set to 0 just before and read
+    just after (autograd: none).  Losses and grad norms held to phase 7's
+    within ``TRAIN_MESH_RTOL``; prints the step ms and peak memory beside
+    phase 7's.  Then the dry runs start (``start_dryruns``), and while they
+    run ``compressed_psum`` on the card's NCCL group is held to the host's
+    gloo group, bit for bit; then the dry runs' records
+    (``dryrun_lines``); then, on two cards or more, ``train_mesh_cards``.
+    Returns the launches of the mesh run."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    arch = "qwen3-0.6b"
+    cfg, base = get_config(arch), TRAINED[arch]
+    steps = len(base["losses"])
+    train_mesh_group()
+    mesh = make_host_mesh((1, 1), MESH_AXES, device="cuda")
+    model = sh.distribute_models([seeded_train_model(cfg)], mesh)[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train_steps(model, mesh, synthetic(cfg, seed), steps,
+                      TRAIN_ACCUM)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    worst = worst_rel(run, base)
+    med = sorted(run["step_ms"])[len(run["step_ms"]) // 2]
+    say(f"[train mesh] {arch} full width on a 1-rank "
+        f"{dist.get_backend()} mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+        f"on {card}: DTensor parameters, {steps} steps of make_train_step "
+        f"(global batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} "
+        f"microbatches, phase 7's init, data and schedule): losses "
+        f"{[round(v, 5) for v in run['losses']]} (phase 7 "
+        f"{[round(v, 5) for v in base['losses']]}), grad norms "
+        f"{[round(v, 4) for v in run['grad_norms']]} (phase 7 "
+        f"{[round(v, 4) for v in base['grad_norms']]}); worst relative "
+        f"difference loss {worst['loss']:.3e} (tol "
+        f"{TRAIN_MESH_RTOL['loss']}), grad norm {worst['grad_norm']:.3e} "
+        f"(tol {TRAIN_MESH_RTOL['grad_norm']}); step ms "
+        f"{[round(v, 1) for v in sorted(run['step_ms'])]} (median {med:.1f}"
+        f"; phase 7 median "
+        f"{base['step_ms'][len(base['step_ms']) // 2]:.1f}), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB (phase 7 {base['peak'] / 2 ** 30:.2f} "
+        f"GiB); launches {counts}")
+    check_all(f"train mesh {arch}", {
+        "no kernel launched under autograd": not any(counts.values()),
+        "losses within tolerance of phase 7's":
+            worst["loss"] <= TRAIN_MESH_RTOL["loss"],
+        "grad norms within tolerance of phase 7's":
+            worst["grad_norm"] <= TRAIN_MESH_RTOL["grad_norm"],
+        "moments laid out as their parameters": all(
+            run["state"].mu[k].placements == p.placements
+            for k, p in run["params"].items()),
+    })
+    del model, run
+    release()
+    dryruns = start_dryruns()
+    same, what = psum_bits(seed, mesh, make_host_mesh(
+        (1, 1), MESH_AXES, device="cpu"))
+    say(f"[train mesh] compressed_psum (int8 error feedback) of {what} on "
+        f"the card's NCCL group against the host's gloo group: bit for bit "
+        f"{same}")
+    check_all("compressed_psum on the card", {"bit for bit": same})
+    dist.destroy_process_group()
+    dryrun_lines(dryruns, card)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        train_mesh_cards(seed, card, n)
+    else:
+        say(f"[train mesh] one card ({card}): the (n,1) and (1,n) meshes "
+            f"and the checkpoint across them need two cards or more")
+    return counts
+
+
+def mesh_train_config():
+    """The multi-card runs' model: full-width qwen3-0.6b cut to
+    ``TRAIN_MESH_LAYERS`` layers, float32 compute."""
+    from repro_torch.configs import get_config
+    return get_config("qwen3-0.6b").replace(num_layers=TRAIN_MESH_LAYERS,
+                                            compute_dtype="float32")
+
+
+def train_mesh_cards(seed: int, card: str, n: int) -> None:
+    """On ``n`` cards: ``mesh_train_config``'s model trains 3 steps
+    meshless on one card in this process (``make_train_step`` on the plain
+    model's parameters, as phase 7), then on an (n, 1) and a (1, n)
+    mesh, each a session of its own under ``torch.distributed.run`` (one
+    process a card, this script's ``--train-worker`` mode).  The (n, 1)
+    run also holds ``compressed_psum`` over its n NCCL ranks against the
+    same on gloo, bit for bit, and saves a checkpoint that the (1, n) run
+    restores bit for bit.  Each run's losses and grad norms are held to
+    the meshless run's within ``TRAIN_MESH_N_RTOL``, with no launch."""
+    cfg = mesh_train_config()
+    base = train_steps(seeded_train_model(cfg), None, synthetic(cfg, seed),
+                       3, TRAIN_ACCUM)
+    release()
+    TRAIN_MESH_DIR.mkdir(parents=True, exist_ok=True)
+    checks = {}
+    for dp, mp in ((n, 1), (1, n)):
+        label = f"{dp}x{mp}"
+        out = TRAIN_MESH_DIR / f"{label}.json"
+        out.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        rc, _, err = run_bounded(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={n}", str(ROOT / "chip_smoke.py"),
+             "--seed", str(seed), "--train-worker", label],
+            TRAIN_MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if rc or not out.exists():
+            for line in err.splitlines()[-20:]:
+                say(f"[train mesh] {label} stderr| {line}")
+            fail(f"the {label} train session on {n} cards exited {rc}")
+        got = json.loads(out.read_text())
+        worst = worst_rel(got, base)
+        say(f"[train mesh] {mesh_train_config().name} "
+            f"({TRAIN_MESH_LAYERS} layers, float32) on a {label} mesh of "
+            f"{n} cards under torch.distributed.run: exit 0 in {wall:.1f} s"
+            f" wall on {card}; losses {got['losses']} (one card meshless "
+            f"{base['losses']}), grad norms {got['grad_norms']} "
+            f"({base['grad_norms']}); worst relative difference loss "
+            f"{worst['loss']:.3e}, grad norm {worst['grad_norm']:.3e}; step "
+            f"ms {[round(v, 1) for v in got['step_ms']]} (meshless "
+            f"{[round(v, 1) for v in base['step_ms']]}); launches by rank "
+            f"{got['launches']}; " + "; ".join(
+                f"{k} {v}" for k, v in got["checks"].items()))
+        checks.update({
+            f"{label}: losses within {TRAIN_MESH_N_RTOL['loss']}":
+                worst["loss"] <= TRAIN_MESH_N_RTOL["loss"],
+            f"{label}: grad norms within {TRAIN_MESH_N_RTOL['grad_norm']}":
+                worst["grad_norm"] <= TRAIN_MESH_N_RTOL["grad_norm"],
+            f"{label}: no kernel launched under autograd":
+                not any(any(c.values()) for c in got["launches"]),
+            **{f"{label}: {k}": v for k, v in got["checks"].items()}})
+    check_all("train mesh on cards", checks)
+
+
+def train_worker(seed: int, label: str) -> None:
+    """One rank of a ``train_mesh_cards`` session under
+    ``torch.distributed.run``: ``mesh_train_config``'s model on a
+    ``label`` ("DPxMP") mesh of the cards, 3 steps with the launch
+    counters set to 0 just before; on (n, 1) also ``compressed_psum``
+    over NCCL against gloo and a checkpoint saved (with the whole final
+    parameters beside it); on (1, n) that checkpoint restored and held
+    bit for bit.  Rank 0 writes ``build/train_mesh/LABEL.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import distribute_models, local_part
+    from repro_torch.launch.train import restore_state, state_tree
+    from repro_torch.models import spmd
+    dp, mp = (int(v) for v in label.split("x"))
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:nccl")
+    rank = dist.get_rank()
+    mesh = make_host_mesh((dp, mp), MESH_AXES, device="cuda")
+    cfg = mesh_train_config()
+    model = distribute_models([seeded_train_model(cfg)], mesh)[0]
+    reset_counts()
+    run = train_steps(model, mesh, synthetic(cfg, seed), 3, TRAIN_ACCUM)
+    counts = read_counts()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, {k: v for k, v in counts.items() if v})
+    checks = {}
+    whole_path = TRAIN_MESH_DIR / "final_params.npz"
+    if mp == 1:
+        ckpt.save(TRAIN_MESH_DIR / "ckpt", 3,
+                  state_tree(model, run["params"], run["state"]))
+        whole = {k: spmd.whole(p).detach().cpu().numpy()
+                 for k, p in run["params"].items()}
+        if rank == 0:
+            np.savez(whole_path, **whole)
+        same, what = psum_bits(seed + rank, mesh, make_host_mesh(
+            (dp, mp), MESH_AXES, device="cpu"))
+        checks[f"compressed_psum over {dp} NCCL ranks equals gloo's bit for "
+               f"bit ({what})"] = same
+        checks["checkpoint saved"] = ckpt.latest_step(
+            TRAIN_MESH_DIR / "ckpt") == 3
+    else:
+        fresh = distribute_models([seeded_train_model(cfg)], mesh)[0]
+        params, state = restore_state(fresh, TRAIN_MESH_DIR / "ckpt", 3)
+        saved = np.load(whole_path)
+        checks[f"the {mp}x1 checkpoint restores on {label} bit for "
+               f"bit"] = all(
+            torch.equal(p.to_local(), local_part(
+                torch.from_numpy(saved[k]).cuda(), mesh,
+                p.placements).to_local()) for k, p in params.items())
+        checks["the step restored"] = int(state.step) == 3
+    if rank == 0:
+        (TRAIN_MESH_DIR / f"{label}.json").write_text(json.dumps(
+            {"losses": run["losses"], "grad_norms": run["grad_norms"],
+             "step_ms": run["step_ms"], "launches": everyone,
+             "checks": checks}))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 # ------------------------------------------------------------- 8. examples
 #: the port's examples as a user runs them, on the card, and the line each
 #: ends with
@@ -2888,9 +3303,15 @@ def main() -> None:
                     help="one rank of phase 6c under torch.distributed.run: "
                          "the serving CLI with these options, then the "
                          "rank's launch counts")
+    ap.add_argument("--train-worker", metavar="DPxMP",
+                    help="one rank of phase 7b's multi-card sessions under "
+                         "torch.distributed.run")
     args = ap.parse_args()
     if args.serve_worker is not None:
         serve_worker(args.serve_worker)
+        return
+    if args.train_worker is not None:
+        train_worker(args.seed, args.train_worker)
         return
     lap = Laps()
     name, count, smi = phase_device()
@@ -2950,6 +3371,9 @@ def main() -> None:
     phase_train_resume(args.seed)
     release()
     lap("7 train")
+    paths.append(phase_train_mesh(args.seed, smi))
+    release()
+    lap("7b train mesh")
     phase_examples(smi)
     lap("8 examples")
     # launches: each path's run, counted from 0 just before it

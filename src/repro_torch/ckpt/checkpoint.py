@@ -16,6 +16,14 @@ written as ``jax.tree_util.keystr`` writes it (``[0]['embed']``,
 16-bit view, its dtype in ``tree.json``, as the JAX package stores
 ``ml_dtypes``.  The contract is the JAX package's: a crash mid-write leaves
 only ``*.tmp``, which ``latest_step`` ignores and a later save overwrites.
+
+Elastic restore: a tree of DTensors (a model trained on a mesh) is saved
+whole — each leaf's ``full_tensor()``, a collective every rank takes part
+in, in the same leaf order — and only rank 0 writes and commits it, as the
+reference's process 0 does; ``restore(..., shardings=)`` lays each leaf
+out on a mesh of any shape (``launch.shardings.local_part``: every rank
+reads the whole array and keeps its shard), so a job saved on one mesh
+resumes on another.
 """
 from __future__ import annotations
 
@@ -78,15 +86,31 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _process_index() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def save(ckpt_dir: str | Path, step: int, tree) -> Path:
-    """Write the tree's leaves and manifest, then commit the directory
-    (one process: its shard is ``shard_00000.npz``)."""
+    """Write the tree's leaves and manifest, then commit the directory.
+    DTensor leaves are gathered whole on every rank first (collective);
+    then only process 0 (this rank of the default group, else 0) writes
+    ``shard_00000.npz`` and commits, and in a group of more than one rank
+    every rank then waits at a barrier, so that each returns after the
+    commit."""
+    from torch.distributed.tensor import DTensor
     ckpt_dir = Path(ckpt_dir)
+    pidx = _process_index()
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
     final = ckpt_dir / f"step_{step:08d}"
+    flat = [(name, leaf.full_tensor() if isinstance(leaf, DTensor) else leaf)
+            for name, leaf in flatten_with_path(tree)]
+    if pidx != 0:
+        _barrier()
+        return final
     tmp.mkdir(parents=True, exist_ok=True)
     arrays, meta = {}, []
-    for i, (name, leaf) in enumerate(flatten_with_path(tree)):
+    for i, (name, leaf) in enumerate(flat):
         arr, dtype_name = _to_numpy(leaf)
         if str(arr.dtype) not in _NATIVE:
             raise TypeError(f"{name}: dtype {dtype_name} has no npz form")
@@ -100,7 +124,14 @@ def save(ckpt_dir: str | Path, step: int, tree) -> Path:
         shutil.rmtree(final)
     os.replace(tmp, final)                         # atomic commit
     (ckpt_dir / "LATEST").write_text(str(step))
+    _barrier()
     return final
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def latest_step(ckpt_dir: str | Path) -> int | None:
@@ -118,11 +149,17 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str | Path, step: int, target):
+def restore(ckpt_dir: str | Path, step: int, target, shardings=None):
     """The checkpoint of ``step`` in the structure of ``target``, whose
     leaves give each leaf's shape and torch dtype (tensors, also on the
     ``meta`` device): CPU tensors of those dtypes.  Refuses a checkpoint
-    whose leaves differ from the target's in number, path or shape."""
+    whose leaves differ from the target's in number, path or shape.
+
+    ``shardings``: ``target``'s structure with a ``(mesh, placements)``
+    pair (or None) where ``target`` has each leaf: that leaf comes back as
+    a DTensor of those placements on that mesh's device (each rank keeps
+    its shard of the whole array it read), whatever mesh it was saved
+    from."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     meta = json.loads((d / "tree.json").read_text())
     shard_files = sorted(d.glob("shard_*.npz"))
@@ -147,4 +184,39 @@ def restore(ckpt_dir: str | Path, step: int, target):
             raise ValueError(f"{path}: stored {arr.dtype}, manifest "
                              f"{m['dtype']}")
         out.append(t.to(tgt.dtype))
+    if shardings is not None:
+        out = [t if sh is None else _placed(t, *sh)
+               for t, sh in zip(out, _leaves_like(target, shardings))]
     return _unflatten(target, iter(out))
+
+
+def shardings_of(target):
+    """``target``'s structure with each DTensor leaf's ``(mesh,
+    placements)`` and None at every other leaf: the ``shardings`` that lay
+    a checkpoint out as ``target`` is laid out."""
+    from torch.distributed.tensor import DTensor
+    return _unflatten(target, iter(
+        (leaf.device_mesh, leaf.placements) if isinstance(leaf, DTensor)
+        else None for _, leaf in flatten_with_path(target)))
+
+
+def _placed(t: torch.Tensor, mesh, placements):
+    from ..launch.shardings import local_part
+    return local_part(t.to(mesh.device_type), mesh, tuple(placements))
+
+
+def _leaves_like(target, tree) -> list:
+    """``tree``'s sub-trees where ``target`` (flattened as
+    ``flatten_with_path``) has its leaves, in that order."""
+    if target is None:
+        return []
+    if isinstance(target, dict):
+        return [x for k in sorted(target)
+                for x in _leaves_like(target[k], tree[k])]
+    if isinstance(target, tuple) and hasattr(target, "_fields"):
+        return [x for f in target._fields
+                for x in _leaves_like(getattr(target, f), getattr(tree, f))]
+    if isinstance(target, (list, tuple)):
+        return [x for t, s in zip(target, tree)
+                for x in _leaves_like(t, s)]
+    return [tree]

@@ -1,5 +1,5 @@
-"""Serving mesh construction over ``torch.distributed``: the port's
-counterpart of ``repro.launch.mesh``.
+"""Mesh construction over ``torch.distributed``: the port's counterpart of
+``repro.launch.mesh``.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the
 reference's axes ``("data", "model")``.  Serving is SPMD: every rank runs
@@ -24,9 +24,11 @@ the prefill ranks cannot take the decode ranks' cycles::
     python -m torch.distributed.run --standalone --nproc-per-node 2 \\
         -m repro_torch.launch.serve --roles prefill=1,decode=1
 
-Not ported yet (ROADMAP A7, the training mesh): ``make_production_mesh``
-and ``make_host_mesh``; ``data_axes``'s ``"pod"`` axis, which only a
-production mesh has, is here for the parity tests against the JAX package.
+Training takes a mesh of any shape: ``make_host_mesh`` lays one over the
+first ranks of the group (tests, examples), and ``make_production_mesh``
+the reference's pod layouts — (16, 16) as ("data", "model"), or (2, 16,
+16) as ("pod", "data", "model") — which the dry run
+(``launch/dryrun.py``) builds on a fake group of 256 or 512 ranks.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ MESH_AXES = ("data", "model")
 
 
 def data_axes(mesh) -> tuple[str, ...]:
-    """Axes that carry batch parallelism (``"pod"`` only on a production
-    mesh, which the port does not build yet)."""
+    """Axes that carry batch parallelism (``"pod"`` only on a multi-pod
+    production mesh)."""
     names = getattr(mesh, "mesh_dim_names", None) \
         or getattr(mesh, "axis_names", ())
     return ("pod", "data") if "pod" in names else ("data",)
@@ -65,6 +67,33 @@ def start_group(device: str) -> None:
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str = "cuda"):
+    """Single pod: 16x16 = 256 ranks, axes (data, model).  Multi-pod:
+    2x16x16 = 512 ranks, axes (pod, data, model) — the ``pod`` axis carries
+    only gradient/batch parallelism.  Built over the first ranks of the
+    default group (started here if none is running): the dry run's fake
+    group of that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_host_mesh(shape, axes, device=device)
+
+
+def make_host_mesh(shape=(1,), axes=("data",), *, device: str = "cuda"):
+    """A mesh of ``shape`` and ``axes`` over the first ``prod(shape)`` ranks
+    of the default group (started here if none is running)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    n = 1
+    for k in shape:
+        n *= k
+    start_group(device)
+    world = dist.get_world_size()
+    if world < n:
+        raise RuntimeError(f"need {n} devices, have {world}")
+    return DeviceMesh(device, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
 
 
 def make_serve_mesh(dp: int | None = None, mp: int = 1, *,

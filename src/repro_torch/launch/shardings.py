@@ -1,6 +1,8 @@
-"""Sharding strategies for serving — the Mensa clusters mapped to mesh
-layouts: the serving half of ``repro.launch.shardings`` over
-``torch.distributed`` DTensors.
+"""Sharding strategies — the Mensa clusters mapped to mesh layouts: the
+port of ``repro.launch.shardings`` over ``torch.distributed`` DTensors,
+for serving (``serve_state_specs``, the engine's parameters) and training
+(``batch_specs``, ``state_specs``, a trained model's parameters, and
+``abstract_with_sharding`` for the dry run).
 
 Each parameter gets a spec from its Mensa strategy cluster:
 
@@ -19,8 +21,10 @@ entries.  ``to_placements`` turns one into DTensor placements.  The port's
 layers are not stacked, so a spec has no stack axis: it is the reference's
 with that leading ``None`` dropped.
 
-Not ported yet (ROADMAP A7, the training mesh): ``batch_specs``,
-``state_specs`` and ``abstract_with_sharding``.
+Batch is sharded on (pod, data).  KV caches for decode shard the
+*sequence* axis on ``model`` (context parallelism) in ``state_specs``; the
+port has no attention that combines partial softmaxes across ``model``
+ranks yet, so no path runs on those caches (ROADMAP A7.3).
 """
 from __future__ import annotations
 
@@ -236,6 +240,48 @@ def batch_axis(mesh, batch: int):
     return data_axes(mesh) if batch % nd == 0 and batch >= nd else None
 
 
+# ----------------------------------------------------------------- batch/state
+def batch_specs(cfg: ArchConfig, mesh, global_batch: int,
+                strategy: str = "tp") -> dict[str, Spec]:
+    """Specs for the training batch dict: rows on the data axes ("dp": on
+    every mesh axis) when they split the batch evenly, else replicated."""
+    d = data_axes(mesh)
+    if strategy == "dp":
+        d = d + ("model",)                  # batch over every mesh axis
+    sizes = mesh_sizes(mesh)
+    nd = 1
+    for a in d:
+        nd *= sizes[a]
+    bspec = d if global_batch % nd == 0 and global_batch >= nd else None
+    out = {"tokens": (bspec, None), "labels": (bspec, None)}
+    if cfg.modality_tokens:
+        out["modality"] = (bspec, None, None)
+    if cfg.is_encdec:
+        out["src_embeds"] = (bspec, None, None)
+    return out
+
+
+def state_specs(model: Model, mesh, batch: int,
+                max_len: int) -> list[BlockState]:
+    """Specs mirroring ``Model.init_states`` (dense caches), one
+    ``BlockState`` a layer: KV caches shard their sequence on ``model``
+    (context parallelism) and their batch on data; recurrent states shard
+    their width on ``model``."""
+    b = batch_axis(mesh, batch)
+
+    def one(kind: str) -> BlockState:
+        if kind in ("attn", "dec", "local"):
+            cache = (b, "model", None, None)
+            return BlockState(kv=KVCache(k=cache, v=cache, length=(b,)))
+        if kind in ("rec", "ssm"):
+            return BlockState(rec={
+                "conv": (b, None, "model"),
+                "h": (b, "model", None) if kind == "ssm" else (b, "model")})
+        raise ValueError(kind)
+
+    return [one(kind) for kind in model.kinds]
+
+
 def serve_state_specs(model: Model, mesh, slots: int, max_len: int, *,
                       kv_block_size: int | None = None,
                       kv_blocks: int | None = None) -> list[BlockState]:
@@ -342,17 +388,55 @@ def distribute_models(models: list[Model], mesh, strategy: str = "tp",
     """Copies of ``models`` (a model and its phase models, which share its
     parameter tensors) whose parameters are DTensors on ``mesh``, laid out
     by ``param_specs(models[0].cfg, ..., strategy, plan)``
-    (``distribute_tensor``: rank 0's values, scattered).  The copies share
-    the distributed parameters as the originals share theirs; the
-    originals stay plain tensors (a replicated parameter's DTensor holds
-    the original's storage: no copy on one card)."""
+    (``distribute_tensor``: rank 0's values, scattered), each requiring
+    its gradient as the original does (a model built with ``train=True``
+    trains on the mesh).  The copies share the distributed parameters as
+    the originals share theirs; the originals stay plain tensors (a
+    replicated parameter's DTensor holds the original's storage: no copy
+    on one card)."""
     from torch.distributed.tensor import distribute_tensor
     base = models[0]
     specs = param_specs(base.cfg, base, strategy, plan)
+    return _swap_parameters(models, lambda name, p: distribute_tensor(
+        p.detach(), mesh, to_placements(specs[name], mesh)))
+
+
+def _swap_parameters(models: list[Model], make) -> list[Model]:
+    """Copies of ``models`` whose every parameter ``p`` (named as in
+    ``models[0]``) is ``make(name, p)``, shared across the copies."""
     memo = {}
-    for name, p in base.named_parameters():
-        memo[id(p)] = nn.Parameter(
-            distribute_tensor(p.detach(), mesh,
-                              to_placements(specs[name], mesh)),
-            requires_grad=False)
+    for name, p in models[0].named_parameters():
+        memo[id(p)] = nn.Parameter(make(name, p),
+                                   requires_grad=p.requires_grad)
     return [copy.deepcopy(m, memo) for m in models]
+
+
+def abstract_with_sharding(shapes: dict, specs: dict, mesh) -> dict:
+    """Meta DTensors of ``shapes`` (name -> a tensor whose shape and dtype
+    it takes; on any device) laid out by ``specs`` (name -> spec): each
+    rank's local shard a ``meta`` tensor, so nothing is allocated — the
+    dry run's stand-ins for parameters and inputs (the reference's
+    ``ShapeDtypeStruct``s with a sharding)."""
+    return {k: _abstract(t.shape, t.dtype, mesh,
+                         to_placements(specs[k], mesh))
+            for k, t in shapes.items()}
+
+
+def _abstract(shape, dtype, mesh, placements):
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    local, _ = compute_local_shape_and_global_offset(tuple(shape), mesh,
+                                                     placements)
+    whole = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    return DTensor.from_local(torch.empty(local, dtype=dtype, device="meta"),
+                              mesh, placements, run_check=False,
+                              shape=whole.shape, stride=whole.stride())
+
+
+def abstract_model(model: Model, mesh, strategy: str = "tp") -> Model:
+    """A copy of ``model`` (built on ``meta``) whose parameters are meta
+    DTensors laid out by ``param_specs(model.cfg, model, strategy)``."""
+    specs = param_specs(model.cfg, model, strategy)
+    return _swap_parameters([model], lambda name, p: _abstract(
+        p.shape, p.dtype, mesh, to_placements(specs[name], mesh)))[0]

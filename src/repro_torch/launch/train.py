@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..bridge import from_jax_tree, to_jax_tree
 from ..ckpt import checkpoint as ckpt_lib
@@ -23,7 +24,7 @@ from ..configs import get_config, reduced_config
 from ..data.pipeline import DataConfig, SyntheticTokens
 from ..device import resolve_device
 from ..ft.watchdog import FailureInjector, StepWatchdog, run_with_restarts
-from ..models import build_model
+from ..models import build_model, spmd
 from ..obs.timing import Timed
 from ..train import optim
 from ..train.trainer import make_train_step
@@ -31,21 +32,36 @@ from ..train.trainer import make_train_step
 
 def state_tree(model, params: dict, opt_state: optim.AdamWState):
     """``(params, AdamWState)`` in the JAX package's tree layout: what a
-    checkpoint holds."""
+    checkpoint holds.  On a mesh the leaves are DTensors (a stacked leaf
+    split as its layers are, one axis on), which ``ckpt.save`` gathers
+    whole."""
     return (to_jax_tree(model, params),
             optim.AdamWState(step=opt_state.step,
                              mu=to_jax_tree(model, opt_state.mu),
                              nu=to_jax_tree(model, opt_state.nu)))
 
 
+def _meta(p: torch.Tensor) -> torch.Tensor:
+    """A float32 ``meta`` tensor shaped as ``p``, laid out as ``p`` where
+    it is a DTensor."""
+    if not spmd.is_dtensor(p):
+        return torch.empty(p.shape, device="meta")
+    return DTensor.from_local(
+        torch.empty(p.to_local().shape, device="meta"), p.device_mesh,
+        p.placements, run_check=False, shape=p.shape, stride=p.stride())
+
+
 def restore_state(model, ckpt_dir, step: int):
     """Load checkpoint ``step`` into the model's parameters (in place) and
-    return them with the optimizer state, on the model's device."""
+    return them with the optimizer state, on the model's device (on a
+    mesh, each in its parameter's placements, whatever mesh saved it:
+    ``ckpt.restore(shardings=)``)."""
     params = dict(model.named_parameters())
-    meta = {k: torch.empty(p.shape, device="meta") for k, p in params.items()}
+    meta = {k: _meta(p) for k, p in params.items()}
     target = state_tree(model, meta, optim.AdamWState(
         torch.empty((), dtype=torch.int32, device="meta"), meta, meta))
-    tree, st = ckpt_lib.restore(ckpt_dir, step, target)
+    tree, st = ckpt_lib.restore(ckpt_dir, step, target,
+                                shardings=ckpt_lib.shardings_of(target))
     dev = model.device
     with torch.no_grad():
         for k, t in from_jax_tree(model, tree).items():
@@ -66,10 +82,10 @@ def train_once(cfg, *, steps: int, global_batch: int, seq_len: int,
                device: str | torch.device = "cuda") -> dict:
     """Train ``cfg`` for ``steps`` steps from the latest checkpoint in
     ``ckpt_dir`` (or from the init), saving every ``ckpt_every`` steps and
-    at the end.  Returns the final loss, the losses by step, the straggler
-    count, the parameters, optimizer state and model, and each step's
-    seconds (the batch's copy to the device, the step and a device
-    sync)."""
+    at the end.  Returns the final loss, the losses and grad norms by
+    step, the straggler count, the parameters, optimizer state and model,
+    and each step's seconds (the batch's copy to the device, the step and
+    a device sync)."""
     dev = resolve_device(device)
     model = build_model(cfg, dev, train=True)
     data = SyntheticTokens(DataConfig(
@@ -99,7 +115,7 @@ def train_once(cfg, *, steps: int, global_batch: int, seq_len: int,
         params = dict(model.named_parameters())
         opt_state = optim.adamw_init(params)
 
-    losses, step_s = {}, []
+    losses, grad_norms, step_s = {}, {}, []
     for step in range(start, steps):
         with Timed("step", device=dev) as tm:
             batch = {k: torch.from_numpy(v).to(dev)
@@ -112,12 +128,13 @@ def train_once(cfg, *, steps: int, global_batch: int, seq_len: int,
             print(f"[train] straggler event at step {step}")
         loss = float(metrics["loss"])
         losses[step] = loss
+        grad_norms[step] = float(metrics["grad_norm"])
         if metrics_out is not None:
             metrics_out.append((step, loss))
         if step % log_every == 0 or step == steps - 1:
             print(f"[train] step {step:5d} loss {loss:.4f} "
                   f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.2f}")
+                  f"gnorm {grad_norms[step]:.2f}")
         if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
             ckpt_lib.save(ckpt_dir, step + 1,
                           state_tree(model, params, opt_state))
@@ -125,6 +142,7 @@ def train_once(cfg, *, steps: int, global_batch: int, seq_len: int,
         ckpt_lib.save(ckpt_dir, steps, state_tree(model, params, opt_state))
     return {"final_loss": losses.get(steps - 1),
             "losses": losses,
+            "grad_norms": grad_norms,
             "stragglers": watchdog.stragglers_detected,
             "params": params,
             "opt_state": opt_state,

@@ -73,10 +73,11 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Rows ``tokens`` of ``table``, in ``compute_dtype``.  A DTensor table
-    (a mesh's, vocab-sharded) goes through ``F.embedding``, whose DTensor
-    rule looks each token up on the shard that holds it; both copy rows."""
+    (a mesh's, vocab-sharded) is read on each rank's rows and shard
+    (``spmd.embedding``): each token's row comes from the shard that holds
+    it; both copy rows."""
     if spmd.is_dtensor(table):
-        return F.embedding(tokens, table).to(compute_dtype)
+        return spmd.embedding(table, tokens).to(compute_dtype)
     return table[tokens].to(compute_dtype)
 
 
@@ -105,11 +106,26 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     integer (...); with ``mask``, ``sum(nll * mask) / max(sum(mask), 1)``."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    return mean_nll(logz - gold, mask)
+
+
+def mean_nll(nll: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """``mean(nll)``, or with ``mask`` ``sum(nll * mask) / max(sum(mask),
+    1)``."""
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        mask: torch.Tensor | None,
+                        vocab: int) -> torch.Tensor:
+    """``cross_entropy_loss`` of the first ``vocab`` columns of padded
+    logits (..., V_padded); on a mesh, over vocab-sharded logits without
+    gathering them (``spmd.cross_entropy``)."""
+    return spmd.cross_entropy(cross_entropy_loss, mean_nll, logits, labels,
+                              mask, vocab)
 
 
 # --------------------------------------------------------------------- activation

@@ -27,11 +27,22 @@ The routes:
 
 No route reaches a hand-written kernel: the reference computes these
 products in XLA, outside any Pallas kernel.
+
+On a (data, model) mesh (DTensor tokens, rows split over the data axes;
+the expert banks split by expert over ``model``) every route runs per
+shard (``_moe_on_mesh``): each rank routes its own tokens, the queue
+positions are the meshless ones — each data rank's exclusive cumsum
+offset by the counts of the ranks before it, and the capacity counts
+every token of the call — and each ``model`` rank multiplies only its own
+experts' banks (gathered whole over the data axes first) over a buffer
+as deep as the whole call's capacity (``ragged``: as its own assignments,
+none dropped), its partial outputs summed over ``model``.
 """
 from __future__ import annotations
 
 import torch
 
+from . import spmd
 from .common import ACTIVATIONS
 from .ffn import glu_ffn
 
@@ -156,6 +167,11 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
     ``dropped_frac`` (zero for ``ragged``), float32 scalars."""
     if impl not in IMPLS:
         raise ValueError(f"moe impl {impl!r}: one of {IMPLS}")
+    if spmd.is_dtensor(x):
+        return _moe_on_mesh(params, x, top_k=top_k,
+                            capacity_factor=capacity_factor,
+                            activation=activation, return_aux=return_aux,
+                            dropless=impl == "ragged")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     dropless = impl == "ragged"
@@ -176,6 +192,73 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
            "dropped_frac": probs.new_zeros(()) if dropless
            else 1.0 - r["keep"].float().mean()}
     return y, aux
+
+
+def _moe_on_mesh(params: dict, x, *, top_k: int, capacity_factor: float,
+                 activation: str, return_aux: bool, dropless: bool):
+    """``moe_ffn`` of DTensor tokens x (B,S,D) (see the module's
+    docstring): the router's probabilities as DTensor ops, then the
+    routing decisions, the experts' products and the load-balance terms
+    per shard (``spmd.moe_shards``)."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    probs = torch.softmax(torch.matmul(xt.float(),
+                                       params["router"].float()), dim=-1)
+    e, n_all = params["router"].shape[1], b * s
+    cap = n_all // spmd.row_shards(xt) * top_k if dropless \
+        else capacity(capacity_factor, n_all, top_k, e)
+
+    def decide(p, offset):
+        """The local tokens' gates, expert indices, queue positions and
+        keep mask; ``offset(counts)``: the assignments to each expert of
+        the data ranks before this one."""
+        gate_idx = torch.argsort(p, dim=-1, descending=True,
+                                 stable=True)[:, :top_k]
+        gate_vals = torch.gather(p, 1, gate_idx)
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+        if dropless:      # this rank's own queues: none dropped
+            return (gate_vals, gate_idx) + queue_positions(gate_idx, e, cap)
+        flat = torch.nn.functional.one_hot(gate_idx.reshape(-1), e)
+        pos = torch.cumsum(flat, dim=0) - flat + offset(flat.sum(dim=0))
+        pos = (pos * flat).sum(dim=-1).reshape(gate_idx.shape)
+        return gate_vals, gate_idx, pos, pos < cap
+
+    def experts(xt, gate_vals, gate_idx, pos, keep, wg, wu, wd, lo: int):
+        """This rank's experts ``[lo, lo + E_l)`` on its tokens: the
+        capacity route's dispatch, multiply and combine, with every
+        assignment to another rank's expert sent to the scratch row."""
+        n, k = gate_idx.shape
+        e_l, dm = wg.shape[0], xt.shape[1]
+        mine = ((gate_idx >= lo) & (gate_idx < lo + e_l) & keep).reshape(-1)
+        expert = (gate_idx.reshape(-1) - lo).clamp(0, e_l - 1)
+        slot = torch.where(mine, pos.reshape(-1),
+                           torch.full_like(expert, cap))
+        tok = torch.arange(n * k, device=xt.device) // k
+        xe = torch.zeros((e_l, cap + 1, dm), dtype=xt.dtype,
+                         device=xt.device).index_put((expert, slot), xt[tok])
+        ye = _experts({"w_gate": wg, "w_up": wu, "w_down": wd}, xe[:, :cap],
+                      activation)
+        ye = torch.cat([ye, ye.new_zeros((e_l, 1, dm))], dim=1)
+        w = (gate_vals.reshape(-1) * mine.float()).to(xt.dtype)
+        return _combine(ye[expert, slot], w, n, k)
+
+    def terms(p, gate_idx, keep):
+        """This rank's shares: first choices by expert, mean probability
+        by expert, kept assignments."""
+        return (torch.nn.functional.one_hot(gate_idx[:, 0], e).float()
+                .mean(dim=0), p.mean(dim=0), keep.float().mean())
+
+    y, (frac_tokens, mean_probs, kept) = spmd.moe_shards(
+        decide, experts, terms, xt, probs, params["w_gate"],
+        params["w_up"], params["w_down"])
+    if "shared" in params:
+        y = y + glu_ffn(params["shared"], xt, activation)
+    y = y.reshape(b, s, d)
+    if not return_aux:
+        return y
+    return y, {"load_balance": e * torch.sum(frac_tokens * mean_probs),
+               "dropped_frac": 1.0 - kept}
 
 
 def routing_flips(want: dict, got: dict, margin: float) -> dict:

@@ -170,9 +170,8 @@ def rglru_core(params: dict, x: torch.Tensor,
         a = torch.where(m, a, torch.ones_like(a))
         b = torch.where(m, b, torch.zeros_like(b))
     if scan_chunk is not None:
-        if h0 is None:
-            h0 = torch.zeros_like(a[:, 0])
-        h, h_last = chunked_linear_scan(a, b, h0, scan_chunk)
+        h, h_last = spmd.linear_scan(chunked_linear_scan, a, b, h0,
+                                     scan_chunk)
         return h.to(dt), h_last
     h, h_last = spmd.rglru_scan(_rglru_scan, a, b, h0)
     return h.to(dt), h_last
@@ -305,9 +304,8 @@ def mamba_ssm(params: dict, x: torch.Tensor, dt_rank: int, d_state: int,
              < length[:, None])[:, :, None, None]
         alpha = torch.where(m, alpha, torch.ones_like(alpha))
         beta = torch.where(m, beta, torch.zeros_like(beta))
-    if h0 is None:
-        h0 = torch.zeros_like(alpha[:, 0])
-    h, h_last = chunked_linear_scan(alpha, beta, h0, scan_chunk)
+    h, h_last = spmd.linear_scan(chunked_linear_scan, alpha, beta, h0,
+                                 scan_chunk)
     y = torch.einsum("bsdn,bsn->bsd", h, c_in) + xf * d_skip
     return y.to(x.dtype), h_last
 

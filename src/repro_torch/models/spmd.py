@@ -34,6 +34,31 @@ too and each rank scatters into its own stripe the ones that land there.
 This is correct and simple, not fast (ROADMAP: a later ``perf_opt``); on
 one card every collective is a copy of one.
 
+A model trained on a mesh (``train/trainer.make_train_step`` over DTensor
+parameters and a batch laid out by ``launch.shardings.batch_specs``) runs
+under autograd through the same boundaries, which carry the gradient
+(``local_map`` converts with ``to_local``/``from_local``, both
+differentiable), and these:
+
+  * ``self_attention``: a whole-sequence attention with no cache (train,
+    the encoder, a decoder's cross-attention) on each rank's rows and
+    heads, and ``merge_heads`` after it;
+  * ``linear_scan``: the chunked scan of the recurrences' differentiable
+    route on each rank's rows and width;
+  * ``moe_shards``: a routed feed-forward on each rank's rows and
+    experts, with the meshless queue positions;
+  * ``cross_entropy``: the loss over vocab-sharded logits, each ``model``
+    rank's max and sum of exponentials combined over the ``model`` group
+    and the gold logit taken from the shard that holds it, so the logits
+    are never gathered whole.
+
+A weight whole on the data axes meets each rank's own rows in a
+``local_map``: its gradient there is that rank's share, declared
+``Partial`` (``_on_shards(grads=...)``).  ``microbatches`` cuts a
+batch's microbatches from its whole rows, as the meshless step does, and
+``whole`` reads a value as a plain tensor.  A production mesh's ``pod``
+axis carries rows as ``data`` does: every helper splits rows over both.
+
 Without a DTensor argument every helper calls its function as it is: the
 meshless path runs the same operations as before.
 """
@@ -41,7 +66,8 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
+                                      Shard, distribute_tensor)
 from torch.distributed.tensor.experimental import local_map
 
 from . import attention as _attention
@@ -51,14 +77,27 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+#: the mesh axes that carry rows (a production mesh's ``pod`` too)
+ROW_AXES = ("pod", "data")
+
+
 def _placements(mesh, data: int | None = None,
                 model: int | None = None) -> tuple:
-    """Placements on ``mesh``: ``Shard(data)`` on its data axis and
+    """Placements on ``mesh``: ``Shard(data)`` on its data axes and
     ``Shard(model)`` on its model axis where given, ``Replicate()``
     elsewhere."""
-    want = {"data": data, "model": model}
+    want = {"model": model, **{a: data for a in ROW_AXES}}
     return tuple(Replicate() if want.get(name) is None else Shard(want[name])
                  for name in mesh.mesh_dim_names)
+
+
+def _size(mesh, axis: str) -> int:
+    """How many ranks ``mesh``'s ``axis`` spans."""
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _whole_placements(mesh) -> tuple:
+    return (Replicate(),) * mesh.ndim
 
 
 def _dim_on(t: DTensor, axis: str) -> int | None:
@@ -79,13 +118,26 @@ def _to(t, placements):
     return t.redistribute(placements=placements)
 
 
-def _on_shards(fn, mesh, out_placements, *args):
+def _on_shards(fn, mesh, out_placements, *args, grads=None):
     """``local_map`` of ``fn`` over ``args``; ``out_placements``: one
-    output's placements, or a tuple of them, one per output."""
+    output's placements, or a tuple of them, one per output.  ``grads``:
+    the placements of each DTensor argument's gradient (None: its own) —
+    a weight whole on a data axis whose rows are split there gets a
+    partial sum from each rank."""
     if isinstance(out_placements[0], Placement):
         out_placements = list(out_placements)     # a single output
+    if grads is not None:
+        grads = tuple(g if g is not None or not is_dtensor(a)
+                      else a.placements for g, a in zip(grads, args))
     return local_map(fn, out_placements=out_placements,
-                     device_mesh=mesh)(*args)
+                     in_grad_placements=grads, device_mesh=mesh)(*args)
+
+
+def _summed_over_rows(placements: tuple, mesh, rows: int | None) -> tuple:
+    """``placements`` of a weight with ``Partial()`` on the row axes where
+    the rows it meets are split (``rows`` not None): its gradient's."""
+    return tuple(Partial() if rows is not None and name in ROW_AXES else p
+                 for name, p in zip(mesh.mesh_dim_names, placements))
 
 
 # ---------------------------------------------------------------- row maths
@@ -146,6 +198,78 @@ def split_heads(x: torch.Tensor, heads: int,
     return x.reshape(b, s, heads, head_dim)
 
 
+def whole(t):
+    """``t`` as a plain tensor holding its whole value: gathered (or
+    reduced) from the ranks where it is a DTensor."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def microbatches(t: torch.Tensor, accum: int) -> list:
+    """The ``accum`` microbatches of the batch-major ``t``: rows ``[a * mb,
+    (a + 1) * mb)``, as the reference cuts them.  On a mesh the batch (its
+    token ids, labels and masks: a few bytes a row) is gathered whole once
+    and each microbatch laid out as ``t`` is, each rank keeping its share
+    of it: a microbatch holds the meshless microbatch's rows, on which an
+    MoE layer's capacity and load balance and a masked loss's mean
+    depend."""
+    mb = t.shape[0] // accum
+    if not is_dtensor(t):
+        return [t[a * mb:(a + 1) * mb] for a in range(accum)]
+    if accum == 1:
+        return [t]
+    if t.to_local().shape[0] % accum:
+        raise ValueError(f"a microbatch's {mb} rows do not split as the "
+                         f"batch's {t.shape[0]} do")
+    rows = t.full_tensor()
+    return [distribute_tensor(rows[a * mb:(a + 1) * mb], t.device_mesh,
+                              t.placements, src_data_rank=None)
+            for a in range(accum)]
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """x (B,S,H,hd) as (B,S,H*hd).  Heads whole on ``model`` are merged on
+    each rank's rows: left to DTensor's view rule, the merge's backward
+    would split a gradient sharded over ``model`` back into heads that do
+    not divide the axis."""
+    b, s, h, hd = x.shape
+    if not is_dtensor(x) or _dim_on(x, "model") == 2:
+        return x.reshape(b, s, h * hd)
+    return _on_shards(lambda t: t.reshape(t.shape[0], s, h * hd),
+                      x.device_mesh, x.placements, x)
+
+
+def embedding(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """Rows ``tokens`` (B,S) of ``table`` (V,D), split by vocab over
+    ``model`` or whole: each rank looks its rows' tokens up in its own
+    shard, zero where another shard holds the token, and the rows are
+    summed over ``model`` (one term is not zero, so the sum is the row
+    bit for bit).  Returns (B,S,D), rows on ``data`` as ``tokens``'s,
+    whole on ``model``.  (DTensor's own embedding rule leaves a
+    ``MaskPartial`` whose gradient some torch releases cannot add to the
+    tied unembedding's ``Partial`` one.)"""
+    mesh = table.device_mesh
+    rb = _batch(tokens) if is_dtensor(tokens) else None
+    row = _placements(mesh, data=rb)
+    split = _dim_on(table, "model") == 0
+    tpl = _placements(mesh, model=0 if split else None)
+    mp = _size(mesh, "model") if split else 1
+    width = -(-table.shape[0] // mp)       # DTensor's chunk of the vocab
+
+    def local(t, tok):
+        lo = mesh.get_local_rank("model") * width if split else 0
+        idx = tok.long() - lo
+        here = (idx >= 0) & (idx < t.shape[0])
+        rows = t[idx.clamp(0, t.shape[0] - 1)]
+        return torch.where(here[..., None], rows, torch.zeros_like(rows))
+
+    out = tuple(Partial() if split and name == "model" else p
+                for name, p in zip(mesh.mesh_dim_names, row))
+    return _to(_on_shards(local, mesh, out, _to(table, tpl),
+                          _to(tokens, row),
+                          grads=(_summed_over_rows(tpl, mesh, rb), None)),
+               row)
+
+
 # ------------------------------------------------------------------- rotary
 def rope(fn, x: torch.Tensor, pos: torch.Tensor, theta: float):
     """``fn(x, pos, theta)`` (the rotary embedding of x (B,S,H,hd)) on each
@@ -159,6 +283,42 @@ def rope(fn, x: torch.Tensor, pos: torch.Tensor, theta: float):
 
 
 # ---------------------------------------------------------------- attention
+def self_attention(fn, q, k, v):
+    """``fn(q, k, v) -> out`` (B,Sq,H,hd) — a whole-sequence attention with
+    no cache: a train step's, the encoder's, a cross-attention — on each
+    rank's rows and heads.  Where q's heads are split over ``model`` and
+    K/V's are whole there (their KVH heads do not split), each rank takes
+    the K/V heads its own q heads read, when its q heads and the GQA
+    groups nest (one holds a whole number of the other); otherwise q is
+    gathered whole too, and every ``model`` rank computes every head."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    mesh = q.device_mesh
+    rb = _batch(q)
+    if _dim_on(q, "model") == 2 and _dim_on(k, "model") == 2:
+        act = _placements(mesh, data=rb, model=2)
+        return _on_shards(fn, mesh, act, _to(q, act), _to(k, act),
+                          _to(v, act))
+    row = _placements(mesh, data=rb)
+    h, g = q.shape[2], q.shape[2] // k.shape[2]
+    mp = _size(mesh, "model") if "model" in mesh.mesh_dim_names else 1
+    hl = h // mp
+    if _dim_on(q, "model") != 2 or h % mp or (hl % g and g % hl):
+        return _on_shards(fn, mesh, row, _to(q, row), _to(k, row),
+                          _to(v, row))
+
+    def local(q, k, v):
+        lo = mesh.get_local_rank("model") * hl
+        k0, k1 = lo // g, (lo + hl - 1) // g + 1
+        return fn(q, k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous())
+
+    act = _placements(mesh, data=rb, model=2)
+    used = tuple(Partial() if name == "model" else p
+                 for name, p in zip(mesh.mesh_dim_names, row))
+    return _on_shards(local, mesh, act, _to(q, act), _to(k, row),
+                      _to(v, row), grads=(None, used, used))
+
+
 def attention(attend, mode: str, q, k, v, kv, length, offset, table):
     """``attend(q, k, v, kv, length, offset, table) -> (out, kv)`` — one
     layer's cache op and attention — on each rank's slots and heads, laid
@@ -237,16 +397,45 @@ def _paged_write(pool_k, pool_v, mode: str, k, v, table, length, offset,
 def conv(fn, x, w, state, length):
     """``fn(x, w, state, length) -> (y, new_state)`` (the causal conv over
     x (B,S,C) with its (B,K-1,C) carried context) on each rank's slots and
-    channels, laid out as ``state``."""
-    if not is_dtensor(state):
+    channels, laid out as ``state`` — or as ``x`` without one (train)."""
+    like = x if state is None else state
+    if not is_dtensor(like):
         return fn(x, w, state, length)
-    mesh = state.device_mesh
-    c = 2 if _dim_on(state, "model") == 2 else None
-    act = _placements(mesh, data=_batch(state), model=c)
-    return _on_shards(fn, mesh, (act, state.placements), _to(x, act),
-                      _to(w, _placements(mesh, model=1 if c else None)),
-                      state, _to(length, _placements(mesh,
-                                                     data=_batch(state))))
+    mesh = like.device_mesh
+    c = 2 if _dim_on(like, "model") == 2 else None
+    act = _placements(mesh, data=_batch(like), model=c)
+    wpl = _placements(mesh, model=1 if c else None)
+    return _on_shards(fn, mesh,
+                      (act, act if state is None else state.placements),
+                      _to(x, act), _to(w, wpl), state,
+                      _to(length, _placements(mesh, data=_batch(like))),
+                      grads=(None, _summed_over_rows(wpl, mesh, _batch(like)),
+                             None, None))
+
+
+def linear_scan(fn, a, b, h0, chunk: int):
+    """``fn(a, b, h0, chunk) -> (h, h_last)`` — the chunked scan
+    ``h_t = a_t * h_{t-1} + b_t`` along axis 1, the recurrences'
+    differentiable route — from ``h0`` (zeros when None), on each rank's
+    rows and width: a, b (B,S,W,...) with their rows on ``data`` as ``a``'s
+    are and their width (axis 2) on ``model`` where it splits evenly, the
+    time axis whole (DTensor may have left a reduced product split along
+    it)."""
+    def run(a, b, h0):
+        if h0 is None:
+            h0 = torch.zeros_like(a[:, 0])
+        return fn(a, b, h0, chunk)
+
+    if not is_dtensor(a):
+        return run(a, b, h0)
+    mesh = a.device_mesh
+    mp = _size(mesh, "model")
+    pl = _placements(mesh, data=_batch(a),
+                     model=2 if a.shape[2] % mp == 0 else None)
+    state = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                  else p for p in pl)
+    return _on_shards(run, mesh, (pl, state), _to(a, pl), _to(b, pl),
+                      _to(h0, state))
 
 
 def rglru_scan(fn, a, b, h0):
@@ -281,3 +470,134 @@ def ssm_scan(fn, delta, x, b, c, a, d_skip, h0, length):
     return _on_shards(dense, mesh, (act, h0.placements), _to(delta, act),
                       _to(x, act), _to(b, row), _to(c, row), _to(a, wt),
                       _to(d_skip, wt), h0, _to(length, row))
+
+
+# ------------------------------------------------------------------- loss
+def cross_entropy(fn, reduce, logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None, vocab: int) -> torch.Tensor:
+    """The mean token cross-entropy of ``logits`` (..., V_padded) float32
+    over their first ``vocab`` columns: ``fn(logits[..., :vocab], labels,
+    mask)``.  On a mesh the logits stay where they are — rows on
+    ``data``, the vocab on ``model`` when the table is split there: each
+    rank takes the max of its valid columns, the maxima are combined over
+    the ``model`` group (MAX, outside the gradient: it only steadies the
+    exponentials), each rank sums its ``exp(x - max)`` and picks the gold
+    logit where it holds the label's column, and both are summed over the
+    ``model`` group; ``reduce(nll, mask)`` then averages the rows'
+    ``max + log(sum) - gold``.  Returns a replicated 0-d DTensor."""
+    if not is_dtensor(logits):
+        return fn(logits[..., :vocab], labels, mask)
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    split = _dim_on(logits, "model") == last
+    row = _placements(mesh, data=_batch(logits))
+    logits = _to(logits, _placements(mesh, data=_batch(logits),
+                                     model=last if split else None))
+    mp = _size(mesh, "model") if split else 1
+    width = -(-logits.shape[-1] // mp)     # DTensor's chunk of the vocab
+
+    def combined(op: str) -> tuple:
+        return tuple(Partial(op) if split and name == "model" else p
+                     for name, p in zip(mesh.mesh_dim_names, row))
+
+    def columns(x: torch.Tensor):
+        lo = mesh.get_local_rank("model") * width if split else 0
+        return lo, lo + torch.arange(x.shape[-1], device=x.device)
+
+    def local_max(x):
+        _, cols = columns(x)
+        return torch.where(cols < vocab, x, float("-inf")).amax(dim=-1)
+
+    def local_terms(x, m, lab):
+        lo, cols = columns(x)
+        e = torch.where(cols < vocab, torch.exp(x - m[..., None]),
+                        0.0).sum(dim=-1)
+        idx = lab.long() - lo
+        here = (idx >= 0) & (idx < x.shape[-1])
+        gold = torch.gather(x, -1, idx.clamp(0, x.shape[-1] - 1)[..., None])
+        return e, torch.where(here, gold[..., 0], 0.0)
+
+    m = _to(_on_shards(local_max, mesh, combined("max"), logits.detach()),
+            row)
+    e, gold = _on_shards(local_terms, mesh, (combined("sum"),
+                                             combined("sum")),
+                         logits, m, _to(labels, row))
+    nll = m + torch.log(_to(e, row)) - _to(gold, row)
+    loss = reduce(nll, None if mask is None else _to(mask, row))
+    return _to(loss, _whole_placements(mesh))
+
+
+# -------------------------------------------------------------------- MoE
+def row_shards(t: DTensor) -> int:
+    """How many ways ``t``'s rows (axis 0) are split over the data axes."""
+    if _batch(t) is None:
+        return 1
+    mesh = t.device_mesh
+    n = 1
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n *= mesh.size(i) if name in ROW_AXES else 1
+    return n
+
+
+def moe_shards(decide, experts, terms, xt, probs, wg, wu, wd):
+    """A routed feed-forward over DTensor tokens ``xt`` (N,D) with router
+    probabilities ``probs`` (N,E) and expert banks (E,D,F), (E,D,F),
+    (E,F,D) split by expert over ``model`` (``models/moe._moe_on_mesh``),
+    on each rank's rows and experts:
+
+      * ``decide(p, offset) -> (gate_vals, gate_idx, pos, keep)`` on each
+        rank's rows, ``offset(counts)`` the counts (E,) of the row ranks
+        before this one, summed (all-gathers over the data axes);
+      * ``experts(xt, gate_vals, gate_idx, pos, keep, wg, wu, wd, lo)``:
+        this rank's experts ``[lo, lo + E_l)`` on its rows, the banks
+        gathered whole over the data axes; the ``model`` ranks' partial
+        outputs summed;
+      * ``terms(p, gate_idx, keep)``: per-rank means, averaged over the
+        data axes (each divided by the row shards and summed: a
+        ``Partial("avg")`` output of ``local_map`` would take the whole
+        gradient back on every rank).
+
+    Returns (y (N,D) rows on data, the averaged ``terms``)."""
+    mesh = xt.device_mesh
+    rb = _batch(xt)
+    row = _placements(mesh, data=rb)
+    xt, probs = _to(xt, row), _to(probs, row)
+    split = _dim_on(wg, "model") == 0
+    wpl = _placements(mesh, model=0 if split else None)
+    banks = [_to(w, wpl) for w in (wg, wu, wd)]
+    groups = [(mesh.get_group(name), mesh.get_local_rank(name), mesh.size(i))
+              for i, name in enumerate(mesh.mesh_dim_names)
+              if rb is not None and name in ROW_AXES and mesh.size(i) > 1]
+
+    def offset(counts: torch.Tensor) -> torch.Tensor:
+        total, before = counts, torch.zeros_like(counts)
+        for grp, me, n in reversed(groups):        # minor axis first
+            seen = total.new_empty((n * total.numel(),))
+            dist.all_gather_into_tensor(seen, total.contiguous(), group=grp)
+            seen = seen.view((n,) + tuple(total.shape))
+            before = before + seen[:me].sum(dim=0)
+            total = seen.sum(dim=0)
+        return before
+
+    gate_vals, gate_idx, pos, keep = _on_shards(
+        lambda p: decide(p, offset), mesh, (row,) * 4, probs)
+    over_model = tuple(Partial() if split and name == "model" else p
+                       for name, p in zip(mesh.mesh_dim_names, row))
+    e_l = wg.shape[0] // (_size(mesh, "model") if split else 1)
+
+    def local(x, gv, gi, ps, kp, a, b, c):
+        lo = mesh.get_local_rank("model") * e_l if split else 0
+        return experts(x, gv, gi, ps, kp, a, b, c, lo)
+
+    bank_grad = _summed_over_rows(wpl, mesh, rb)
+    y = _on_shards(local, mesh, over_model, xt, gate_vals, gate_idx, pos,
+                   keep, *banks,
+                   grads=(over_model, over_model, None, None, None,
+                          bank_grad, bank_grad, bank_grad))
+    mean = tuple(Partial() if rb is not None and name in ROW_AXES
+                 else Replicate() for name in mesh.mesh_dim_names)
+    n_rows = row_shards(xt)
+    shares = _on_shards(lambda *a: tuple(t / n_rows for t in terms(*a)),
+                        mesh, (mean,) * 3, probs, gate_idx, keep)
+    return _to(y, row), tuple(_to(t, _whole_placements(mesh))
+                              for t in shares)

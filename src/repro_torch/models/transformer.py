@@ -63,8 +63,8 @@ from . import attention as attn_lib
 from . import moe as moe_lib
 from . import recurrent as rec_lib
 from . import spmd
-from .common import (cross_entropy_loss, embed_scaled, fan_in_std, gelu,
-                     layer_norm, rms_norm, torch_dtype, unembed)
+from .common import (embed_scaled, fan_in_std, gelu, layer_norm, rms_norm,
+                     torch_dtype, unembed, vocab_cross_entropy)
 from .ffn import glu_ffn, mlp_ffn
 from .model_config import ArchConfig
 
@@ -253,12 +253,14 @@ class AttnBlock(_Block):
         window = cfg.window if self.kind == "local" else 0
         causal = self.kind != "enc"
         if window and q.shape[1] % window == 0:
-            return attn_lib.local_attention(q, k, v, window=window)
-        if _differentiable(mode):
-            return attn_lib.flash_attention_xla(q, k, v, causal=causal,
-                                                window=window)
-        return attn_lib.flash_attention(q, k, v, causal=causal,
-                                        window=window)
+            fn = functools.partial(attn_lib.local_attention, window=window)
+        elif _differentiable(mode):
+            fn = functools.partial(attn_lib.flash_attention_xla,
+                                   causal=causal, window=window)
+        else:
+            fn = functools.partial(attn_lib.flash_attention, causal=causal,
+                                   window=window)
+        return spmd.self_attention(fn, q, k, v)
 
     def _attend(self, q, k, v, kv, length, offset, block_table, *,
                 cfg: ArchConfig, mode: str):
@@ -320,8 +322,7 @@ class AttnBlock(_Block):
             out, kv = spmd.attention(
                 functools.partial(self._attend, cfg=cfg, mode=mode), mode,
                 q, k, v, state.kv, length, offset, block_table)
-        b, s = out.shape[:2]
-        o = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
+        o = spmd.merge_heads(out)
         x = spmd.settle(x + torch.matmul(o, self.attn["wo"].to(x.dtype)),
                         positions)
         x = self._cross(cfg, x, positions, memory, mode)
@@ -362,9 +363,9 @@ class DecBlock(AttnBlock):
         _, ck, cv = attn_lib.qkv_project(
             self.xattn, memory, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, None, rope_theta=cfg.rope_theta, use_rope=False)
-        xo = attn_lib.flash_attention_xla(qx, ck, cv, causal=False)
-        b, s = xo.shape[:2]
-        xo = xo.reshape(b, s, cfg.num_heads * cfg.head_dim)
+        xo = spmd.self_attention(functools.partial(
+            attn_lib.flash_attention_xla, causal=False), qx, ck, cv)
+        xo = spmd.merge_heads(xo)
         return x + torch.matmul(xo, self.xattn["wo"].to(x.dtype))
 
 
@@ -533,7 +534,7 @@ class Model(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         self.kinds = cfg.layer_kinds
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, build=True)
         self.trainable = train
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
         f32, dev = torch.float32, self.device
@@ -630,27 +631,32 @@ class Model(nn.Module):
             x = torch.cat([m, x], dim=1)
         return x
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor, *,
+                padded: bool = False) -> torch.Tensor:
+        """Float32 logits: (..., vocab_size), or with ``padded`` all
+        ``vocab_padded`` columns (a vocab-sharded table's, uncut)."""
         x = _norm(self.cfg, x, self.final_norm, self.final_norm_bias)
         table = self.embed if self.lm_head is None else self.lm_head
-        return unembed(x, table)[..., :self.cfg.vocab_size]
+        logits = unembed(x, table)
+        return logits if padded else logits[..., :self.cfg.vocab_size]
 
     def _encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
         """The encoder's memory: ``src_embeds`` (B,Sm,D) in the compute
         dtype through the ``enc`` blocks, then ``enc_norm``
         (``repro.models.transformer.Model._encode``)."""
         x = src_embeds.to(self.compute_dtype)
-        positions = torch.arange(x.shape[1], device=x.device)[None].expand(
-            x.shape[:2])
+        positions = spmd.positions(x, None, x.shape[1])
         for blk in self.encoder:
             x, _, _ = blk(self.cfg, x, positions)
         return _norm(self.cfg, x, self.enc_norm, self.enc_norm_bias)
 
     def _forward(self, tokens: torch.Tensor,
                  modality: torch.Tensor | None = None,
-                 src_embeds: torch.Tensor | None = None):
-        """``train_forward``'s logits and the load-balance terms summed
-        over the layers (None without an MoE feed-forward)."""
+                 src_embeds: torch.Tensor | None = None, *,
+                 padded: bool = False):
+        """``train_forward``'s logits (``padded``: see ``_logits``) and the
+        load-balance terms summed over the layers (None without an MoE
+        feed-forward)."""
         memory = None
         if self.cfg.is_encdec:
             if src_embeds is None:
@@ -658,14 +664,13 @@ class Model(nn.Module):
                                  f"needs src_embeds")
             memory = self._encode(src_embeds)
         x = self._embed(tokens, modality)
-        positions = torch.arange(x.shape[1], device=x.device)[None].expand(
-            x.shape[:2])
+        positions = spmd.positions(tokens, None, x.shape[1])
         lb_total = None
         for blk in self.layers:
             x, _, lb = blk(self.cfg, x, positions, memory=memory)
             if lb is not None:
                 lb_total = lb if lb_total is None else lb_total + lb
-        logits = self._logits(x)
+        logits = self._logits(x, padded=padded)
         if modality is not None and self.mm_proj is not None:
             logits = logits[:, modality.shape[1]:]
         return logits, lb_total
@@ -693,10 +698,14 @@ class Model(nn.Module):
         ``repro.models.transformer.Model.loss``: returns (loss, {"ce_loss",
         "loss"}), under the caller's autograd mode.  An MoE model adds
         ``0.01`` times its load-balance term, averaged over the layers,
-        and reports that average as ``load_balance``."""
+        and reports that average as ``load_balance``.  On a mesh (DTensor
+        parameters and batch) the loss is a replicated 0-d DTensor, and
+        vocab-sharded logits are never gathered whole
+        (``spmd.cross_entropy``)."""
         logits, lb = self._forward(batch["tokens"], batch.get("modality"),
-                                   batch.get("src_embeds"))
-        loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+                                   batch.get("src_embeds"), padded=True)
+        loss = vocab_cross_entropy(logits, batch["labels"], batch.get("mask"),
+                                   self.cfg.vocab_size)
         metrics = {"ce_loss": loss}
         if lb is not None:
             lb = lb / max(self.cfg.num_layers, 1)

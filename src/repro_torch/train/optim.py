@@ -13,6 +13,12 @@ is a matrix there and a vector here.  ``adamw_update`` therefore takes the
 set to decay as ``decay`` (``bridge.decay_mask`` reads it off the JAX
 layout); without it, it decays ``p.dim() >= 2`` as the JAX function does on
 its own tree.
+
+On a (data, model) mesh the leaves are DTensors: the moments keep each
+parameter's placements (so a parameter split over ``model`` has its
+moments split alike, as the reference's optimizer state takes the
+parameter specs), every update is elementwise on the local shards, and
+``global_norm`` sums the squares over the whole mesh.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params: Tree) -> AdamWState:
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
              for k, p in params.items()}
     device = next(iter(params.values())).device if params else None
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
@@ -40,10 +47,26 @@ def adamw_init(params: Tree) -> AdamWState:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the float32 sum of squares over every leaf, leaf by leaf in
-    the tree's order."""
-    total = None
+    the tree's order.  DTensor leaves (no ``Partial`` placement) are summed
+    on their local shards, the leaves of one layout together, and each
+    layout's sum is reduced over the mesh dims that split it: a plain 0-d
+    tensor, the same on every rank, after at most one all-reduce a
+    layout."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    total, parts = None, {}
     for g in tree.values():
+        if isinstance(g, DTensor):
+            sq = torch.sum(torch.square(g.to_local().float()))
+            key = (g.device_mesh, tuple(isinstance(p, Shard)
+                                        for p in g.placements))
+            parts[key] = sq if key not in parts else parts[key] + sq
+            continue
         sq = torch.sum(torch.square(g.float()))
+        total = sq if total is None else total + sq
+    for (mesh, split), sq in parts.items():
+        sq = DTensor.from_local(sq, mesh, [Partial() if s else Replicate()
+                                           for s in split],
+                                run_check=False).full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
