@@ -148,6 +148,40 @@ Phases, one line or block of output each; any failure exits non-zero:
    tokens, one handoff a request and none pending, and disjoint launches —
    the prefill ranks no paged decode and no T = 1 scan, the decode ranks
    no flash and only T = 1 scans;
+6d. context-parallel serve — a. full-width qwen3-0.6b (28 layers),
+   recurrentgemma-2b (26) and falcon-mamba-7b (64), bf16, weights from the
+   seed: 4 right-padded prompts of 3,000-3,100 tokens (past
+   recurrentgemma's 2048-slot rings, which wrap) in one-shot ``prefill``
+   calls with ``length`` into 8192-slot states, then 32 greedy
+   ``decode_step`` calls with one row frozen (``active`` False) for one
+   step; once meshless and once on a 1-rank NCCL mesh
+   (``make_host_mesh((1, 1))``) with states laid out by
+   ``shardings.state_specs`` (each KV cache's sequence on ``model``) and
+   placed by ``place_states``: the tokens equal, the logits within the
+   bf16 flash tolerance, the frozen row's state bit for bit unchanged, the
+   launches equal and the path's own (one flash launch a self-attention
+   layer, one scan a recurrent layer a call; the dense decode attention
+   is plain PyTorch, as the reference's), the decode step's median
+   printed beside the meshless one's (``[cp]`` lines); b. full-width
+   seamless-m4t-medium (12 + 12 layers, vocab 256,206), bf16: ``encode``
+   of 512 source frames, ``prefill(memory=)`` of 2 x 64 tokens and 16
+   greedy ``decode_step(memory=)`` calls, every call's logits held to the
+   same model's no-grad ``forward`` over the same tokens (teacher-forced)
+   within ``tests/test_models_smoke.py``'s 5e-2, the prefill's flash
+   launches 12 non-causal (the encoder) and 12 causal (the decoder); then
+   a 2 + 2-layer float32 cut, encode, prefill and 4 decode steps, CPU
+   against card within the parity tolerance; c. on n >= 2 cards the three
+   paths of a. cut to 2 layers (recurrentgemma 3), float32, on (1, n) and,
+   with four cards, (n/2, 2) meshes, each a launch of its own under
+   ``torch.distributed.run`` (this script's ``--cp-worker DPxMP`` mode):
+   every rank's tokens equal its card's meshless run's, the sequence
+   really split (a rank's KV shard holds fewer slots than the cache, and
+   ``models/spmd.context_attention`` ran); d. the dry run's serving cells
+   (qwen3-0.6b ``prefill_32k`` and ``decode_32k`` on the single-pod mesh,
+   recurrentgemma-2b ``long_500k``), each in a process of its own started
+   after the timed runs (``[dryrun]`` lines: FLOPs a device, collectives
+   by kind, wire bytes, a rank's argument and state bytes against the
+   card's memory);
 7. train — full-width qwen3-0.6b (28 layers, 3 steps) and
    seamless-m4t-medium (12 encoder + 12 decoder layers, vocab 256,206, 2
    steps) through ``launch.train.train_once`` on the card: bf16 compute on
@@ -2711,6 +2745,464 @@ def phase_serve_mesh_cli(card: str) -> None:
     check_all("mesh CLI", checks)
 
 
+# ------------------------------------------------ 6d. context-parallel serve
+#: phase 6d's paths: full width and depth, bf16, weights from the seed
+CP_ARCHS = ("qwen3-0.6b", "recurrentgemma-2b", "falcon-mamba-7b")
+#: its geometry: rows, cache slots, the right-padded prompts' lengths (past
+#: recurrentgemma's 2048-slot rings, which wrap), greedy decode steps, and
+#: the row frozen (``active`` False) for one step and that step
+CP_ROWS, CP_MAX_LEN, CP_LENS, CP_STEPS = 4, 8192, (3000, 3100, 3047, 3013), 32
+CP_FROZEN, CP_FROZEN_STEP = 2, 5
+#: seamless-m4t-medium's serve: source frames, prompt tokens, decode steps
+#: and the tolerance of ``tests/test_models_smoke.py``'s decode against a
+#: teacher-forced forward (absolute and relative)
+ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_STEPS, ENCDEC_TOL = 512, 64, 16, 5e-2
+#: the multi-card launches' runs write here (``--cp-worker``)
+CP_CARDS_DIR = ROOT / "build" / "cp_cards"
+CP_CARDS_TIMEOUT_S = 300
+#: the dry run's serving cells phase 6d prints, each in a process of its own
+CP_DRYRUN_CELLS = (("qwen3-0.6b", "prefill_32k", "single"),
+                   ("qwen3-0.6b", "decode_32k", "single"),
+                   ("recurrentgemma-2b", "long_500k", "single"))
+
+
+def cp_serve(model, mesh=None, *, max_len: int = CP_MAX_LEN,
+             steps: int = CP_STEPS, seed: int = 0) -> dict:
+    """One right-padded one-shot ``prefill`` of ``CP_ROWS`` prompts of
+    ``CP_LENS`` tokens and ``steps`` greedy ``decode_step`` calls of
+    ``model`` on the card, row ``CP_FROZEN`` frozen at step
+    ``CP_FROZEN_STEP``; on ``mesh`` the model's DTensor copy
+    (``distribute_models``) with states laid out by ``state_specs`` and
+    placed by ``place_states``, else meshless.  The launch counters are
+    set to 0 just before the prefill and read after the last step.
+    Returns the tokens, the logits of each call (float32, on the host),
+    each decode step's ms (synchronized), the counts, whether the frozen
+    row's state kept its bits through its step, whether every logit was
+    finite, and the states."""
+    import torch
+    from repro_torch.launch import shardings as sh
+    cfg = model.cfg
+    b, s = CP_ROWS, max(CP_LENS)
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(1, cfg.vocab_size, (b, s), generator=gen,
+                         dtype=torch.int32)
+    lens = torch.tensor(CP_LENS, dtype=torch.int32)
+    states = model.init_states(b, max_len)
+    bax = None
+    if mesh is not None:
+        bax = sh.batch_axis(mesh, b)
+        model = sh.distribute_models([model], mesh)[0]
+        states = sh.place_states(states, sh.state_specs(model, mesh, b,
+                                                        max_len), mesh)
+
+    def put(t, spec):
+        t = t.cuda()
+        return t if mesh is None else sh.local_part(
+            t, mesh, sh.to_placements(spec, mesh))
+
+    def whole(t):
+        return t if mesh is None else t.full_tensor()
+
+    def frozen_bits(states) -> list:
+        """The frozen row of every state tensor this rank holds it in."""
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        out = []
+        for st in states:
+            for t in (st.kv if st.kv is not None else st.rec.values()):
+                if mesh is None:
+                    out.append(t[CP_FROZEN].clone())
+                    continue
+                shape, offset = compute_local_shape_and_global_offset(
+                    tuple(t.shape), mesh, t.placements)
+                if 0 <= CP_FROZEN - offset[0] < shape[0]:
+                    out.append(t.to_local()[CP_FROZEN - offset[0]].clone())
+        return out
+
+    finite, kept, step_ms, seen = True, True, [], []
+    with torch.no_grad():
+        reset_counts()
+        logits, states = model.prefill(put(toks, (bax, None)), states,
+                                       length=put(lens, (bax,)))
+        tok = whole(logits).argmax(-1).to(torch.int32)
+        finite &= bool(torch.isfinite(whole(logits)).all())
+        seen.append(whole(logits)[:, 0].float().cpu())
+        pos = lens.cuda()
+        out = [tok[:, 0].tolist()]
+        for step in range(steps):
+            active = torch.tensor([not (r == CP_FROZEN
+                                        and step == CP_FROZEN_STEP)
+                                   for r in range(b)], device="cuda")
+            before = frozen_bits(states) if not active.all() else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, states = model.decode_step(
+                put(tok, (bax, None)), states, put(pos, (bax,)),
+                active=put(active, (bax,)))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            if before is not None:
+                kept &= all(torch.equal(x, y) for x, y in
+                            zip(before, frozen_bits(states)))
+            lg = whole(logits)
+            finite &= bool(torch.isfinite(lg).all())
+            seen.append(lg[:, 0].float().cpu())
+            tok = torch.where(active[:, None], lg.argmax(-1).to(torch.int32),
+                              tok)
+            pos = pos + active.to(torch.int32)
+            out.append(tok[:, 0].tolist())
+        counts = read_counts()
+    return {"tokens": out, "logits": seen, "step_ms": step_ms,
+            "counts": counts, "frozen_kept": kept, "finite": finite,
+            "states": states}
+
+
+def median(values: list) -> float:
+    return sorted(values)[len(values) // 2]
+
+
+def cp_launches(cfg, steps: int) -> dict:
+    """The launches one ``cp_serve`` run of ``cfg`` makes: one flash launch
+    a self-attention layer in the prefill (the decode steps read a dense
+    cache in plain PyTorch, as the reference's ``decode_attention``), one
+    scan a recurrent layer a call, ``steps`` of them decode (T = 1)."""
+    kinds = cfg.layer_kinds
+    attn = sum(k in ("attn", "local", "dec") for k in kinds)
+    rec, ssm = kinds.count("rec"), kinds.count("ssm")
+    want = {name: 0 for name in launch_counters()}
+    want.update(flash=attn, rglru=rec * (1 + steps), rglru_decode=rec * steps,
+                ssm=ssm * (1 + steps), ssm_decode=ssm * steps)
+    return want
+
+
+def phase_cp_serve(seed: int, card: str) -> dict:
+    """6d: (a) full-width qwen3-0.6b, recurrentgemma-2b and falcon-mamba-7b
+    at full depth, bf16, served by ``cp_serve`` meshless and then on a
+    1-rank NCCL mesh (``make_host_mesh((1, 1))``) with states from
+    ``state_specs`` + ``place_states``: the tokens equal, the frozen row's
+    state bit for bit unchanged, the launches equal and the path's own,
+    each decode step's median printed beside the meshless one's; (b)
+    seamless-m4t-medium (``phase_cp_encdec``); then the dry run's serving
+    cells start, each in a process of its own; (c) on n >= 2 cards the
+    ``--cp-worker`` launches (``cp_cards``) while they run; (d) the dry
+    runs' records (``dryrun_lines``).  Returns the launches of the runs,
+    added."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    train_mesh_group()
+    mesh = make_host_mesh((1, 1), MESH_AXES, device="cuda")
+    total: dict = {}
+    checks = {}
+    for arch in CP_ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg, device="cuda", seed=seed)
+        base = cp_serve(model, seed=seed)
+        del base["states"]
+        run = cp_serve(model, mesh, seed=seed)
+        kv = [st.kv.k for st in run.pop("states") if st.kv is not None]
+        want = cp_launches(cfg, CP_STEPS)
+        say(f"[cp] {arch} full width, {cfg.num_layers} layers, bf16, "
+            f"{CP_ROWS} rows of {CP_LENS} prompt tokens, {CP_MAX_LEN} cache "
+            f"slots, {CP_STEPS} greedy decode steps (row {CP_FROZEN} frozen "
+            f"at step {CP_FROZEN_STEP}) on {card}: on a 1-rank "
+            f"{dist.get_backend()} mesh with state_specs' layouts "
+            + (f"(KV {tuple(kv[0].placements)}, local "
+               f"{tuple(kv[0].to_local().shape)}) " if kv else "")
+            + f"decode step median {median(run['step_ms']):.3f} ms (min "
+            f"{min(run['step_ms']):.3f}, max {max(run['step_ms']):.3f}); "
+            f"meshless {median(base['step_ms']):.3f} ms (min "
+            f"{min(base['step_ms']):.3f}, max {max(base['step_ms']):.3f}); "
+            f"first divergent token "
+            f"{first_divergence(run['tokens'], base['tokens'])}, max "
+            f"|logits - meshless| "
+            + str(max((a - b).abs().max().item() for a, b in
+                      zip(run["logits"], base["logits"])))
+            + f", distinct tokens a row "
+            f"{[len(set(col)) for col in zip(*base['tokens'])]}; launches "
+            f"{ {k: v for k, v in run['counts'].items() if v} }")
+        checks.update({
+            f"{arch}: the mesh run's tokens equal the meshless run's":
+                run["tokens"] == base["tokens"],
+            f"{arch}: the logits within {FLASH_TOL['bfloat16']} of the "
+            f"meshless run's": max(
+                (a - b).abs().max().item() for a, b in
+                zip(run["logits"], base["logits"])) <= FLASH_TOL["bfloat16"],
+            f"{arch}: every logit finite": run["finite"] and base["finite"],
+            f"{arch}: the frozen row's state kept its bits":
+                run["frozen_kept"] and base["frozen_kept"],
+            f"{arch}: the mesh run's launches equal the meshless run's":
+                run["counts"] == base["counts"],
+            f"{arch}: the launches are the path's own":
+                base["counts"] == want})
+        for k, n in run["counts"].items():
+            total[k] = total.get(k, 0) + n + base["counts"][k]
+        del model, run, base
+        release()
+    check_all("context-parallel serve", checks)
+    dist.destroy_process_group()
+    for k, n in phase_cp_encdec(seed, card).items():
+        total[k] = total.get(k, 0) + n
+    release()
+    dryruns = start_dryruns(CP_DRYRUN_CELLS)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        cp_cards(seed, card, n)
+    else:
+        say(f"[cp] one card ({card}): the (1, n) and (n/2, 2) meshes, whose "
+            f"sequence is split over model, need two cards or more")
+    dryrun_lines(dryruns, card)
+    return total
+
+
+def phase_cp_encdec(seed: int, card: str) -> dict:
+    """6d (b): full-width seamless-m4t-medium (12 + 12 layers, vocab
+    256,206), bf16, weights from the seed: ``encode`` of
+    ``ENCDEC_FRAMES`` source frames, a ``prefill(memory=)`` of
+    ``ENCDEC_PROMPT`` tokens and ``ENCDEC_STEPS`` greedy
+    ``decode_step(memory=)`` calls, the launch counters set to 0 just
+    before; the prefill's and every step's logits held to the same
+    model's no-grad ``forward`` over the same tokens (teacher-forced)
+    within ``ENCDEC_TOL`` (absolute plus relative, as
+    ``tests/test_models_smoke.py``); the prefill launches flash once an
+    encoder layer, non-causal, and once a decoder layer, causal (the
+    cross-attention takes ``flash_attention_xla``; a decode step launches
+    nothing).  Then a 2 + 2-layer float32 cut, CPU against card: encode,
+    prefill and 4 decode steps, logits within ``LOGIT_TOL``.  Returns the
+    full-width run's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Model
+    cfg = get_config(ENCDEC)
+    model = build_model(cfg, device="cuda", seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    b = 2
+    src = torch.randn((b, ENCDEC_FRAMES, cfg.d_model), generator=gen).cuda()
+    prompt = torch.randint(1, cfg.vocab_size, (b, ENCDEC_PROMPT),
+                           generator=gen, dtype=torch.int32).cuda()
+    causal = []
+    flash = attn_lib.flash_attention
+
+    def recorded(*args, **kw):
+        causal.append(kw.get("causal", True))
+        return flash(*args, **kw)
+
+    attn_lib.flash_attention = recorded
+    try:
+        with torch.no_grad():
+            reset_counts()
+            t0 = time.perf_counter()
+            memory = model.encode(src)
+            logits, states = model.prefill(
+                prompt, model.init_states(b, ENCDEC_PROMPT + ENCDEC_STEPS),
+                memory=memory)
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            calls = list(causal)
+            got, toks, step_ms = [logits[:, 0].float()], [prompt], []
+            pos = torch.full((b,), ENCDEC_PROMPT, dtype=torch.int32,
+                             device="cuda")
+            for _ in range(ENCDEC_STEPS):
+                tok = logits.argmax(-1).to(torch.int32)
+                toks.append(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, states = model.decode_step(tok, states, pos,
+                                                   memory=memory)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                got.append(logits[:, 0].float())
+                pos = pos + 1
+            counts = read_counts()
+            full = model(torch.cat(toks, dim=1), src_embeds=src)
+    finally:
+        attn_lib.flash_attention = flash
+    want = full[:, ENCDEC_PROMPT - 1:].float()
+    worst = max(((g - want[:, i]).abs()
+                 - ENCDEC_TOL * want[:, i].abs()).max().item()
+                for i, g in enumerate(got))
+    raw = max((g - want[:, i]).abs().max().item() for i, g in enumerate(got))
+    scale = want.abs().max().item()
+    say(f"[cp] {ENCDEC} full width ({cfg.enc_layers} + {cfg.num_layers} "
+        f"layers, vocab {cfg.vocab_size}), bf16, on {card}: encode of "
+        f"{ENCDEC_FRAMES} frames and prefill of {b} x {ENCDEC_PROMPT} tokens "
+        f"{prefill_ms:.2f} ms, {ENCDEC_STEPS} decode steps median "
+        f"{median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}); against the teacher-forced forward: max "
+        f"|decode - forward| {raw:.3e} (max|logits| {scale:.3f}; tol "
+        f"{ENCDEC_TOL} + {ENCDEC_TOL} x |forward|); prefill flash launches "
+        f"{len(calls)}: {calls.count(False)} non-causal, "
+        f"{calls.count(True)} causal; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    check_all(f"{ENCDEC} serve", {
+        "finite logits": all(bool(torch.isfinite(g).all()) for g in got),
+        "decode logits within the teacher-forced forward's tolerance":
+            worst <= ENCDEC_TOL,
+        "one non-causal flash launch an encoder layer":
+            calls.count(False) == cfg.enc_layers,
+        "one causal flash launch a decoder layer":
+            calls.count(True) == cfg.num_layers,
+        "the prefill's launches are flash only":
+            counts["flash"] == cfg.enc_layers + cfg.num_layers
+            and sum(counts.values()) == counts["flash"],
+    })
+    del model, states, memory, full
+    release()
+    cut = cfg.replace(num_layers=2, enc_layers=2, compute_dtype="float32")
+    cpu = build_model(cut, device="cpu", seed=seed)
+    gpu = Model(cut, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    src, prompt = src[:, :96].cpu(), prompt.cpu()
+    logits = {}
+    with torch.no_grad():
+        side = {}
+        for name, m in (("cpu", cpu), ("card", gpu)):
+            dev = m.device
+            memory = m.encode(src.to(dev))
+            lg, st = m.prefill(prompt.to(dev), m.init_states(b, 80),
+                               memory=memory)
+            side[name] = (st, memory)
+            logits[name] = [lg.cpu()]
+        pos = torch.full((b,), ENCDEC_PROMPT, dtype=torch.int32)
+        for _ in range(4):
+            nxt = logits["cpu"][-1].argmax(-1).to(torch.int32)
+            for name, m in (("cpu", cpu), ("card", gpu)):
+                st, memory = side[name]
+                lg, st = m.decode_step(nxt.to(m.device), st,
+                                       pos.to(m.device), memory=memory)
+                side[name] = (st, memory)
+                logits[name].append(lg.cpu())
+            pos = pos + 1
+    worst = max((a - c).abs().max().item()
+                for a, c in zip(logits["cpu"], logits["card"]))
+    say(f"[parity] {ENCDEC} full width, 2 enc + 2 dec layers, float32, "
+        f"encode of 96 frames, prefill of {b} x {ENCDEC_PROMPT} tokens and 4 "
+        f"decode steps with the memory: max|cuda-cpu| logits {worst:.3e} "
+        f"(tol {LOGIT_TOL})")
+    check_all(f"{ENCDEC} serve parity", {
+        "finite logits on the card": all(bool(torch.isfinite(lg).all())
+                                         for lg in logits["card"]),
+        f"logits within {LOGIT_TOL}": worst <= LOGIT_TOL})
+    del cpu, gpu, side
+    return counts
+
+
+def cp_cut(arch: str):
+    """The multi-card launches' model: full-width ``arch`` cut to
+    ``max(2, len(block_pattern))`` layers (recurrentgemma's rec, rec,
+    local), float32."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=max(2, len(cfg.block_pattern)),
+                       compute_dtype="float32")
+
+
+def cp_meshes(n: int) -> list:
+    """The ``--cp-worker`` meshes on ``n`` cards: (1, n), and (n/2, 2)
+    with four cards or more."""
+    return [(1, n)] + ([(n // 2, 2)] if n >= 4 and n % 2 == 0 else [])
+
+
+def cp_cards(seed: int, card: str, n: int) -> None:
+    """6d (c): on ``n`` cards, ``CP_ARCHS`` at ``cp_cut``'s depth on each
+    of ``cp_meshes(n)``, a launch of its own under
+    ``torch.distributed.run`` (one process a card, this script's
+    ``--cp-worker DPxMP`` mode).  Fails unless each rank's tokens equal
+    the meshless run's on its card and the sequence was really split
+    (each rank's KV shard holds fewer than ``CP_MAX_LEN`` slots and the
+    context-parallel route ran)."""
+    CP_CARDS_DIR.mkdir(parents=True, exist_ok=True)
+    checks = {}
+    for dp, mp in cp_meshes(n):
+        label = f"{dp}x{mp}"
+        out = CP_CARDS_DIR / f"{label}.json"
+        out.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        rc, _, err = run_bounded(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={n}", str(ROOT / "chip_smoke.py"),
+             "--seed", str(seed), "--cp-worker", label], CP_CARDS_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if rc or not out.exists():
+            # the ranks' own tracebacks, before the launcher's summary
+            lines = err.splitlines()
+            ranked = [line for line in lines if line.startswith("[rank")]
+            for line in (ranked or lines)[-40:]:
+                say(f"[cp] {label} stderr| {line}")
+            fail(f"the {label} context-parallel launch on {n} cards exited "
+                 f"{rc}")
+        got = json.loads(out.read_text())
+        for arch, res in got.items():
+            say(f"[cp] {arch} ({cp_cut(arch).num_layers} layers, float32) on "
+                f"a {label} mesh of {n} cards under torch.distributed.run "
+                f"(exit 0 in {wall:.1f} s wall, {card}): decode step median "
+                f"{res['step_ms']:.3f} ms (meshless on one card "
+                f"{res['base_step_ms']:.3f}); " + "; ".join(
+                    f"{k} {v}" for k, v in res["checks"].items()))
+            checks.update({f"{arch} {label}: {k}": v
+                           for k, v in res["checks"].items()})
+    check_all("context-parallel serve on cards", checks)
+
+
+def cp_worker(seed: int, label: str) -> None:
+    """One rank of a ``cp_cards`` launch under ``torch.distributed.run``:
+    each of ``CP_ARCHS`` at ``cp_cut``'s depth served by ``cp_serve``
+    meshless on this rank's card and on a ``label`` ("DPxMP") mesh of the
+    cards, the context-parallel route's calls counted.  Rank 0 writes
+    ``build/cp_cards/LABEL.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model, spmd
+    dp, mp = (int(v) for v in label.split("x"))
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:nccl")
+    mesh = make_host_mesh((dp, mp), MESH_AXES, device="cuda")
+    routed = [0]
+    context = spmd.context_attention
+
+    def counted(*args, **kw):
+        routed[0] += 1
+        return context(*args, **kw)
+
+    spmd.context_attention = counted
+    out = {}
+    for arch in CP_ARCHS:
+        cfg = cp_cut(arch)
+        model = build_model(cfg, device="cuda", seed=seed)
+        base = cp_serve(model, steps=8, seed=seed)
+        routed[0] = 0
+        run = cp_serve(model, mesh, steps=8, seed=seed)
+        kv = [st.kv.k for st in run["states"] if st.kv is not None]
+        split = all(t.to_local().shape[1] < t.shape[1] for t in kv)
+        mine = {"tokens equal the meshless run's":
+                run["tokens"] == base["tokens"],
+                "finite logits": run["finite"],
+                "the frozen row's state kept its bits": run["frozen_kept"]}
+        if kv:
+            mine["the sequence split over model"] = split and routed[0] > 0
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, mine)
+        out[arch] = {"step_ms": median(run["step_ms"]),
+                     "base_step_ms": median(base["step_ms"]),
+                     "checks": {k: all(e[k] for e in everyone)
+                                for k in mine}}
+        del model, run, base
+        release()
+    if dist.get_rank() == 0:
+        CP_CARDS_DIR.mkdir(parents=True, exist_ok=True)
+        (CP_CARDS_DIR / f"{label}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------- 7. train
 #: the train phase's geometry: global batch 8 of 128 tokens in 2
 #: microbatches, bf16 compute on float32 masters
@@ -2883,16 +3375,16 @@ DRYRUN_DIR = ROOT / "build" / "dryrun_torch"
 DRYRUN_TIMEOUT_S = 900
 
 
-def start_dryruns() -> list:
-    """``DRYRUN_CELLS`` in processes of their own on the host (each a CPU
-    process on ``meta`` tensors, about half a minute), started after phase
-    7b's timed run so that they load the host during no timed phase;
+def start_dryruns(cells=DRYRUN_CELLS) -> list:
+    """``cells`` in processes of their own on the host (each a CPU process
+    on ``meta`` tensors, seconds to half a minute), started after a
+    phase's timed runs so that they load the host during no timed phase;
     ``dryrun_lines`` waits for them.  Each is killed when this script
     exits."""
     import atexit
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for arch, shape, mesh in DRYRUN_CELLS:
+    for arch, shape, mesh in cells:
         (DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json").unlink(missing_ok=True)
         procs.append(((arch, shape, mesh), subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -3026,10 +3518,15 @@ def dryrun_lines(procs: list, card: str) -> None:
             fail(f"dry run {arch} {shape} {mesh}: {rec.get('error')}")
         c, mem = rec["collectives"], rec["memory"]
         args = mem["argument_size_in_bytes"]
+        step = f"one train step in {rec['trace_s']} s, " \
+            f"{rec['meta']['accum_steps']} microbatches" \
+            if "accum_steps" in rec["meta"] else \
+            f"one {shape} step in {rec['trace_s']} s, states " \
+            f"{mem['state_size_in_bytes'] / 2 ** 30:.3f} GiB a device " \
+            f"({mem['state_size_in_bytes'] / total:.2%} of the card)"
         say(f"[dryrun] {arch} {shape} {mesh} on a fake group of "
             f"{rec['n_devices']} ranks {rec['mesh_shape']} (host, meta "
-            f"tensors, torch {torch.__version__}): one train step in "
-            f"{rec['trace_s']} s, {rec['meta']['accum_steps']} microbatches;"
+            f"tensors, torch {torch.__version__}): {step};"
             f" {rec['flops']:.4g} FLOPs a device ({rec['flops_counts']}); "
             f"collectives {c['counts']}, wire bytes a device "
             f"{c['total_wire_bytes']:.4g} "
@@ -3037,7 +3534,10 @@ def dryrun_lines(procs: list, card: str) -> None:
             f"arguments {args / 2 ** 30:.3f} GiB a device "
             f"({args / total:.2%} of {card}'s {total / 2 ** 30:.1f} GiB); "
             f"parameters {rec['meta']['param_bytes'] / 2 ** 30:.3f} GiB in "
-            f"all")
+            f"all (float32)"
+            + (f", {rec['meta']['serving_param_bytes'] / 2 ** 30:.3f} GiB "
+               f"as the serving build holds them"
+               if "serving_param_bytes" in rec["meta"] else ""))
         checks[f"{arch} {shape} {mesh}: a rank's arguments fit the card"] = \
             args < total
     check_all("dry run", checks)
@@ -3306,12 +3806,18 @@ def main() -> None:
     ap.add_argument("--train-worker", metavar="DPxMP",
                     help="one rank of phase 7b's multi-card sessions under "
                          "torch.distributed.run")
+    ap.add_argument("--cp-worker", metavar="DPxMP",
+                    help="one rank of phase 6d's multi-card launches under "
+                         "torch.distributed.run")
     args = ap.parse_args()
     if args.serve_worker is not None:
         serve_worker(args.serve_worker)
         return
     if args.train_worker is not None:
         train_worker(args.seed, args.train_worker)
+        return
+    if args.cp_worker is not None:
+        cp_worker(args.seed, args.cp_worker)
         return
     lap = Laps()
     name, count, smi = phase_device()
@@ -3366,6 +3872,9 @@ def main() -> None:
     lap("6b mesh CLI")
     phase_serve_roles(smi)
     lap("6c roles")
+    paths.append(phase_cp_serve(args.seed, smi))
+    release()
+    lap("6d context-parallel serve")
     paths.append(phase_train(args.seed, smi, "qwen3-0.6b", steps=3))
     paths.append(phase_train(args.seed, smi, ENCDEC, steps=2))
     phase_train_resume(args.seed)

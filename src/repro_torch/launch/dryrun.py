@@ -1,25 +1,31 @@
-"""The dry run: one whole train step of every arch at production scale on a
-fake process group of 256 or 512 ranks, with no card and no memory — the
-port of ``repro.launch.dryrun``.
+"""The dry run: one whole train step, prefill or decode step of every arch
+at production scale on a fake process group of 256 or 512 ranks, with no
+card and no memory — the port of ``repro.launch.dryrun``.
 
 The reference lowers and compiles each (arch x shape x mesh) cell with
 ``ShapeDtypeStruct`` inputs on 512 forced host devices and reads XLA's
 memory, cost and collective analyses.  The port has no compiler to ask, so
-it runs the step: the parameters, moments and inputs are ``meta`` DTensors
-(shapes, no storage) laid out by ``launch/shardings.py`` on a production
-mesh (``launch.mesh.make_production_mesh``) over a fake group, whose
-collectives return at once and move nothing.  One ``make_train_step`` call
-runs under ``StepCounter``: ``CommDebugMode``'s count of the collectives
-DTensor and the model emit, by kind, with their wire bytes, and
-``FlopCounterMode``'s FLOPs of the operations one rank runs on its own
-shards.  A record
-keeps the reference's keys where the port can fill them, ``trace_s`` in
-place of ``lower_s``/``compile_s``.
+it runs the cell's step: the parameters, optimizer moments, serving states
+and inputs are ``meta`` DTensors (shapes, no storage) laid out by
+``launch/shardings.py`` on a production mesh
+(``launch.mesh.make_production_mesh``) over a fake group, whose
+collectives return at once and move nothing.  One call runs under
+``StepCounter``: ``CommDebugMode``'s count of the collectives DTensor and
+the model emit, by kind, with their wire bytes, and ``FlopCounterMode``'s
+FLOPs of the operations one rank runs on its own shards.  A record keeps
+the reference's keys where the port can fill them, ``trace_s`` in place of
+``lower_s``/``compile_s``.
 
-Only train cells run.  Prefill, decode and long cells need the
-sequence-sharded caches of ``shardings.state_specs`` and an attention that
-combines partial softmaxes across ``model`` ranks, which the port does not
-have (ROADMAP A7.3): ``run_cell`` records them as errors that say so.
+Every cell runs, as the reference's: ``train_4k`` a train step
+(``make_train_step``), ``prefill_32k`` a one-shot prefill, ``decode_32k``
+and ``long_500k`` one decode step against caches of the shape's length,
+each on the serving build (weights in the compute dtype) with states laid
+out by ``shardings.state_specs``: KV caches split along their sequence
+over ``model`` (``models/spmd.context_attention`` combines the ranks'
+partial softmaxes), recurrent states along their width.  An
+encoder-decoder's prefill encodes its source frames first; its decode
+step reads a memory input.  ``long_500k`` is skipped for the archs that
+are not sub-quadratic (``configs.applicable``), as the reference skips it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -56,13 +62,6 @@ ACCUM = {
     "starcoder2-7b": 8, "phi3.5-moe-42b-a6.6b": 16,
 }
 
-#: why the serving cells do not run
-NOT_TRAIN = ("the port's dry run runs train cells only: prefill, decode and "
-             "long cells need state_specs' sequence-sharded caches and an "
-             "attention that combines partial softmaxes across model ranks "
-             "(ROADMAP A7.3)")
-
-
 def start_fake_group(world: int) -> None:
     """A default group of ``world`` ranks of the ``fake`` backend, this
     process rank 0: its collectives return at once and move nothing.
@@ -79,16 +78,27 @@ def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
 
 
 def input_specs(cfg, shape: ShapeSpec, mesh, strategy: str = "tp") -> dict:
-    """Meta DTensor stand-ins for a train cell's inputs, laid out by
-    ``batch_specs`` (no allocation): the reference's train inputs (its
-    prefill and decode inputs come with A7.3)."""
-    if shape.kind != "train":
-        raise NotImplementedError(f"{shape.name}: {NOT_TRAIN}")
+    """Meta DTensor stand-ins for a cell's inputs (no allocation), the
+    reference's: a train step's ``tokens`` and ``labels``, a prefill's
+    ``tokens`` (each with ``modality``, or an encoder-decoder's
+    ``src_embeds`` of S/2 frames beside S/2 tokens), laid out by
+    ``batch_specs``; a decode step's ``token`` (B, 1) and ``position``
+    (B,), and an encoder-decoder's bf16 ``memory`` (B, S/2, d_model), on
+    the data axes when they split the batch."""
     b, s = shape.global_batch, shape.seq_len
     s_text = s // 2 if cfg.is_encdec else s - cfg.modality_tokens
     i32, f32 = torch.int32, torch.float32
-    out = {"tokens": _meta((b, s_text), i32), "labels": _meta((b, s_text),
-                                                               i32)}
+    if shape.kind == "decode":
+        bs = sh.batch_axis(mesh, b)
+        out = {"token": _meta((b, 1), i32), "position": _meta((b,), i32)}
+        specs = {"token": (bs, None), "position": (bs,)}
+        if cfg.is_encdec:
+            out["memory"] = _meta((b, s // 2, cfg.d_model), torch.bfloat16)
+            specs["memory"] = (bs, None, None)
+        return sh.abstract_with_sharding(out, specs, mesh)
+    out = {"tokens": _meta((b, s_text), i32)}
+    if shape.kind == "train":
+        out["labels"] = _meta((b, s_text), i32)
     if cfg.modality_tokens:
         out["modality"] = _meta((b, cfg.modality_tokens, cfg.modality_dim),
                                 f32)
@@ -120,17 +130,45 @@ def param_bytes(cfg) -> float:
 
 
 def build_lowerable(cfg, shape: ShapeSpec, mesh, strategy: str = "tp"):
-    """Returns (fn, args, meta): one train step and its meta DTensor
-    arguments (parameters, AdamW state, inputs)."""
+    """Returns (fn, args, meta): the cell's step and its meta DTensor
+    arguments — a train cell's parameters, AdamW state and inputs; a
+    serving cell's parameters (which the model holds: ``fn`` reads them
+    there), states (``shardings.abstract_states``) and inputs.
+    ``meta["param_bytes"]`` is the reference's float32 count;
+    ``meta["serving_param_bytes"]`` what the serving build holds (its
+    matmul weights in the compute dtype)."""
     inputs = input_specs(cfg, shape, mesh, strategy)
-    model = sh.abstract_model(Model(cfg, "meta", train=True), mesh, strategy)
+    meta = {"param_bytes": param_bytes(cfg)}
+    if shape.kind == "train":
+        model = sh.abstract_model(Model(cfg, "meta", train=True), mesh,
+                                  strategy)
+        params = dict(model.named_parameters())
+        accum = accum_steps(cfg, shape, mesh)
+        meta.update(accum_steps=accum, accum_steps_reference=ACCUM.get(
+            cfg.name, ACCUM["default"]))
+        return make_train_step(model, accum_steps=accum), \
+            (params, optim.adamw_init(params), inputs), meta
+    model = sh.abstract_model(Model(cfg, "meta"), mesh, strategy)
     params = dict(model.named_parameters())
-    accum = accum_steps(cfg, shape, mesh)
-    fn = make_train_step(model, accum_steps=accum)
-    meta = {"accum_steps": accum,
-            "accum_steps_reference": ACCUM.get(cfg.name, ACCUM["default"]),
-            "param_bytes": param_bytes(cfg)}
-    return fn, (params, optim.adamw_init(params), inputs), meta
+    meta["serving_param_bytes"] = float(sum(
+        p.numel() * p.element_size() for p in params.values()))
+    states = sh.abstract_states(model, mesh, shape.global_batch,
+                                shape.seq_len)
+
+    @torch.no_grad()
+    def prefill(params, states, inputs):
+        memory = model.encode(inputs["src_embeds"]) if cfg.is_encdec \
+            else None
+        return model.prefill(inputs["tokens"], states,
+                             modality=inputs.get("modality"), memory=memory)
+
+    @torch.no_grad()
+    def decode(params, states, inputs):
+        return model.decode_step(inputs["token"], states, inputs["position"],
+                                 memory=inputs.get("memory"))
+
+    return prefill if shape.kind == "prefill" else decode, \
+        (params, states, inputs), meta
 
 
 def _local_bytes(tensors) -> int:
@@ -243,34 +281,68 @@ class StepCounter(TorchDispatchMode):
                                                                     nbytes)
 
 
+#: what a cell's FLOPs count, by the shape's kind
+FLOPS_COUNT = {
+    "train": ("per device: the operations one rank runs on its own shards, "
+              "one train step with its microbatches (StepCounter: "
+              "FlopCounterMode's formulas)"),
+    "prefill": ("per device: the operations one rank runs on its own "
+                "shards, one one-shot prefill (StepCounter: "
+                "FlopCounterMode's formulas) — the causal square counted "
+                "whole (the flash kernel's plain version: dense scores), a "
+                "window's layer by its chunked local attention, the scans "
+                "by their chunked route"),
+    "decode": ("per device: the operations one rank runs on its own "
+               "shards, one decode step (StepCounter: FlopCounterMode's "
+               "formulas) — the plain dense decode attention over every "
+               "S_max slot of the rank's cache shard, the scans by their "
+               "chunked route"),
+}
+
+
+def _tensors(states) -> list:
+    """Every tensor of a list of ``BlockState``s."""
+    return [t for st in states
+            for t in (st.kv if st.kv is not None else st.rec.values())]
+
+
 def measure(cfg, shape: ShapeSpec, mesh) -> dict:
-    """One train step of ``cfg`` at ``shape`` on ``mesh`` (of a running
-    group, the fake one in ``run_cell``), measured: a record's fields."""
+    """One step of ``cfg`` at ``shape`` on ``mesh`` (of a running group,
+    the fake one in ``run_cell``), measured: a record's fields."""
     t0 = time.perf_counter()
     fn, args, meta = build_lowerable(cfg, shape, mesh)
-    params, opt, inputs = args
+    params, held, inputs = args
     param_local = _local_bytes(params.values())
-    arg_bytes = _local_bytes(list(params.values()) + list(opt.mu.values())
-                             + list(opt.nu.values()) + [opt.step]
+    if shape.kind == "train":
+        held = list(held.mu.values()) + list(held.nu.values()) + [held.step]
+        counts = ("one rank's float32 parameters, AdamW moments and step, "
+                  "and its inputs, from the local shapes")
+        state_local = None
+    else:
+        held = _tensors(held)
+        state_local = _local_bytes(held)
+        counts = ("one rank's serving parameters (compute-dtype matmul "
+                  "weights), its inputs and its KV and recurrent states, "
+                  "from the local shapes")
+    arg_bytes = _local_bytes(list(params.values()) + held
                              + list(inputs.values()))
     with StepCounter() as count:
         fn(*args)
     # the step ran on meta tensors on the host: the wall is host work
     trace_s = time.perf_counter() - t0
+    memory = {"argument_size_in_bytes": arg_bytes,
+              "parameter_size_in_bytes": param_local,
+              "argument_counts": counts}
+    if state_local is not None:
+        memory["state_size_in_bytes"] = state_local
     return dict(
         status="ok", meta=meta, trace_s=round(trace_s, 1),
         n_devices=mesh.size(),
         mesh_shape=dict(zip(mesh.mesh_dim_names, mesh.shape)),
         data_axes=list(data_axes(mesh)),
         flops=float(count.flops),
-        flops_counts=("per device: the operations one rank runs on its own "
-                      "shards, one train step with its microbatches "
-                      "(StepCounter: FlopCounterMode's formulas)"),
-        memory={"argument_size_in_bytes": arg_bytes,
-                "parameter_size_in_bytes": param_local,
-                "argument_counts": ("one rank's float32 parameters, AdamW "
-                                    "moments and step, and its inputs, from "
-                                    "the local shapes")},
+        flops_counts=FLOPS_COUNT[shape.kind],
+        memory=memory,
         collectives={"counts": dict(count.counts),
                      "wire_bytes": dict(count.wire),
                      "result_bytes": dict(count.result),
@@ -315,10 +387,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
 
 
 def all_cells() -> list[tuple[str, str, str]]:
-    """Every arch's train cells on both meshes (the serving cells wait for
-    ROADMAP A7.3: ``run_cell`` refuses them)."""
-    return [(arch, shape, mesh) for arch in ARCHS
-            for shape, spec in SHAPES.items() if spec.kind == "train"
+    """Every (arch x shape x mesh) cell, as the reference's: ``run_cell``
+    records the inapplicable ones as skips."""
+    return [(arch, shape, mesh) for arch in ARCHS for shape in SHAPES
             for mesh in ("single", "multi")]
 
 

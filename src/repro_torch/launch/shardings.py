@@ -22,9 +22,11 @@ layers are not stacked, so a spec has no stack axis: it is the reference's
 with that leading ``None`` dropped.
 
 Batch is sharded on (pod, data).  KV caches for decode shard the
-*sequence* axis on ``model`` (context parallelism) in ``state_specs``; the
-port has no attention that combines partial softmaxes across ``model``
-ranks yet, so no path runs on those caches (ROADMAP A7.3).
+*sequence* axis on ``model`` (context parallelism) in ``state_specs``:
+``models/spmd.context_attention`` writes each rank's slots and combines
+the ranks' partial softmaxes over ``model``.  ``abstract_states`` lays
+meta stand-ins of those states out for the dry run, ``place_states``
+real ones.
 """
 from __future__ import annotations
 
@@ -264,9 +266,10 @@ def batch_specs(cfg: ArchConfig, mesh, global_batch: int,
 def state_specs(model: Model, mesh, batch: int,
                 max_len: int) -> list[BlockState]:
     """Specs mirroring ``Model.init_states`` (dense caches), one
-    ``BlockState`` a layer: KV caches shard their sequence on ``model``
-    (context parallelism) and their batch on data; recurrent states shard
-    their width on ``model``."""
+    ``BlockState`` a layer: KV caches (an ``attn`` or ``dec`` layer's, a
+    window's ring) shard their sequence on ``model`` (context parallelism)
+    and their batch on data; recurrent states shard their width on
+    ``model``, evenly or not (DTensor's chunks)."""
     b = batch_axis(mesh, batch)
 
     def one(kind: str) -> BlockState:
@@ -350,17 +353,17 @@ def local_part(tensor: torch.Tensor, mesh, placements):
     """``tensor`` as a DTensor of ``placements`` when every rank holds the
     same whole ``tensor`` (zeros, a host input): each rank keeps its own
     chunk, contiguous (a kernel reads it as a dense array), with no
-    collective.  Shards split evenly (the serving specs shard only axes
-    that divide)."""
-    from torch.distributed.tensor import DTensor, Shard
+    collective.  An axis that does not split evenly is cut as DTensor
+    chunks it (the last ranks hold fewer, or none)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(tensor.shape), mesh, placements)
     local = tensor
-    for dim, p in enumerate(placements):
-        if isinstance(p, Shard):
-            n = mesh.size(dim)
-            if local.shape[p.dim] % n:
-                raise ValueError(f"axis {p.dim} of {tuple(tensor.shape)} "
-                                 f"does not split {n} ways")
-            local = local.chunk(n, p.dim)[mesh.get_local_rank(dim)]
+    for dim, (n, lo) in enumerate(zip(shape, offset)):
+        if n != tensor.shape[dim]:
+            local = local.narrow(dim, lo, n)
     return DTensor.from_local(local.contiguous(), mesh, placements,
                               run_check=False, shape=tensor.shape,
                               stride=tensor.stride())
@@ -381,6 +384,25 @@ def place_states(states: list[BlockState], specs: list[BlockState],
             out.append(BlockState(rec={k: place(a, sp.rec[k])
                                        for k, a in st.rec.items()}))
     return out
+
+
+def abstract_states(model: Model, mesh, batch: int,
+                    max_len: int) -> list[BlockState]:
+    """Meta DTensor states of ``model`` (built on ``meta``) for ``batch``
+    slots of ``max_len`` tokens, laid out by ``state_specs``: the dry
+    run's counterpart of ``place_states`` (the reference's
+    ``abstract_with_sharding`` of ``init_states``' shapes).  Nothing is
+    allocated."""
+    shapes = model.init_states(batch, max_len)
+    specs = state_specs(model, mesh, batch, max_len)
+
+    def one(t, s):
+        return _abstract(t.shape, t.dtype, mesh, to_placements(s, mesh))
+
+    return [BlockState(kv=type(st.kv)(*map(one, st.kv, sp.kv)))
+            if st.kv is not None else
+            BlockState(rec={k: one(a, sp.rec[k]) for k, a in st.rec.items()})
+            for st, sp in zip(shapes, specs)]
 
 
 def distribute_models(models: list[Model], mesh, strategy: str = "tp",

@@ -221,6 +221,102 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
         length=(cache.length + inc).to(torch.int32))
 
 
+# ------------------------------------- a dense cache split along its sequence
+def shard_fill(k_shard: torch.Tensor, v_shard: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, cached: torch.Tensor, *, start: int,
+               smax: int, window: int = 0,
+               length: torch.Tensor | None = None) -> torch.Tensor:
+    """``_fill_cache`` on the slots ``[start, start + L)`` of a dense cache
+    of ``smax`` slots that one rank holds (``k_shard``/``v_shard``:
+    (B,L,KVH,hd)), IN PLACE: each slot gets what ``_fill_cache`` writes
+    there — the prompt's K/V left-aligned, or the window's ring formula's
+    position — and a slot ``_fill_cache`` leaves keeps its bits.  k/v:
+    (B,S,KVH,hd), the whole prompt; ``cached``: the (B,) lengths before.
+    Returns the new lengths."""
+    b, s = k.shape[0], k.shape[1]
+    n = k_shard.shape[1]
+    if length is not None and window:
+        last = length.long()[:, None] - 1
+        j = start + torch.arange(n, device=k.device)[None, :]
+        p = (last - ((last - j) % smax)).clamp(0, s - 1)
+        idx = p[:, :, None, None].expand(-1, -1, *k.shape[2:])
+        k_shard.copy_(torch.gather(k, 1, idx))
+        v_shard.copy_(torch.gather(v, 1, idx))
+        return (cached + length).to(torch.int32)
+    first = 0
+    if window and s > smax:
+        first, s = s - smax, smax
+    m = max(0, min(n, s - start))           # slots of this shard below s
+    if m:
+        k_shard[:, :m] = k[:, first + start:first + start + m]
+        v_shard[:, :m] = v[:, first + start:first + start + m]
+    return (cached + (s if length is None else length)).to(torch.int32)
+
+
+def shard_decode_write(k_shard: torch.Tensor, v_shard: torch.Tensor,
+                       new_k: torch.Tensor, new_v: torch.Tensor,
+                       cached: torch.Tensor, *, start: int, smax: int,
+                       window: int = 0,
+                       write_mask: torch.Tensor | None = None) -> None:
+    """``decode_attention``'s write on the slots ``[start, start + L)`` of
+    a dense cache of ``smax`` slots, IN PLACE: row b's new K/V (B,1,KVH,hd)
+    go to slot ``cached[b]`` (``% smax`` in a window's ring) when this
+    shard holds it; a row whose ``write_mask`` is False, or whose slot is
+    elsewhere or past ``smax``, leaves the shard's bits as they were."""
+    n = k_shard.shape[1]
+    if n == 0:
+        return
+    idx = cached.long()
+    if window:
+        idx = idx % smax
+    keep = (idx >= start) & (idx < min(start + n, smax))
+    if write_mask is not None:
+        keep = keep & write_mask
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    i = (idx - start).clamp(0, n - 1)
+    k_shard[rows, i] = torch.where(keep[:, None, None],
+                                   new_k[:, 0].to(k_shard.dtype),
+                                   k_shard[rows, i])
+    v_shard[rows, i] = torch.where(keep[:, None, None],
+                                   new_v[:, 0].to(v_shard.dtype),
+                                   v_shard[rows, i])
+
+
+def decode_partial(q: torch.Tensor, k_shard: torch.Tensor,
+                   v_shard: torch.Tensor, cached: torch.Tensor, *,
+                   start: int, window: int = 0):
+    """One-token queries q (B,1,H,hd) against the slots ``[start, start +
+    L)`` of a dense cache (``k_shard``/``v_shard``: (B,L,KVH,hd), the new
+    token already written), under ``decode_attention``'s mask at the
+    global slot indices (``cached``: the (B,) lengths before this step):
+    ``pos <= cached`` for a full cache, ``pos < min(cached + 1, window)``
+    for a window's ring.  Returns the pieces of a partial softmax, float32,
+    as flash decoding splits it: the row max ``m`` (B,H) (the finite
+    ``NEG_INF`` where the shard holds no valid slot), the row sum ``l``
+    (B,H) of ``exp(s - m)`` over the valid slots (0 where none is) and
+    ``acc`` (B,H,hd), the same weights times V.  Combined over the shards
+    (``M = max m``, sums of ``l·exp(m - M)`` and ``acc·exp(m - M)``), ``acc
+    / max(l, 1e-30)`` is ``decode_attention``'s output."""
+    b, _, h, hd = q.shape
+    kvh = k_shard.shape[2]
+    g = h // kvh
+    n = k_shard.shape[1]
+    qg = (q.reshape(b, 1, kvh, g, hd) * (1.0 / math.sqrt(hd))).float()
+    pos = start + torch.arange(n, device=q.device)[None, :]
+    last = cached.long()[:, None]
+    valid = pos <= last
+    if window:
+        valid = pos < torch.clamp(last + 1, max=window)
+    s = torch.einsum("bqnGd,bknd->bnGqk", qg, k_shard.float())
+    mask = valid[:, None, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1) if n else s.new_full(s.shape[:-1], NEG_INF)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bnGqk,bknd->bnGqd", p, v_shard.float())
+    return m.reshape(b, h), p.sum(dim=-1).reshape(b, h), \
+        acc.reshape(b, h, hd)
+
+
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cache: KVCache, *, offset: torch.Tensor,
                     length: torch.Tensor, window: int = 0):

@@ -22,7 +22,10 @@ Under autograd, where the wrappers have no backward, the RG-LRU and the
 selective scan take the JAX package's training route instead
 (``impl="xla"``): ``chunked_linear_scan``, the port of
 ``_chunked_linear_scan``, in differentiable PyTorch ops.  The model picks
-it by passing ``scan_chunk`` in train mode while autograd records.
+it by passing ``scan_chunk`` in train mode while autograd records, and in
+every mode on ``meta`` activations (the dry run: the JAX dry run lowers
+the same XLA route, T/chunk steps a layer, where the wrappers' plain
+versions would loop over every step).
 
 Weights are cast per call to the dtype each product runs in, where the JAX
 package casts them: a model built for training holds float32 masters and
@@ -286,7 +289,10 @@ def mamba_ssm(params: dict, x: torch.Tensor, dt_rank: int, d_state: int,
     x.dtype, h_T float32)."""
     xf = x.float()
     f32 = torch.float32
-    proj = torch.matmul(xf, params["x_proj"].to(f32))
+    # on a mesh the row-parallel product's sum is taken here, before the
+    # split: torch 2.11's DTensor cannot lay a data-split dt_in out for the
+    # next product otherwise ("redistribute from S(0) to P(sum)")
+    proj = spmd.settle(torch.matmul(xf, params["x_proj"].to(f32)), xf)
     dt_in, b_in, c_in = torch.split(proj, [dt_rank, d_state, d_state],
                                     dim=-1)
     delta = F.softplus(torch.matmul(dt_in, params["dt_proj"].to(f32))

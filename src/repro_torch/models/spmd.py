@@ -319,14 +319,27 @@ def self_attention(fn, q, k, v):
                       _to(v, row), grads=(None, used, used))
 
 
-def attention(attend, mode: str, q, k, v, kv, length, offset, table):
+def attention(attend, mode: str, q, k, v, kv, length, offset, table, *,
+              prompt=None, window: int = 0):
     """``attend(q, k, v, kv, length, offset, table) -> (out, kv)`` — one
     layer's cache op and attention — on each rank's slots and heads, laid
     out as the layer's cache ``kv`` is.  ``mode`` ("decode", or "prefill"
     with or without ``offset``) says which positions a paged write
-    covers."""
+    covers.  A dense cache whose sequence is split over ``model``
+    (``launch.shardings.state_specs``) takes ``context_attention``:
+    ``prompt(q, k, v) -> out`` is then the layer's whole-prompt attention
+    and ``window`` its ring's window (0: a full cache)."""
     if not is_dtensor(kv.k):
         return attend(q, k, v, kv, length, offset, table)
+    if _dim_on(kv.k, "model") == 1:
+        if table is not None or offset is not None:
+            raise NotImplementedError(
+                "a KV cache split along its sequence (state_specs) takes "
+                "one-shot prefill and decode only: no chunked prefill "
+                "(offset) and no paged pool, which the JAX package's "
+                "state_specs does not lay out either")
+        return context_attention(prompt, mode, q, k, v, kv, length,
+                                 window=window)
     mesh = kv.k.device_mesh
     paged = table is not None
     b = _batch(kv.length)
@@ -359,6 +372,73 @@ def attention(attend, mode: str, q, k, v, kv, length, offset, table):
     return _on_shards(local, mesh, out_pl, _to(q, act), _to(k, act),
                       _to(v, act), kv.k, kv.v, kv.length, _to(length, row),
                       _to(offset, row), _to(table, row))
+
+
+def context_attention(prompt, mode: str, q, k, v, kv, length, *,
+                      window: int = 0):
+    """A layer's cache op and attention on a dense cache (B, S_max, KVH,
+    hd) whose slots are split over ``model`` (context parallelism; the
+    batch on the data axes or whole), each rank holding the slots
+    ``[start, start + L)`` of DTensor's own chunking (the last rank may
+    hold fewer, or none).
+
+      * prefill: ``prompt(q, k, v)`` attends over the whole prompt as a
+        cacheless layer does (``self_attention``: each rank's rows and q
+        heads); K/V are gathered whole over ``model`` and each rank copies
+        the positions its slots hold (``attention.shard_fill``: left-
+        aligned, or the window's ring).  An all-to-all of each rank's
+        slots would move less.
+      * decode: q and the new K/V are gathered whole over ``model`` (one
+        token a row); the rank that holds row b's slot writes it
+        (``attention.shard_decode_write``); every rank takes the partial
+        softmax of all q heads over its slots (``attention.decode_partial``)
+        and the partials are combined over the ``model`` group: ``M = max
+        m`` (a MAX all-reduce), then one SUM all-reduce of ``l·exp(m-M)``
+        and ``acc·exp(m-M)``; ``out = acc / max(l, 1e-30)`` in q's dtype,
+        laid out as q is.  A row whose 0/1 ``length`` is 0 writes nowhere
+        and keeps its length.
+
+    Returns (out, kv), the caches' shards written in place."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = kv.k.device_mesh
+    row = _placements(mesh, data=_batch(kv.length))
+    start = compute_local_shape_and_global_offset(
+        tuple(kv.k.shape), mesh, kv.k.placements)[1][1]
+    smax = kv.k.shape[1]
+    if mode == "prefill":
+        out = prompt(q, k, v)
+
+        def fill(k, v, ck, cv, cl, length):
+            return _attention.shard_fill(ck, cv, k, v, cl, start=start,
+                                         smax=smax, window=window,
+                                         length=length)
+
+        new_len = _on_shards(fill, mesh, row, _to(k, row), _to(v, row),
+                             kv.k, kv.v, kv.length, _to(length, row))
+        return out, type(kv)(kv.k, kv.v, new_len)
+    grp = mesh.get_group("model")
+
+    def decode(q, k, v, ck, cv, cl, length):
+        wm = None if length is None else length > 0
+        _attention.shard_decode_write(ck, cv, k, v, cl, start=start,
+                                      smax=smax, window=window,
+                                      write_mask=wm)
+        m, l, acc = _attention.decode_partial(q, ck, cv, cl, start=start,
+                                              window=window)
+        top = m.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=grp)
+        w = torch.exp(m - top)
+        sums = torch.cat([acc * w[..., None], (l * w)[..., None]], dim=-1)
+        dist.all_reduce(sums, group=grp)
+        out = sums[..., :-1] / torch.clamp_min(sums[..., -1:], 1e-30)
+        inc = 1 if wm is None else wm.to(torch.int32)
+        return out[:, None].to(q.dtype), (cl + inc).to(torch.int32)
+
+    out, new_len = _on_shards(decode, mesh, (row, row), _to(q, row),
+                              _to(k, row), _to(v, row), kv.k, kv.v,
+                              kv.length, _to(length, row))
+    return _to(out, q.placements), type(kv)(kv.k, kv.v, new_len)
 
 
 def _gather(t: torch.Tensor, grp, n: int) -> torch.Tensor:

@@ -25,14 +25,19 @@ the JAX package's order (the pattern's groups, then the tail):
     ``attn`` when ``kv_block_size`` is set, else a dense cache; a ring of
     ``min(max_len, window)`` for ``local``; ``{"conv", "h"}`` for ``rec``
     and ``ssm``.
-  * ``prefill`` / ``decode_step`` — the serving path (decoder-only models:
-    the JAX engine serves no encoder-decoder either).
+  * ``encode`` — an encoder-decoder's memory of its source embeddings.
+  * ``prefill`` / ``decode_step`` — the serving path; an encoder-decoder's
+    ``dec`` layers cross-attend to ``memory=`` (``encode``'s output) in
+    both, as the JAX package's ``prefill``/``decode_step`` do.  No engine
+    serves an encoder-decoder (``serve.engine.ServeEngine`` refuses one,
+    as the JAX engine serves none): its callers drive the model.
 
 Attention and the two scans have two routes each.  With autograd off they
 go through the kernel wrappers (the CUDA kernels on the card).  In train
 mode while autograd records — where no wrapper has a backward — they take
 the JAX package's own training route: ``flash_attention_xla`` and
-``chunked_linear_scan`` in chunks of ``cfg.scan_chunk``.  A decoder's
+``chunked_linear_scan`` in chunks of ``cfg.scan_chunk``; the scans take the
+chunked route on ``meta`` activations too (the dry run).  A decoder's
 cross-attention always takes ``flash_attention_xla``, as the JAX package's
 does.
 
@@ -120,6 +125,18 @@ def _differentiable(mode: str) -> bool:
     """Whether a block takes the JAX package's training route: train mode
     while autograd records (the kernel wrappers have no backward)."""
     return mode == "train" and torch.is_grad_enabled()
+
+
+def _scan_chunk(cfg: ArchConfig, mode: str, x: torch.Tensor) -> int | None:
+    """The chunk of ``chunked_linear_scan`` for a recurrent block, or None
+    for the scan's kernel wrapper: the training route under autograd, and
+    on ``meta`` activations (the dry run), where the wrappers' plain
+    versions would loop over every step — the JAX dry run lowers the
+    chunked XLA scan too (its configs' ``rglru_impl``/``ssm_impl`` are
+    "xla")."""
+    if _differentiable(mode) or x.device.type == "meta":
+        return cfg.scan_chunk
+    return None
 
 
 def _norm(cfg: ArchConfig, x: torch.Tensor, scale: torch.Tensor,
@@ -291,8 +308,8 @@ class AttnBlock(_Block):
                 else _fill_cache(kv, k, v, window=window, length=length)
         return out, kv
 
-    def _cross(self, cfg: ArchConfig, x: torch.Tensor, positions, memory,
-               mode: str) -> torch.Tensor:
+    def _cross(self, cfg: ArchConfig, x: torch.Tensor,
+               memory) -> torch.Tensor:
         """What comes between the self-attention and the feed-forward:
         nothing here, a ``dec`` block's cross-attention there."""
         return x
@@ -321,11 +338,14 @@ class AttnBlock(_Block):
         else:
             out, kv = spmd.attention(
                 functools.partial(self._attend, cfg=cfg, mode=mode), mode,
-                q, k, v, state.kv, length, offset, block_table)
+                q, k, v, state.kv, length, offset, block_table,
+                prompt=lambda q, k, v: self._self_attention(cfg, q, k, v,
+                                                            mode),
+                window=cfg.window if self.kind == "local" else 0)
         o = spmd.merge_heads(out)
         x = spmd.settle(x + torch.matmul(o, self.attn["wo"].to(x.dtype)),
                         positions)
-        x = self._cross(cfg, x, positions, memory, mode)
+        x = self._cross(cfg, x, memory)
         y, lb = _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x), mode)
         return spmd.settle(x + y, positions), \
             None if state is None else state._replace(kv=kv), lb
@@ -335,8 +355,9 @@ class DecBlock(AttnBlock):
     """An encoder-decoder's decoder block: causal self-attention with
     RoPE, then ``ln_x`` and cross-attention (``xattn``: projections
     without biases or qk-norm) over the encoder's memory, then the
-    feed-forward.  Train mode only: neither package serves an
-    encoder-decoder."""
+    feed-forward.  It runs in every mode: in prefill and decode its
+    self-attention keeps a dense KV cache as an ``attn`` block's, and the
+    cross-attention reads the memory passed in."""
     NORMS = ("ln1", "ln_x", "ln2")
     PARTS = ("attn", "xattn", "ffn")
 
@@ -347,19 +368,17 @@ class DecBlock(AttnBlock):
         self.xattn = _attn_params(cfg, torch_dtype(cfg.compute_dtype),
                                   device, train, bias=False, qk_norm=False)
 
-    def _cross(self, cfg: ArchConfig, x: torch.Tensor, positions, memory,
-               mode: str) -> torch.Tensor:
-        """Cross-attention over ``memory`` (B,Sm,D), always through
-        ``flash_attention_xla``: the JAX package calls it with no
-        ``impl``, so it takes the XLA route on every backend."""
-        if mode != "train":
-            raise NotImplementedError(
-                "dec blocks run in train mode only (forward and loss): "
-                "neither package serves an encoder-decoder")
+    def _cross(self, cfg: ArchConfig, x: torch.Tensor,
+               memory) -> torch.Tensor:
+        """Cross-attention over ``memory`` (B,Sm,D) in every mode, always
+        through ``flash_attention_xla``, non-causal: the JAX package calls
+        it with no ``impl``, so it takes the XLA route on every backend.
+        K/V are projected from ``memory`` on every call (the reference
+        keeps no cross-K/V cache: its ``state.cross_kv`` is None)."""
         hx = self._normed(cfg, "ln_x", x)
         qx, _, _ = attn_lib.qkv_project(
             self.xattn, hx, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            positions, rope_theta=cfg.rope_theta, use_rope=False)
+            None, rope_theta=cfg.rope_theta, use_rope=False)
         _, ck, cv = attn_lib.qkv_project(
             self.xattn, memory, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, None, rope_theta=cfg.rope_theta, use_rope=False)
@@ -407,13 +426,13 @@ class RecBlock(_Block):
         ``length`` freezes conv and h of rows with 0.  Returns (x,
         new_state, None)."""
         h = self._normed(cfg, "ln1", x)
+        chunk = _scan_chunk(cfg, mode, h)
         if mode == "train":
-            chunk = cfg.scan_chunk if _differentiable(mode) else None
             y, _ = rec_lib.rglru_block(self.rec, h, scan_chunk=chunk)
         else:
             y, rec = rec_lib.rglru_block(
                 self.rec, h, state=_resume_rec(state.rec, offset),
-                length=length)
+                length=length, scan_chunk=chunk)
             state = state._replace(rec=rec)
         x = spmd.settle(x + y, positions)
         y, _ = _ffn(cfg, self.ffn, self._normed(cfg, "ln2", x), mode)
@@ -455,10 +474,10 @@ class SsmBlock(_Block):
         ``length`` freezes conv and h of rows with 0.  Returns (x,
         new_state, None)."""
         h = self._normed(cfg, "ln1", x)
-        kw = dict(d_state=cfg.d_state, dt_rank=self.dt_rank)
+        kw = dict(d_state=cfg.d_state, dt_rank=self.dt_rank,
+                  scan_chunk=_scan_chunk(cfg, mode, h))
         if mode == "train":
-            chunk = cfg.scan_chunk if _differentiable(mode) else None
-            y, _ = rec_lib.mamba_block(self.ssm, h, scan_chunk=chunk, **kw)
+            y, _ = rec_lib.mamba_block(self.ssm, h, **kw)
         else:
             y, rec = rec_lib.mamba_block(
                 self.ssm, h, state=_resume_rec(state.rec, offset),
@@ -640,10 +659,12 @@ class Model(nn.Module):
         logits = unembed(x, table)
         return logits if padded else logits[..., :self.cfg.vocab_size]
 
-    def _encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
-        """The encoder's memory: ``src_embeds`` (B,Sm,D) in the compute
-        dtype through the ``enc`` blocks, then ``enc_norm``
-        (``repro.models.transformer.Model._encode``)."""
+    def encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder's memory (B,Sm,D) in the compute dtype:
+        ``src_embeds`` (B,Sm,D) through the ``enc`` blocks (non-causal
+        self-attention, through the flash wrapper with autograd off), then
+        ``enc_norm`` (``repro.models.transformer.Model._encode``).  Serving
+        passes it to ``prefill`` and ``decode_step`` as ``memory=``."""
         x = src_embeds.to(self.compute_dtype)
         positions = spmd.positions(x, None, x.shape[1])
         for blk in self.encoder:
@@ -662,7 +683,7 @@ class Model(nn.Module):
             if src_embeds is None:
                 raise ValueError(f"{self.cfg.name}: an encoder-decoder "
                                  f"needs src_embeds")
-            memory = self._encode(src_embeds)
+            memory = self.encode(src_embeds)
         x = self._embed(tokens, modality)
         positions = spmd.positions(tokens, None, x.shape[1])
         lb_total = None
@@ -718,7 +739,8 @@ class Model(nn.Module):
     def init_block_state(self, i: int, batch: int,
                          max_len: int) -> BlockState:
         """Zeroed dense state of layer ``i`` for ``batch`` slots: a
-        ``max_len`` cache (``attn``), a ``min(max_len, window)`` ring
+        ``max_len`` cache (``attn``, and a ``dec`` layer's
+        self-attention), a ``min(max_len, window)`` ring
         (``local``), or the conv context and float32 h (``rec``: (B, d_rnn);
         ``ssm``: (B, d_inner, d_state))."""
         cfg = self.cfg
@@ -733,7 +755,7 @@ class Model(nn.Module):
                                     device=self.device),
                 "h": torch.zeros(h, dtype=torch.float32,
                                  device=self.device)})
-        smax = max_len if kind == "attn" else min(max_len, cfg.window)
+        smax = min(max_len, cfg.window) if kind == "local" else max_len
         return BlockState(kv=attn_lib.init_kv_cache(
             batch, smax, cfg.num_kv_heads, cfg.head_dim, self.compute_dtype,
             self.device))
@@ -746,12 +768,15 @@ class Model(nn.Module):
         blocks of ``kv_block_size`` tokens (default: the dense equivalent,
         batch * max_len / kv_block_size) and zero lengths — the layers'
         pools are views into one allocation; window rings and recurrent
-        states stay dense (``init_block_state``)."""
+        states stay dense (``init_block_state``).  An encoder-decoder's
+        ``dec`` layers keep a dense ``max_len`` cache each, as the JAX
+        package's ``init_states`` lays one out; the memory they
+        cross-attend to is no state (it is passed to each call)."""
         cfg = self.cfg
-        if cfg.is_encdec:
+        if cfg.is_encdec and kv_block_size is not None:
             raise NotImplementedError(
-                f"{cfg.name}: an encoder-decoder has no serving path (the "
-                f"JAX engine serves none either): forward and loss only")
+                f"{cfg.name}: the port keeps an encoder-decoder's KV dense "
+                f"(no engine serves one, so none pages it)")
         paged = [i for i, kind in enumerate(self.kinds) if kind == "attn"] \
             if kv_block_size is not None else []
         pools = {}
@@ -773,12 +798,16 @@ class Model(nn.Module):
                 for i in range(cfg.num_layers)]
 
     def _run(self, states, x, positions, mode, length=None, offset=None,
-             block_table=None):
+             block_table=None, memory=None):
+        if self.cfg.is_encdec and memory is None:
+            raise ValueError(f"{self.cfg.name}: an encoder-decoder's prefill "
+                             f"and decode steps need memory= (encode's "
+                             f"output)")
         new_states = []
         for blk, st in zip(self.layers, states):
             x, st, _ = blk(self.cfg, x, positions, mode=mode, state=st,
                            length=length, offset=offset,
-                           block_table=block_table)
+                           block_table=block_table, memory=memory)
             new_states.append(st)
         return x, new_states
 
@@ -787,7 +816,8 @@ class Model(nn.Module):
                 modality: torch.Tensor | None = None,
                 length: torch.Tensor | None = None,
                 offset: torch.Tensor | None = None,
-                block_table: torch.Tensor | None = None):
+                block_table: torch.Tensor | None = None,
+                memory: torch.Tensor | None = None):
         """Process a right-padded prompt batch; fill its states; return the
         logits at position ``length - 1`` (B,1,V) and the new states.
 
@@ -798,33 +828,42 @@ class Model(nn.Module):
         chunk of a longer prompt (requires ``length``; decoder-only token
         models only, as the JAX package's); recurrent states resume from
         their carry (zeroed where offset == 0).
-        ``block_table``: (B, max_len/bs), required for paged states."""
+        ``block_table``: (B, max_len/bs), required for paged states.
+        ``memory``: an encoder-decoder's memory (B,Sm,D), ``encode``'s
+        output, which every ``dec`` layer cross-attends to.  The JAX
+        ``prefill`` encodes ``src_embeds`` itself and returns the memory
+        as a third output; here the caller encodes once and passes the
+        memory to ``prefill`` and each ``decode_step``, and ``prefill``
+        keeps its two outputs."""
         if offset is not None:
             if length is None:
                 raise ValueError("chunked prefill (offset=...) needs length")
-            if self.cfg.modality_tokens:
+            if self.cfg.modality_tokens or self.cfg.is_encdec:
                 raise NotImplementedError(
                     "chunked prefill supports decoder-only token models")
         x = self._embed(tokens, modality)
         positions = spmd.positions(tokens, offset, x.shape[1])
         x, states = self._run(states, x, positions, "prefill", length,
-                              offset, block_table)
+                              offset, block_table, memory)
         return self._logits(spmd.last_rows(x, length)), states
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, states,
                     position: torch.Tensor, *,
                     active: torch.Tensor | None = None,
-                    block_table: torch.Tensor | None = None):
+                    block_table: torch.Tensor | None = None,
+                    memory: torch.Tensor | None = None):
         """token: (B,1) at ``position`` (B,) -> logits (B,1,V), states.
         Rows with ``active`` False leave every piece of their state (KV and
         length, conv context, recurrent h) bit-for-bit unchanged (their
-        logits are garbage)."""
+        logits are garbage).  ``memory``: an encoder-decoder's memory, as
+        in ``prefill``; the cross-attention's K/V are projected from it
+        every step, as the JAX package's are."""
         x = self._embed(token)
         positions = position[:, None].long().expand(token.shape)
         length = None if active is None else active.to(torch.int32)
         x, states = self._run(states, x, positions, "decode", length,
-                              block_table=block_table)
+                              block_table=block_table, memory=memory)
         return self._logits(x), states
 
 

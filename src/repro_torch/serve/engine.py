@@ -412,6 +412,11 @@ class ServeEngine:
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role {role!r} not in "
                              f"('both', 'prefill', 'decode')")
+        if model.cfg.is_encdec:
+            raise NotImplementedError(
+                f"{model.cfg.name}: the engine serves decoder-only models "
+                f"(the JAX engine serves no encoder-decoder either); drive "
+                f"Model.encode, prefill(memory=) and decode_step(memory=)")
         if param_strategy not in ("tp", "dp", "auto"):
             raise ValueError(f"param_strategy {param_strategy!r} not in "
                              f"('tp', 'dp', 'auto')")

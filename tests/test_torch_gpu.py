@@ -1342,3 +1342,110 @@ def test_roles_cli_on_two_cards_serves_roles_off_tokens(cuda, tmp_path):
     assert got["roles"] == got["off"]
     s = json.loads((tmp_path / "m.json").read_text())
     assert s["handoffs"] == 4 and s["handoffs_pending"] == 0
+
+
+# ------------------------------------ encoder-decoder and context parallel
+def _greedy(model, device, mesh=None, *, b=3, s=20, max_len=40, steps=4,
+            frozen=(1, 2)):
+    """A right-padded one-shot prefill and ``steps`` greedy decode steps
+    of ``model`` on ``device`` (row ``frozen[0]`` inactive at step
+    ``frozen[1]``); on ``mesh`` the model's copy with DTensor parameters
+    and states laid out by ``shardings.state_specs``.  Returns (tokens,
+    logits of every call, flash launches)."""
+    from repro_torch.launch import shardings as sh
+    cfg = model.cfg
+    rng = np.random.RandomState(9)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (b, s))
+                            .astype(np.int32))
+    lens = torch.from_numpy(rng.randint(s // 2, s + 1, b).astype(np.int32))
+    src = torch.from_numpy(_randn(rng, b, 16, cfg.d_model)) \
+        if cfg.is_encdec else None
+    states = model.init_states(b, max_len)
+    bax = None
+    if mesh is not None:
+        bax = sh.batch_axis(mesh, b)
+        model = sh.distribute_models([model], mesh)[0]
+        states = sh.place_states(states, sh.state_specs(model, mesh, b,
+                                                        max_len), mesh)
+
+    def put(t, spec):
+        t = t.to(device)
+        return t if mesh is None else sh.local_part(
+            t, mesh, sh.to_placements(spec, mesh))
+
+    def whole(t):
+        return t if mesh is None else t.full_tensor()
+
+    before = fa.launches.n
+    with torch.no_grad():
+        memory = None if src is None \
+            else model.encode(put(src, (bax, None, None)))
+        logits, states = model.prefill(put(toks, (bax, None)), states,
+                                       length=put(lens, (bax,)),
+                                       memory=memory)
+        out = [whole(logits).cpu()]
+        tok = whole(logits).argmax(-1).to(torch.int32).cpu()
+        pos = lens.clone()
+        got = [tok[:, 0].tolist()]
+        for step in range(steps):
+            active = torch.tensor([not (r == frozen[0] and step == frozen[1])
+                                   for r in range(b)])
+            logits, states = model.decode_step(
+                put(tok, (bax, None)), states, put(pos, (bax,)),
+                active=put(active, (bax,)), memory=memory)
+            out.append(whole(logits).cpu())
+            nxt = whole(logits).argmax(-1).to(torch.int32).cpu()
+            tok = torch.where(active[:, None], nxt, tok)
+            pos = pos + active.to(torch.int32)
+            got.append(tok[:, 0].tolist())
+    return got, out, fa.launches.n - before
+
+
+@pytest.mark.gpu
+def test_encdec_prefill_and_decode_on_card_match_cpu(cuda):
+    """Reduced seamless-m4t-medium (2 + 2 layers) in float32: ``encode``,
+    a right-padded ``prefill(memory=)`` and four ``decode_step(memory=)``
+    calls on the card against the CPU's plain versions from the same
+    weights — the logits within 1e-4, the tokens equal — with one
+    non-causal flash launch an encoder layer and one causal launch a
+    decoder layer in the prefill (the cross-attention and the decode
+    steps launch none)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    cfg = reduced_config("seamless-m4t-medium").replace(
+        compute_dtype="float32")
+    weights = build_model(cfg, "cpu", seed=0).state_dict()
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev)
+        model.load_state_dict(weights)
+        runs[str(dev)] = _greedy(model, dev)
+    (t_cpu, l_cpu, _), (t_card, l_card, n) = runs["cpu"], runs[str(cuda)]
+    assert n == cfg.enc_layers + cfg.num_layers
+    assert t_card == t_cpu
+    assert max((a - b).abs().max().item()
+               for a, b in zip(l_card, l_cpu)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "recurrentgemma-2b",
+                                  "falcon-mamba-7b", "seamless-m4t-medium"])
+def test_context_parallel_states_on_one_rank_mesh_match_meshless(card_mesh,
+                                                                 arch):
+    """Reduced ``arch`` in float32 on ``make_serve_mesh()`` (a 1-rank NCCL
+    mesh) with states laid out by ``state_specs`` (the context-parallel
+    layout; one ``model`` rank takes the meshless attention functions):
+    a one-shot prefill and four decode steps give the meshless run's
+    tokens, its logits within 1e-5 and its flash launches."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    cfg = reduced_config(arch)
+    cfg = cfg.replace(compute_dtype="float32",
+                      num_layers=max(2, len(cfg.block_pattern)))
+    model = build_model(cfg, "cuda", seed=0)
+    got, l_mesh, n_mesh = _greedy(model, "cuda", card_mesh)
+    want, l_want, n_want = _greedy(model, "cuda")
+    assert got == want
+    assert n_mesh == n_want
+    assert max((a - b).abs().max().item()
+               for a, b in zip(l_mesh, l_want)) <= 1e-5

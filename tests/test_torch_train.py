@@ -272,5 +272,3 @@ def test_a_serving_build_stores_compute_dtype_and_a_train_build_float32():
         b = train(bt["tokens"], src_embeds=bt["src_embeds"])
     # the masters are cast per call to what the serving build stores
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="serving"):
-        serve.init_states(1, 32)
