@@ -15,7 +15,8 @@ Phases, one line or block of output each; any failure exits non-zero:
    qwen2-0.5b, smollm-135m, starcoder2-7b and internvl2-2b: GQA groups of
    7, 3, 9 and 2 at hd 64 and 128, flash at serving's buckets 16-256, and
    at the heads of phi3.5-moe and llama4-scout, groups of 4 and 5 at hd
-   128; the
+   128, and at the heads one rank of a (1, 4) mesh computes for them,
+   8 q over 2 kv and 10 q over 2 kv at hd 128 in bf16; the
    selective scan with a carried state and ragged lengths that include a
    frozen row; the Pascal matmul at the edge zoo's TR1 hoisted input GEMMs,
    in bf16 on its tensor-core route and at a ragged shape on its SIMT
@@ -29,10 +30,10 @@ Phases, one line or block of output each; any failure exits non-zero:
    the least time the card could take (bytes and operations against the
    published H100 SXM peaks); flash in bf16 (its tensor-core route) at
    S=64, 256 and 1024 and at recurrentgemma's local layer and at each new
-   arch's heads (S=256, and S=64 at hd 64 and for the MoE archs), and in
-   float32 (its SIMT
-   route); paged decode at 8 slots of up to 1024 tokens (qwen3's heads and
-   each new arch's) and at 16 slots of up to 8192 (a byte bound clear of
+   arch's heads (S=256, and S=64 at hd 64 and for the MoE archs and their
+   (1, 4) ranks' heads), and in float32 (its SIMT
+   route); paged decode at 8 slots of up to 1024 tokens (qwen3's heads,
+   each new arch's and the MoE archs' (1, 4) ranks') and at 16 slots of up to 8192 (a byte bound clear of
    the timing floor); the RG-LRU and the selective scan at their prefill
    shapes (B=4 and B=1, T=256) and decode shape (B=4, T=1, also with the L2
    left warm); the GEMV at M=1 1280 -> 8192 and M=4 640 -> 4096 in both
@@ -182,6 +183,34 @@ Phases, one line or block of output each; any failure exits non-zero:
    after the timed runs (``[dryrun]`` lines: FLOPs a device, collectives
    by kind, wire bytes, a rank's argument and state bytes against the
    card's memory);
+6f. MoE on a mesh — a. each MoE cut of 6e (phi3.5-moe 16 layers,
+   llama4-scout 8) served again, 6e's model released first, through
+   ``build_engine(mesh=make_serve_mesh())`` on a 1-rank NCCL group: its
+   weights drawn shard by shard from the seed
+   (``launch.shardings.build_distributed_model``: each parameter drawn
+   whole on the card, its part kept), 6e's requests; its tokens and
+   launches must be 6e's; each MoE call's routing is then recorded
+   (``record_moe_routes``) in a second drive of the same requests on a
+   second engine, never in a timed one (the recorder gathers and routes
+   again at every MoE call), whose tokens must be the timed run's.  On
+   n >= 4 cards, each run under
+   ``torch.distributed.run`` over four cards, one process a card: b. the
+   same cuts on (1, 4) (this script's ``--moe-cut-worker`` mode, 6e's
+   requests and build): every rank's launches 6e's, its tokens 6e's
+   one-card tokens or, where bf16 sums in another order flip a routing
+   decision, parted exactly where the routings first part at a near-tie
+   (``BF16_ROUTE_MARGIN``, phase 4's rule, printed with the first
+   divergent token); c. both archs at full depth (32 and 48 layers) on
+   (1, 4) through the serving CLI (``--mp 4``; ``--moe-cli-worker``), and
+   phi3.5-moe also on (2, 2) (``--mesh 2x2``), each rank drawing only
+   its own shards: each run exits 0 with each rank's launches the path's
+   own (one flash launch a layer and prefill call, one paged launch a
+   layer and decode step), phi3.5's (2, 2) tokens its (1, 4) tokens or
+   parted at a near-tie.  Every four-card run prints a ``[moe full]``
+   line a rank: its parameter GiB beside the specs' count (which it must
+   equal), ``torch.cuda.max_memory_allocated()``, the decode step median,
+   tokens/s, TTFT and the expert-bank bytes a tick reads on a rank beside
+   their time at 3.35 TB/s; the checks are made once every run has ended;
 7. train — full-width qwen3-0.6b (28 layers, 3 steps) and
    seamless-m4t-medium (12 encoder + 12 decoder layers, vocab 256,206, 2
    steps) through ``launch.train.train_once`` on the card: bf16 compute on
@@ -226,12 +255,17 @@ of 64 tokens, CPU against card: under autograd the scans run
 ``chunked_linear_scan`` on the card.
 
 The last three lines: ``nvidia-smi``'s name and power limit, one JSON
-object with a row per kernel, and ``{"ok": true, "device": {...}}``.
+object with a row per kernel, and ``{"ok": true, "device": {...}}``.  A
+row's launches add every path's run in this process (phases 5, 6, 6b,
+6d, 6f(a), 7 and 7b), each counted from 0 just before it; the
+multi-card runs (6b's CLI, 6c, 6d(c), 6f(b, c), 7b) are processes of
+their own, outside it.
 The script imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import json
 import math
@@ -659,6 +693,27 @@ def phase_kernels(seed: int, card: str, parent: dict):
                 b, 64, h, kvh, hd, 0, "bfloat16")
     rows["paged"]["archs"] = {arch: paged_arch(gen, flush, card, floor, arch)
                               for arch in (*NEW_ARCHS, *MOE_ARCHS)}
+    # ---- flash and paged decode at the heads one rank of a (1, 4) mesh
+    # computes for the MoE archs at full depth (phase 6f): 8 q over 2 kv
+    # and 10 q over 2 kv, hd 128, bf16
+    for arch in MOE_ARCHS:
+        h, kvh, hd = arch_heads(arch, MOE_MP)
+        errs = {}
+        for s in (16, 32, 64, 128, 256, 100):
+            _, errs[s] = flash_case(b, s, h, kvh, hd, 0, "bfloat16", gen)
+        tol = FLASH_TOL["bfloat16"]
+        say(f"[kernel] flash bfloat16 {arch} heads of a rank of 1x{MOE_MP} "
+            f"B={b} H={h} KVH={kvh} hd={hd}: max|kernel-plain| by S "
+            + ", ".join(f"{s}: {e:.3e}" for s, e in errs.items())
+            + f" (tol {tol})")
+        if not max(errs.values()) <= tol:
+            fail(f"flash kernel disagrees with its plain version at a "
+                 f"rank's heads of {arch} ({errs} > {tol})")
+        for s in (256, 64):
+            rows["flash"]["archs"][f"{arch} 1x{MOE_MP} rank S={s}"] = \
+                flash_times(b, s, h, kvh, hd, 0, "bfloat16")
+        rows["paged"]["archs"][f"{arch} 1x{MOE_MP} rank"] = paged_arch(
+            gen, flush, card, floor, arch, mp=MOE_MP)
 
     # ---- non-causal flash, as seamless-m4t-medium's encoder calls it (16
     # q heads over 16 kv heads of 64): Sq == Skv at the train phase's 128,
@@ -747,22 +802,25 @@ def phase_kernels(seed: int, card: str, parent: dict):
     return rows
 
 
-def arch_heads(arch: str) -> tuple:
-    """(H, KVH, hd) of ``arch``, read from its config."""
+def arch_heads(arch: str, mp: int = 1) -> tuple:
+    """(H, KVH, hd) of ``arch``, read from its config: at one rank of a
+    ``model`` axis of ``mp`` (the heads split over it) with ``mp``."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return cfg.num_heads // mp, cfg.num_kv_heads // mp, cfg.head_dim
 
 
-def paged_arch(gen, flush, card: str, floor: float, arch: str) -> dict:
-    """Paged decode at ``arch``'s heads (``arch_heads``): 8 slots, blocks
-    of 16, lengths over 0..1023 with one at a block's last position,
-    scattered blocks; checked against the plain version in both dtypes,
-    timed in bf16."""
+def paged_arch(gen, flush, card: str, floor: float, arch: str,
+               mp: int = 1) -> dict:
+    """Paged decode at ``arch``'s heads (``arch_heads``; with ``mp``, one
+    rank's of a ``model`` axis of ``mp``): 8 slots, blocks of 16, lengths
+    over 0..1023 with one at a block's last position, scattered blocks;
+    checked against the plain version in both dtypes, timed in bf16."""
     import torch
     from repro_torch.kernels.paged_attention import (
         paged_attention_ref, paged_decode_attention_raw)
-    h, kvh, hd = arch_heads(arch)
+    h, kvh, hd = arch_heads(arch, mp)
+    arch = arch if mp == 1 else f"{arch} 1x{mp} rank"
     slots, bs, nb = 8, 16, 1024 // 16
     n_blocks = slots * nb
     lengths = torch.linspace(0, 1023, slots, device="cuda").round().int()
@@ -1767,7 +1825,7 @@ SERVE_LAUNCHES = {
 #: the MoE archs' depth: in phase 4, float32 on both sides (phi3.5-moe
 #: 2 layers, ~11.5 GB a side; llama4-scout 1, ~17 GB, 8.3 GB of it the
 #: two vocab tables); in phase 6, bf16, cut because neither fits one 80 GB
-#: card whole (78.0 and 200.7 GiB of weights): ~39.7 and ~40.5 GiB
+#: card whole (78.5 and 204.6 GiB of weights): ~39.7 and ~40.5 GiB
 MOE_PARITY_LAYERS = {"phi3.5-moe-42b-a6.6b": 2, "llama4-scout-17b-a16e": 1}
 MOE_SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 16, "llama4-scout-17b-a16e": 8}
 #: each disaggregated pair run's launches (``serve_disagg``), counted from
@@ -2167,6 +2225,37 @@ def serve_checks(what: str, cfg, run: dict, new: int, checks: dict) -> None:
     })
 
 
+def serve_requests(cfg, seed: int) -> list:
+    """Phase 6's requests: prompts of 5-180 tokens and one of 600 (chunked
+    past the largest bucket), a sampled request and a greedy one that share
+    a 70-token prefix, 16 new tokens each."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.RandomState(seed)
+    prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
+    shared = prompt(70)
+    reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=16)
+            for i, n in enumerate((5, 17, 40, 90, 180))]
+    reqs.append(Request(rid=5, prompt=prompt(600), max_new_tokens=16))
+    reqs.append(Request(rid=6, prompt=shared
+                        + prompt(10), max_new_tokens=16,
+                        temperature=0.8, top_k=50, top_p=0.9, seed=seed))
+    reqs.append(Request(rid=7, prompt=shared + prompt(12),
+                        max_new_tokens=16))
+    return reqs
+
+
+def serve_drive(engine, reqs) -> None:
+    """Phase 6's drive: the first seven requests, then the last once the
+    shared prefix is published (at the first sharer's prefill)."""
+    for r in reqs[:7]:
+        engine.submit(r)
+    while not reqs[6].generated:
+        engine.step()
+    engine.submit(reqs[7])
+    engine.run([])
+
+
 def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
                 engine_kw: dict | None = None, min_chunks: int = 3,
                 min_prefix_hits: int = 1, num_layers: int | None = None):
@@ -2178,11 +2267,9 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
     none of either where the minimum is 0.  ``num_layers`` cuts the depth
     (an MoE that does not fit the card whole); an MoE's run also prints
     the peak memory and the expert-bank bytes a decode tick reads."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serve.engine import Request
     cfg = get_config(arch)
     if num_layers is not None:
         cfg = cfg.replace(num_layers=num_layers)
@@ -2201,29 +2288,11 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
         f"model {time.perf_counter() - t0:.1f} s")
 
     def make_requests():
-        rng = np.random.RandomState(seed)
-        prompt = lambda n: rng.randint(1, cfg.vocab_size, n).tolist()  # noqa
-        shared = prompt(70)
-        reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=16)
-                for i, n in enumerate((5, 17, 40, 90, 180))]
-        reqs.append(Request(rid=5, prompt=prompt(600), max_new_tokens=16))
-        reqs.append(Request(rid=6, prompt=shared
-                            + prompt(10), max_new_tokens=16,
-                            temperature=0.8, top_k=50, top_p=0.9, seed=seed))
-        reqs.append(Request(rid=7, prompt=shared + prompt(12),
-                            max_new_tokens=16))
-        return reqs
-
-    def drive(engine, reqs):
-        for r in reqs[:7]:
-            engine.submit(r)
-        while not reqs[6].generated:    # the shared prefix is published at
-            engine.step()               # the first request's prefill
-        engine.submit(reqs[7])
-        engine.run([])
+        return serve_requests(cfg, seed)
 
     kw = dict(slots=4, max_len=1024, kv_block_size=16,
               **(engine_kw or dict(max_bucket=256)))
+    drive = serve_drive
     if arch == MEMORY_ARCH:
         kw["program_memory"] = True
     if arch in DISAGG_LAUNCHES:
@@ -2286,17 +2355,12 @@ def moe_serve_line(arch: str, cfg, s: dict, slots: int, card: str) -> None:
     the card's 3.35 TB/s, its peak memory, and the decode capacity: the
     reference's max(1, int(capacity_factor * slots * top_k / E))."""
     import torch
-    from repro_torch.core.h100 import HBM_BW
     from repro_torch.models.moe import capacity
-    banks = 3.0 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2 \
-        * cfg.num_layers
     cap = capacity(cfg.moe_capacity, slots, cfg.top_k, cfg.num_experts)
     say(f"[serve] {arch} MoE on {card}: decode step "
         f"{s['decode_step_ms']:.2f} ms, {s['tokens_per_s']:.1f} tokens/s, "
         f"TTFT p50 {s['ttft_ms']['p50']:.2f} ms (mean "
-        f"{s['ttft_ms']['mean']:.2f}); a tick reads {banks / 1e9:.2f} GB of "
-        f"bf16 expert banks ({cfg.num_layers} layers x {cfg.num_experts} "
-        f"experts), {1e3 * banks / HBM_BW:.2f} ms at 3.35 TB/s; peak "
+        f"{s['ttft_ms']['mean']:.2f}); {moe_bank_line(cfg, 1)}; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
         f"decode capacity {cap} per expert at {slots} slots "
         f"(max(1, int({cfg.moe_capacity} x {slots} x {cfg.top_k} / "
@@ -3203,6 +3267,472 @@ def cp_worker(seed: int, label: str) -> None:
     dist.destroy_process_group()
 
 
+# ------------------------------------------------------ 6f. MoE on a mesh
+#: the ``model`` axis of phase 6f's four-card meshes, and the cards they
+#: take
+MOE_MP = 4
+#: 6f(c): the full-depth serves through the CLI, (arch, mesh); phi3.5's
+#: (2, 2) run is held to its (1, 4) run
+MOE_FULL_CASES = (("phi3.5-moe-42b-a6.6b", "1x4", ("--mp", "4")),
+                  ("llama4-scout-17b-a16e", "1x4", ("--mp", "4")),
+                  ("phi3.5-moe-42b-a6.6b", "2x2", ("--mesh", "2x2")))
+MOE_FULL_CLI = ("--requests", "8", "--max-new", "16", "--max-len", "256")
+#: the 6f(c) runs whose tokens are compared (phi3.5's two layouts): their
+#: routes are recorded, in a replay
+ROUTED = tuple(f"full_{arch}_{label}" for arch, label, _ in MOE_FULL_CASES
+               if arch == MOE_FULL_CASES[0][0])
+#: where 6f's four-card runs write each rank's report and rank 0's routes
+MOE_DIR = ROOT / "build" / "moe_mesh"
+MOE_TIMEOUT_S = 900
+#: the bf16 near-tie rule of 6f's token comparisons across layouts: two
+#: layouts round a bf16 residual stream's sums in other orders, which
+#: moves the router's float32 probabilities by about a bf16 rounding of
+#: the logits (2^-9 relative, ~1e-3 of a probability after the softmax),
+#: growing layer by layer; a top-k may flip only between experts whose
+#: probabilities lie within one bf16 ulp of 1 of each other
+BF16_ROUTE_MARGIN = 2.0 ** -7
+#: 6f(a)'s routes, by arch: what each MoE call of its 1-rank mesh run
+#: decided (equal to phase 6e's, whose tokens and launches it gives)
+MOE_ROUTES: dict = {}
+
+
+def record_moe_routes(routes: list):
+    """Keep what the router decides at every MoE call in ``routes``
+    (``models.moe.routing`` on the call's tokens, gathered whole on a
+    mesh; kept on the device until read): the same decisions on any
+    layout, so two runs compare call by call.  Returns the undo."""
+    from repro_torch.models import moe, spmd
+    orig = moe.moe_ffn
+
+    def recorded(params, x, **kw):
+        xt = spmd.whole(x).reshape(-1, x.shape[-1])
+        r = moe.routing({"router": spmd.whole(params["router"])}, xt,
+                        kw["top_k"], kw["capacity_factor"])
+        routes.append({k: r[k] for k in ("probs", "gate_idx", "keep")})
+        return orig(params, x, **kw)
+
+    moe.moe_ffn = recorded
+    return lambda: setattr(moe, "moe_ffn", orig)
+
+
+def on_host(routes: list) -> list:
+    return [{k: v.cpu() for k, v in r.items()} for r in routes]
+
+
+def replayed_routes(engine, reqs: list, drive, tokens: dict) -> list:
+    """The routes (``record_moe_routes``, on the host) of ``reqs`` — fresh
+    copies of a timed run's requests — driven through ``drive`` on
+    ``engine``, a second engine over the timed run's weights: the
+    recorder is never on a timed drive.  Fails unless the replay gives
+    the timed run's ``tokens`` (rid -> tokens), so its routes are that
+    run's."""
+    routes: list = []
+    undo = record_moe_routes(routes)
+    try:
+        drive(engine, reqs)
+    finally:
+        undo()
+    if {r.rid: r.generated for r in reqs} != tokens:
+        fail("the recorded replay's tokens are not the timed run's")
+    return on_host(routes)
+
+
+def route_parting(want: list, got: list, layers: int) -> tuple[str, bool]:
+    """Where two runs' routings (``record_moe_routes``, the same calls in
+    the same order) first part: the MoE call, its flips and how far the
+    two runs' probabilities lie apart there, and whether that first
+    parting is at near-ties (``BF16_ROUTE_MARGIN``, phase 4's rule:
+    ``moe.routing_flips``); every later call follows from it.  Says so
+    where the routings never part (then False: the tokens parted on
+    their own)."""
+    from repro_torch.models import moe
+    for i, (w, g) in enumerate(zip(want, got)):
+        if w["probs"].shape != g["probs"].shape:
+            return (f"MoE call {i}: {tuple(w['probs'].shape)} against "
+                    f"{tuple(g['probs'].shape)} tokens: the runs' calls do "
+                    f"not line up", False)
+        flips = moe.routing_flips(w, g, BF16_ROUTE_MARGIN)
+        if not (flips["gate"] or flips["keep"]):
+            continue
+        wi, gi, probs = w["gate_idx"], g["gate_idx"], w["probs"]
+        gaps = [abs(float(probs[n, wi[n, k]] - probs[n, gi[n, k]]))
+                for n, k in flips["gate"]]
+        drift = float((w["probs"] - g["probs"]).abs().max())
+        near = not flips["unexplained"]
+        return (f"routings first part at MoE call {i} (model call "
+                f"{i // layers}, layer {i % layers}): top-k flips "
+                f"{flips['gate'][:6]} at probability gaps "
+                f"{[float(f'{x:.3e}') for x in gaps[:6]]}, keep flips "
+                f"{flips['keep'][:6]}, the runs' probabilities "
+                f"{drift:.3e} apart there at most; "
+                + (f"near-ties within {BF16_ROUTE_MARGIN}" if near else
+                   f"NOT near-ties within {BF16_ROUTE_MARGIN}: "
+                   f"{flips['unexplained'][:6]}"), near)
+    return (f"routings never part over {min(len(want), len(got))} MoE "
+            f"calls", False)
+
+
+def tokens_or_near_tie(what: str, got: dict, want: dict, routes) -> bool:
+    """Whether ``got`` and ``want`` (rid -> tokens) are equal, or part
+    where the routings first part at near-ties (``routes``: the two runs'
+    routes and the layers a model call); a parting is printed."""
+    if got == want:
+        return True
+    first = first_divergence([got[k] for k in sorted(want)],
+                             [want[k] for k in sorted(want)])
+    line, near = route_parting(*routes)
+    say(f"[moe mesh] {what}: tokens differ, first divergent {first}; "
+        + line)
+    return near
+
+
+def moe_bank_line(cfg, mp: int) -> str:
+    """The expert-bank bytes a decode tick reads (on a rank of a ``model``
+    axis of ``mp``: its ``num_experts / mp`` experts' three bf16 banks,
+    each layer; the einsum route multiplies every bank it holds) beside
+    their time at 3.35 TB/s."""
+    from repro_torch.core.h100 import HBM_BW
+    banks = 3.0 * cfg.num_experts // mp * cfg.d_model * cfg.d_ff * 2 \
+        * cfg.num_layers
+    return (f"a tick reads {banks / 1e9:.2f} GB of bf16 expert banks"
+            + (" a rank" if mp > 1 else "")
+            + f" ({cfg.num_experts // mp} experts x {cfg.num_layers} layers),"
+            f" {1e3 * banks / HBM_BW:.2f} ms at 3.35 TB/s")
+
+
+def param_gib(model) -> float:
+    """The GiB of ``model``'s parameters this rank holds (a DTensor's local
+    shard)."""
+    from repro_torch.models import spmd
+    return sum((p.to_local() if spmd.is_dtensor(p) else p).numel()
+               * p.element_size() for p in model.parameters()) / 2 ** 30
+
+
+def expected_gib(cfg, label: str, strategy: str = "tp") -> list:
+    """The parameter GiB each rank of a ``label`` ("DPxMP") mesh holds
+    under ``param_specs``, counted on a ``meta`` model: rank order."""
+    import itertools
+    from types import SimpleNamespace
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.transformer import Model
+    shape = tuple(int(v) for v in label.split("x"))
+    mesh = SimpleNamespace(mesh_dim_names=MESH_AXES,
+                           size=lambda m: shape[m])
+    model = Model(cfg, "meta")
+    specs = sh.param_specs(cfg, model, strategy)
+    params = dict(model.named_parameters())
+    return [sum(sh.local_cut(p, sh.to_placements(specs[n], mesh), shape,
+                             at).numel() * p.element_size()
+                for n, p in params.items()) / 2 ** 30
+            for at in itertools.product(*map(range, shape))]
+
+
+def timed_steps(engine, times: list) -> None:
+    """Time every ``engine.step()`` that only decodes (no prefill call or
+    chunk in it) into ``times`` (ms): the decode step's distribution."""
+    step, st = engine.step, engine.stats
+
+    def timed(*args, **kw):
+        before = (st.decode_steps, st.prefill_calls, st.prefill_chunks)
+        t0 = time.perf_counter()
+        out = step(*args, **kw)
+        ms = 1e3 * (time.perf_counter() - t0)
+        if st.decode_steps > before[0] \
+                and (st.prefill_calls, st.prefill_chunks) == before[1:]:
+            times.append(ms)
+        return out
+
+    engine.step = timed
+
+
+def moe_rank_report(label: str, engine, tokens: dict, counts: dict,
+                    steps: list) -> None:
+    """One rank's report of a 6f four-card run in ``MOE_DIR``, made just
+    after the timed drive: its tokens, launches, parameter GiB, peak
+    memory and decode steps."""
+    import torch
+    rank = int(os.environ["RANK"])
+    s = engine.stats.summary()
+    MOE_DIR.mkdir(parents=True, exist_ok=True)
+    (MOE_DIR / f"{label}_{rank}.json").write_text(json.dumps({
+        "rank": rank, "tokens": tokens, "counts": counts,
+        "param_gib": param_gib(engine.model),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "decode_ms": median(steps) if steps else float("nan"),
+        "decode_steps": s["decode_steps"],
+        "prefill_calls": s["prefill_calls"],
+        "tokens_per_s": s["tokens_per_s"], "ttft_ms": s["ttft_ms"]}))
+
+
+def save_routes(label: str, routes: list) -> None:
+    """Rank 0 keeps a 6f four-card run's replayed routes in ``MOE_DIR``."""
+    import torch
+    if int(os.environ["RANK"]) == 0:
+        torch.save(routes, MOE_DIR / f"routes_{label}.pt")
+
+
+def moe_cut_worker(seed: int) -> None:
+    """One rank of 6f(b) under ``torch.distributed.run``: each MoE arch at
+    phase 6e's depth (``MOE_SERVE_LAYERS``) built shard by shard on a (1,
+    ``MOE_MP``) mesh through ``build_engine(mesh=)`` and served as 6e
+    serves it (``serve_auto``'s build and warmup, phase 6's requests and
+    drive), the launches counted from 0 just before the timed drive; each
+    rank reports (``moe_rank_report``), then records the routes in a
+    replay on a second engine over the same weights
+    (``replayed_routes``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.launch.serve import build_engine
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    mesh = make_serve_mesh(1, MOE_MP)
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch).replace(num_layers=MOE_SERVE_LAYERS[arch])
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(policy="auto", plan_cfg=get_config(arch), slots=4,
+                  max_len=1024, kv_block_size=16, max_bucket=256, mesh=mesh)
+        engine = build_engine(cfg, seed=seed, **kw)
+        engine.warmup()
+        reqs = serve_requests(cfg, seed)
+        steps: list = []
+        timed_steps(engine, steps)
+        reset_counts()
+        serve_drive(engine, reqs)
+        counts = read_counts()
+        tokens = {r.rid: r.generated for r in reqs}
+        moe_rank_report(f"cut_{arch}", engine, tokens, counts, steps)
+        save_routes(f"cut_{arch}", replayed_routes(
+            build_engine(cfg, engine.model, **kw), serve_requests(cfg, seed),
+            serve_drive, tokens))
+        del engine
+        release()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def moe_cli_worker(label: str, cli: list) -> None:
+    """One rank of a 6f(c) run under ``torch.distributed.run``: the serving
+    CLI's ``main(cli)`` (its ``build_engine`` watched to read the engine,
+    its decode steps timed), the launch counters set to 0 just before
+    it; each rank reports (``moe_rank_report``) as the CLI's run returns.
+    Where the run's tokens are compared (``ROUTED``), the CLI's requests
+    are then replayed on a second engine over the same weights with the
+    routes recorded (``replayed_routes``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch import serve
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    torch.cuda.reset_peak_memory_stats()
+    steps: list = []
+    build = serve.build_engine
+
+    def watched(*args, **kw):
+        engine = build(*args, **kw)
+        timed_steps(engine, steps)
+        run = engine.run
+
+        def kept(reqs, *a, **k):
+            fresh = copy.deepcopy(reqs)
+            out = run(reqs, *a, **k)
+            tokens = {r.rid: r.generated for r in reqs}
+            moe_rank_report(label, engine, tokens, read_counts(), steps)
+            # before the CLI ends its process group
+            if label in ROUTED:
+                save_routes(label, replayed_routes(
+                    build(*args, model=engine.model, **kw), fresh,
+                    lambda e, rs: e.run(rs), tokens))
+            return out
+
+        engine.run = kept
+        return engine
+
+    serve.build_engine = watched
+    reset_counts()
+    serve.main(cli)
+
+
+def moe_torchrun(what: str, worker: list) -> float:
+    """``worker`` (this script's options) under ``torch.distributed.run``
+    over ``MOE_MP`` cards; fails unless it exits 0.  Returns its wall."""
+    t0 = time.perf_counter()
+    rc, out, err = run_bounded(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={MOE_MP}", str(Path(__file__).resolve()),
+         *worker], MOE_TIMEOUT_S)
+    if rc:
+        for line in (out.splitlines() + err.splitlines())[-40:]:
+            say(f"[moe mesh] {what} | {line}")
+        fail(f"{what} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def moe_reports(label: str) -> list:
+    """Every rank's report of a 6f run, rank order."""
+    return [json.loads((MOE_DIR / f"{label}_{r}.json").read_text())
+            for r in range(MOE_MP)]
+
+
+def path_launches(cfg, rep: dict) -> bool:
+    """A rank's launches are the paged path's own: one flash launch a
+    layer and prefill call, one paged launch a layer and decode step,
+    nothing else."""
+    n = cfg.layer_kinds.count("attn")
+    return {k: v for k, v in rep["counts"].items() if v} == {
+        "flash": n * rep["prefill_calls"], "paged": n * rep["decode_steps"]}
+
+
+def phase_moe_mesh(seed: int, card: str) -> dict:
+    """6f(a): each MoE cut of phase 6e served again through
+    ``build_engine(mesh=make_serve_mesh())`` — a 1-rank NCCL group, so
+    its weights are drawn shard by shard (``launch.shardings.
+    build_distributed_model``) — with 6e's requests: its tokens and
+    launches must be 6e's.  Its routes are recorded afterwards in a
+    replay on an engine built again from the seed (``replayed_routes``).
+    Returns the launches, added."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.launch.serve import build_engine
+    mesh = make_serve_mesh()
+    total: dict = {}
+    for arch in MOE_ARCHS:
+        base = SERVED[arch]
+        kw = dict(base["engine_kw"], mesh=mesh, seed=seed)
+        run = serve_auto(arch, base["cfg"], None, card, kw,
+                         base["make_requests"], base["drive"],
+                         label=" mesh 1x1 sharded build")
+        MOE_ROUTES[arch] = replayed_routes(
+            build_engine(base["cfg"], policy="auto",
+                         plan_cfg=get_config(arch), **kw),
+            base["make_requests"](), base["drive"],
+            {r.rid: r.generated for r in run["reqs"]})
+        release()
+        s, s0 = run["s"], base["s"]
+        say(f"[moe mesh] {arch} ({base['cfg'].num_layers} layers) built "
+            f"shard by shard on a 1-rank mesh on {card}: decode step "
+            f"{s['decode_step_ms']:.3f} ms ({s0['decode_step_ms']:.3f} ms "
+            f"without the mesh), {s['tokens_per_s']:.1f} tokens/s "
+            f"({s0['tokens_per_s']:.1f}), launches {run['counts']}")
+        check_all(f"moe mesh {arch}", {
+            "tokens equal phase 6e's meshless run's":
+                [r.generated for r in run["reqs"]]
+                == [r.generated for r in base["reqs"]],
+            "launches equal phase 6e's meshless run's":
+                run["counts"] == base["counts"]})
+        for k, n in run["counts"].items():
+            total[k] = total.get(k, 0) + n
+        release()
+    dist.destroy_process_group()
+    return total
+
+
+def moe_mesh_cards(seed: int, card: str, n: int) -> None:
+    """6f(b) and (c) on ``n`` >= ``MOE_MP`` cards, each run under
+    ``torch.distributed.run`` over ``MOE_MP`` of them, one process a card.
+    (b): the cuts of 6e on (1, 4) (``moe_cut_worker``): every rank's
+    launches 6e's and its tokens 6e's one-card meshless tokens, or parted
+    where the routing first parts at a near-tie (printed: bf16 sums in
+    another order).  (c): both archs at full depth on (1, 4) through the
+    CLI and phi3.5-moe also on (2, 2) (``MOE_FULL_CASES``,
+    ``moe_cli_worker``): each exits 0, each rank's launches are the path's
+    own, phi3.5's (2, 2) tokens its (1, 4) tokens or parted at a near-tie.
+    Every rank holds its specs' parameter GiB.  Each run prints a ``[moe
+    full]`` line a rank; the checks are made once every run has ended."""
+    import torch
+    from repro_torch.configs import get_config
+    if n < MOE_MP:
+        say(f"[moe mesh] {n} card(s): 6f(b) and (c) need {MOE_MP}")
+        return
+    checks = {}
+    wall = moe_torchrun("6f(b) cuts on 1x4",
+                        ["--seed", str(seed), "--moe-cut-worker"])
+    say(f"[moe mesh] 6f(b): {wall:.1f} s wall, processes' start and kernel "
+        f"builds included")
+    for arch in MOE_ARCHS:
+        base = SERVED[arch]
+        cfg = base["cfg"]
+        reps = moe_reports(f"cut_{arch}")
+        gib = expected_gib(cfg, f"1x{MOE_MP}")
+        for rep in reps:
+            moe_full_line(f"{arch} cut to {cfg.num_layers} layers, 1x"
+                          f"{MOE_MP}", cfg, rep, gib, card, MOE_MP)
+        what = f"{arch} cut on 1x{MOE_MP}"
+        checks.update({
+            f"{what}: 6e's tokens, or parted at a near-tie":
+                tokens_or_near_tie(
+                    f"{what} against 6e", reps[0]["tokens"],
+                    {str(r.rid): r.generated for r in base["reqs"]},
+                    (MOE_ROUTES[arch],
+                     torch.load(MOE_DIR / f"routes_cut_{arch}.pt"),
+                     cfg.num_layers)),
+            f"{what}: every rank's launches are 6e's": all(
+                rep["counts"] == base["counts"] for rep in reps),
+            **rank_checks(what, reps, gib)})
+    full = {}
+    for arch, label, mesh in MOE_FULL_CASES:
+        cfg = get_config(arch)
+        tag = f"full_{arch}_{label}"
+        wall = moe_torchrun(f"6f(c) {arch} {label}", [
+            "--moe-cli-worker", tag, "--arch", arch, "--seed", str(seed),
+            *MOE_FULL_CLI, *mesh])
+        reps = full[label, arch] = moe_reports(tag)
+        gib = expected_gib(cfg, label)
+        mp = int(label.split("x")[1])
+        for rep in reps:
+            moe_full_line(f"{arch} full depth, {label}", cfg, rep, gib, card,
+                          mp)
+        say(f"[moe full] {arch} {label}: {wall:.1f} s wall for the run "
+            f"(processes' start, kernel builds and the sharded build "
+            f"included)")
+        what = f"{arch} full depth on {label}"
+        checks.update({
+            f"{what}: every rank's launches are the path's own": all(
+                path_launches(cfg, rep) for rep in reps),
+            f"{what}: every request generated its 16 tokens":
+                len(reps[0]["tokens"]) == 8 and all(
+                    len(t) == 16 for t in reps[0]["tokens"].values()),
+            **rank_checks(what, reps, gib)})
+    arch = MOE_FULL_CASES[0][0]
+    checks[f"{arch} full depth: 2x2's tokens 1x{MOE_MP}'s, or parted at a "
+           f"near-tie"] = tokens_or_near_tie(
+        f"{arch} full depth, 2x2 against 1x{MOE_MP}",
+        full["2x2", arch][0]["tokens"], full["1x4", arch][0]["tokens"],
+        (torch.load(MOE_DIR / f"routes_full_{arch}_1x4.pt"),
+         torch.load(MOE_DIR / f"routes_full_{arch}_2x2.pt"),
+         get_config(arch).num_layers))
+    check_all("moe mesh cards", checks)
+
+
+def rank_checks(what: str, reps: list, gib: list) -> dict:
+    """Every rank of a 6f run served the same tokens and holds its specs'
+    parameter GiB (``expected_gib``)."""
+    return {
+        f"{what}: every rank's tokens alike": all(
+            rep["tokens"] == reps[0]["tokens"] for rep in reps),
+        f"{what}: every rank holds its specs' parameter GiB": all(
+            abs(rep["param_gib"] - g) <= 1e-6 * g
+            for rep, g in zip(reps, gib))}
+
+
+def moe_full_line(what: str, cfg, rep: dict, gib: list, card: str,
+                  mp: int) -> None:
+    """A rank's ``[moe full]`` line: its parameter GiB beside the specs'
+    count, its peak memory, the decode step median, tokens/s, TTFT and
+    the expert-bank bytes a tick reads on a rank of a ``model`` axis of
+    ``mp``."""
+    say(f"[moe full] {what} rank {rep['rank']} on {card}: parameters "
+        f"{rep['param_gib']:.3f} GiB (specs' count "
+        f"{gib[rep['rank']]:.3f}), torch.cuda.max_memory_allocated() "
+        f"{rep['peak_gib']:.2f} GiB, decode step median "
+        f"{rep['decode_ms']:.2f} ms over {rep['decode_steps']} steps, "
+        f"{rep['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{rep['ttft_ms']['p50']:.2f} ms (mean {rep['ttft_ms']['mean']:.2f}"
+        f"), launches {({k: v for k, v in rep['counts'].items() if v})}; "
+        + moe_bank_line(cfg, mp))
+
+
 # ---------------------------------------------------------------- 7. train
 #: the train phase's geometry: global batch 8 of 128 tokens in 2
 #: microbatches, bf16 compute on float32 masters
@@ -3809,6 +4339,13 @@ def main() -> None:
     ap.add_argument("--cp-worker", metavar="DPxMP",
                     help="one rank of phase 6d's multi-card launches under "
                          "torch.distributed.run")
+    ap.add_argument("--moe-cut-worker", action="store_true",
+                    help="one rank of phase 6f(b) under "
+                         "torch.distributed.run")
+    ap.add_argument("--moe-cli-worker", nargs=argparse.REMAINDER,
+                    help="one rank of a phase 6f(c) run under "
+                         "torch.distributed.run: its report's tag, then "
+                         "the serving CLI's options")
     args = ap.parse_args()
     if args.serve_worker is not None:
         serve_worker(args.serve_worker)
@@ -3818,6 +4355,12 @@ def main() -> None:
         return
     if args.cp_worker is not None:
         cp_worker(args.seed, args.cp_worker)
+        return
+    if args.moe_cut_worker:
+        moe_cut_worker(args.seed)
+        return
+    if args.moe_cli_worker is not None:
+        moe_cli_worker(args.moe_cli_worker[0], args.moe_cli_worker[1:])
         return
     lap = Laps()
     name, count, smi = phase_device()
@@ -3875,6 +4418,9 @@ def main() -> None:
     paths.append(phase_cp_serve(args.seed, smi))
     release()
     lap("6d context-parallel serve")
+    paths.append(phase_moe_mesh(args.seed, smi))
+    moe_mesh_cards(args.seed, smi, count)
+    lap("6f MoE on a mesh")
     paths.append(phase_train(args.seed, smi, "qwen3-0.6b", steps=3))
     paths.append(phase_train(args.seed, smi, ENCDEC, steps=2))
     phase_train_resume(args.seed)

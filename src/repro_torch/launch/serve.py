@@ -46,7 +46,13 @@ rank 0 printing the summary and writing the files::
       -m repro_torch.launch.serve --arch qwen3-0.6b --mesh auto
 
 Without ``torch.distributed.run`` a mesh is a 1-rank group on the one card
-(gloo ranks with ``--device cpu``).
+(gloo ranks with ``--device cpu``).  On a mesh each rank draws only its own
+shards of the seed's weights (``launch.shardings.build_distributed_model``),
+so a model no card holds whole serves over several, e.g. the two MoE archs
+at full depth on four cards (a quarter of 78.5 and 204.6 GiB a rank)::
+
+  python -m torch.distributed.run --standalone --nproc-per-node=4 \\
+      -m repro_torch.launch.serve --arch llama4-scout-17b-a16e --mp 4
 
 ``--roles prefill=N,decode=M`` serves through the disaggregated pair with
 each role on its own (N, mp) and (M, mp) submesh of ranks
@@ -78,9 +84,10 @@ from ..models import build_model
 from ..obs import profile_trace
 from ..serve.disagg import DisaggEngine
 from ..serve.engine import Request, ServeEngine, prefill_buckets
-from ..serve.placement import ExecutionOracle, PlacementPlan
+from ..serve.placement import ExecutionOracle, PlacementPlan, fixed_plan
 from .mesh import (RoleConfig, make_role_meshes, make_serve_mesh,
                    parse_mesh_arg, parse_roles_arg, start_group)
+from .shardings import build_distributed_model
 
 #: options of the JAX package's serving CLI that are not ported yet: none
 #: since ``--roles``
@@ -144,7 +151,10 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
     (``launch.mesh.make_serve_mesh``), the weights laid out by
     ``param_strategy`` ("tp", "dp" or "auto": per cluster from the plan's
     ``sharding_axis``, ``launch.shardings.param_specs``); the auto plan is
-    then resolved with the mesh's axes.
+    then resolved with the mesh's axes.  With a ``mesh`` and no ``model``
+    each rank draws only its own shards of the seed's weights
+    (``launch.shardings.build_distributed_model``: the values of
+    ``build_model(cfg, device, seed)``, never whole on one card).
 
     The prefill and decode programs run through their Mensa execution
     profiles (``core.executor.phase_profiles(plan_cfg or cfg,
@@ -153,7 +163,10 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
     only, each phase model over the one set of parameters.  Plan a cut
     config at its full size with ``plan_cfg`` (a reduced MoE's 4 experts
     leave the decode shape no legal strategy on the 16-way model axis, so
-    its plan raises, as the reference's does)."""
+    its plan raises, as the reference's does); on a mesh ``plan_cfg`` also
+    decides the weights' layout (``ServeEngine``'s ``layout_cfg``: a cut
+    of a >20B arch splits its dense weights over ``data`` as the full
+    config does)."""
     backend = (model.device if model is not None
                else torch.device(device)).type
     plan = _resolve_policy(cfg, policy, backend, slots=slots,
@@ -163,7 +176,16 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
                            if mesh is not None else ())
     if profiles is None:
         profiles = phase_profiles(plan_cfg or cfg, policy=plan)
-    if model is None:
+    if model is None and mesh is not None:
+        # each rank draws its own shards: no card holds the whole model.
+        # Laid out by the plan the engine takes (a fixed one without a
+        # policy: its buckets decide no layout)
+        model = build_distributed_model(
+            cfg, mesh, seed, param_strategy,
+            plan or fixed_plan(cfg, buckets=(), prefill_chunk=0,
+                               backend=backend),
+            layout_cfg=plan_cfg)
+    elif model is None:
         model = build_model(cfg, device=device, seed=seed)
     phases = _phase_models(cfg, model, profiles)
     buckets = None
@@ -176,7 +198,7 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
         prefix_cache=prefix_cache, policy=plan,
         program_memory=program_memory, mesh=mesh,
-        param_strategy=param_strategy, **phases)
+        param_strategy=param_strategy, layout_cfg=plan_cfg, **phases)
 
 
 def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
@@ -232,7 +254,7 @@ def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
         prefix_cache=prefix_cache, policy=plan,
         program_memory=program_memory, prefill_mesh=pm, decode_mesh=dm,
-        param_strategy=param_strategy, **phases)
+        param_strategy=param_strategy, layout_cfg=plan_cfg, **phases)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -21,6 +21,14 @@ entries.  ``to_placements`` turns one into DTensor placements.  The port's
 layers are not stacked, so a spec has no stack axis: it is the reference's
 with that leading ``None`` dropped.
 
+A served model comes onto a mesh two ways.  ``build_distributed_model``
+builds it shard by shard: the model is constructed on ``meta`` and every
+rank draws each parameter whole from the seed, in ``Model.init``'s order,
+and keeps only its part (``local_parts``, cut by the plain ``local_cut``),
+so no rank ever holds the whole model — the route for a model no card
+holds (phi3.5-moe and llama4-scout at full depth).  ``distribute_models``
+scatters a model the caller already holds whole (rank 0's values).
+
 Batch is sharded on (pod, data).  KV caches for decode shard the
 *sequence* axis on ``model`` (context parallelism) in ``state_specs``:
 ``models/spmd.context_attention`` writes each rank's slots and combines
@@ -39,6 +47,7 @@ from ..bridge import layout
 from ..core.h100 import GIGA
 from ..models.attention import KVCache, PagedKVCache
 from ..models.model_config import ArchConfig
+from ..models.spmd import is_dtensor
 from ..models.transformer import BlockState, Model
 from .mesh import data_axes
 
@@ -406,10 +415,10 @@ def abstract_states(model: Model, mesh, batch: int,
 
 
 def distribute_models(models: list[Model], mesh, strategy: str = "tp",
-                      plan=None) -> list[Model]:
+                      plan=None, layout_cfg=None) -> list[Model]:
     """Copies of ``models`` (a model and its phase models, which share its
     parameter tensors) whose parameters are DTensors on ``mesh``, laid out
-    by ``param_specs(models[0].cfg, ..., strategy, plan)``
+    by ``param_specs(layout_cfg or models[0].cfg, ..., strategy, plan)``
     (``distribute_tensor``: rank 0's values, scattered), each requiring
     its gradient as the original does (a model built with ``train=True``
     trains on the mesh).  The copies share the distributed parameters as
@@ -418,9 +427,111 @@ def distribute_models(models: list[Model], mesh, strategy: str = "tp",
     on one card)."""
     from torch.distributed.tensor import distribute_tensor
     base = models[0]
-    specs = param_specs(base.cfg, base, strategy, plan)
+    specs = param_specs(layout_cfg or base.cfg, base, strategy, plan)
     return _swap_parameters(models, lambda name, p: distribute_tensor(
         p.detach(), mesh, to_placements(specs[name], mesh)))
+
+
+def local_cut(whole: torch.Tensor, placements, sizes, coords):
+    """The part of ``whole`` that the rank at mesh coordinates ``coords``
+    holds under ``placements`` on a mesh of dims ``sizes`` (one entry a
+    mesh dim each): on each mesh dim that shards tensor dim ``d``, in mesh
+    order, DTensor's chunk of the part so far — ``ceil(n / size)`` rows a
+    rank, the last ranks fewer or none.  A view of ``whole``; a plain
+    function of its arguments, so it needs no process group."""
+    from torch.distributed.tensor import Shard
+    part = whole
+    for pl, size, at in zip(placements, sizes, coords):
+        if isinstance(pl, Shard) and size > 1:
+            n = part.shape[pl.dim]
+            step = -(-n // size)
+            lo = min(at * step, n)
+            part = part.narrow(pl.dim, lo, min(n, lo + step) - lo)
+    return part
+
+
+def local_parts(model: Model, seed: int, placements: dict, sizes, coords,
+                device) -> dict[str, torch.Tensor]:
+    """Each parameter of ``model`` (name -> its local part, in the
+    parameter's dtype, dense and of its own storage) as the rank at mesh
+    coordinates ``coords`` holds it under ``placements`` (name -> DTensor
+    placements) on a mesh of dims ``sizes``: ``model.init`` draws every
+    parameter whole in float32 on ``device`` from a generator seeded with
+    ``seed`` — the stream ``build_model(cfg, device, seed)`` draws — and
+    each draw is cut at once (``local_cut``), so a part equals the matching
+    slice of ``build_model``'s tensor bit for bit and the peak is the parts
+    plus one whole draw.  ``model`` may be on ``meta``."""
+    names = {id(p): name for name, p in model.named_parameters()}
+    parts: dict[str, torch.Tensor] = {}
+
+    def keep(p: torch.Tensor, value: torch.Tensor) -> None:
+        name = names[id(p)]
+        if name in parts:
+            raise RuntimeError(f"init drew {name} twice")
+        cut = local_cut(value, placements[name], sizes, coords)
+        parts[name] = torch.empty(cut.shape, dtype=p.dtype,
+                                  device=value.device).copy_(cut)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model.init(gen, sink=keep)
+    missing = sorted(set(names.values()) - set(parts))
+    if missing:
+        raise RuntimeError(f"init drew no value for {missing}")
+    return parts
+
+
+def build_distributed_model(cfg: ArchConfig, mesh, seed: int,
+                            strategy: str = "tp", plan=None,
+                            layout_cfg=None) -> Model:
+    """A model of ``cfg`` with random weights from ``seed`` whose
+    parameters are DTensors on ``mesh``, laid out by ``param_specs(
+    layout_cfg or cfg, ..., strategy, plan)`` (``layout_cfg``: the full
+    config of a cut ``cfg``), built shard by shard: the model is constructed
+    on ``meta``, and each rank draws every parameter whole on its own
+    device and keeps its part (``local_parts``); every rank draws the same
+    stream, so nothing is scattered and no rank holds the whole model.
+    Its values are ``build_model(cfg, device, seed)``'s bit for bit, so it
+    serves that model's tokens; ``ServeEngine(mesh=mesh)`` takes it as it
+    is.  A phase model over it is ``Model.with_config``."""
+    from torch.distributed.tensor import DTensor
+    model = Model(cfg, "meta")
+    specs = param_specs(layout_cfg or cfg, model, strategy, plan)
+    placements = {name: to_placements(spec, mesh)
+                  for name, spec in specs.items()}
+    device = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    parts = local_parts(model, seed, placements, tuple(mesh.shape),
+                        mesh.get_coordinate(), device)
+    built = _swap_parameters([model], lambda name, p: DTensor.from_local(
+        parts.pop(name), mesh, placements[name], run_check=False,
+        shape=p.shape, stride=p.stride()))[0]
+    built.device = device
+    return built
+
+
+def laid_out(model: Model, mesh, strategy: str = "tp", plan=None,
+             layout_cfg=None) -> bool:
+    """Whether ``model``'s parameters are already DTensors on ``mesh``
+    laid out by ``param_specs(layout_cfg or model.cfg, ..., strategy,
+    plan)`` (a ``build_distributed_model``): True if every one is, False
+    if none is a DTensor (a model to distribute); any other layout
+    raises."""
+    specs = param_specs(layout_cfg or model.cfg, model, strategy, plan)
+    params = dict(model.named_parameters())
+    if not any(is_dtensor(p) for p in params.values()):
+        return False
+    for name, p in params.items():
+        want = to_placements(specs[name], mesh)
+        if not is_dtensor(p) or p.device_mesh != mesh \
+                or tuple(p.placements) != want:
+            raise ValueError(
+                f"parameter {name} is laid out as "
+                f"{getattr(p, 'placements', 'a plain tensor')}, not as "
+                f"{strategy!r} lays it out on this mesh ({want}): pass the "
+                f"model whole, or build it with build_distributed_model on "
+                f"this mesh with the engine's strategy")
+    return True
 
 
 def _swap_parameters(models: list[Model], make) -> list[Model]:

@@ -145,3 +145,9 @@ def fan_in_std(shape: tuple[int, ...]) -> float:
     """Std of the JAX package's fan-in initializer for a weight of
     ``shape``."""
     return 1.0 / math.sqrt(max(shape[0] if shape else 1, 1))
+
+
+def copy_into(p: torch.Tensor, value: torch.Tensor) -> None:
+    """The default sink of the weight init: ``value`` (a parameter's whole
+    float32 draw) copied into ``p``, cast to its dtype."""
+    p.copy_(value)

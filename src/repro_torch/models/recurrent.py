@@ -41,7 +41,7 @@ from ..kernels.pavlov_lstm.ops import pavlov_lstm
 from ..kernels.pavlov_rglru.ops import pavlov_rglru
 from ..kernels.pavlov_ssm.ops import pavlov_ssm
 from . import spmd
-from .common import fan_in_std, gelu
+from .common import copy_into, fan_in_std, gelu
 
 #: ``a = sigmoid(lambda)^(C * r)``: the RG-LRU's fixed temperature
 C_RGLRU = 8.0
@@ -120,23 +120,26 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
 
 
 @torch.no_grad()
-def init_rglru_block(params: dict, generator: torch.Generator) -> None:
-    """Fill a block's parameters in place with the JAX package's
-    distributions: every matrix normal with std 1/sqrt(fan-in) (the rows of
-    each block when ``w_a``/``w_i`` are block-diagonal, ``(G, d/G, d/G)``),
+def init_rglru_block(params: dict, generator: torch.Generator,
+                     sink=copy_into) -> None:
+    """Fill a block's parameters with the JAX package's distributions:
+    every matrix normal with std 1/sqrt(fan-in) (the rows of each block
+    when ``w_a``/``w_i`` are block-diagonal, ``(G, d/G, d/G)``),
     ``conv_w`` with std 1/sqrt(conv width), and ``lambda`` so that
-    ``a = sigmoid(lambda)^C`` is uniform in [0.9, 0.999]."""
+    ``a = sigmoid(lambda)^C`` is uniform in [0.9, 0.999].  Each value is
+    drawn whole in float32 on ``generator``'s device and handed to
+    ``sink(p, value)`` (default: copied into ``p``)."""
     for name, p in params.items():
+        w = torch.empty(p.shape, dtype=torch.float32,
+                        device=generator.device)
         if name == "lambda":
-            u = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-            u.uniform_(0.9, 0.999, generator=generator)
-            r = u ** (1.0 / C_RGLRU)
-            p.copy_(torch.log(r / (1.0 - r)))
+            w.uniform_(0.9, 0.999, generator=generator)
+            r = w ** (1.0 / C_RGLRU)
+            sink(p, torch.log(r / (1.0 - r)))
         else:
-            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
             w.normal_(0.0, fan_in_std(tuple(p.shape[-2:])),
                       generator=generator)
-            p.copy_(w)
+            sink(p, w)
 
 
 def rglru_core(params: dict, x: torch.Tensor,
@@ -252,26 +255,29 @@ def mamba_param_shapes(d_model: int, d_inner: int, d_state: int,
 
 
 @torch.no_grad()
-def init_mamba_block(params: dict, generator: torch.Generator) -> None:
-    """Fill a Mamba block's parameters in place with the JAX package's
+def init_mamba_block(params: dict, generator: torch.Generator,
+                     sink=copy_into) -> None:
+    """Fill a Mamba block's parameters with the JAX package's
     distributions: every matrix normal with std 1/sqrt(fan-in) (``conv_w``:
     1/sqrt(conv width)), ``dt_bias = log(expm1(u))`` with u uniform in
     [1e-3, 1e-1], ``a_log = log(1..N)`` on every row exactly, ``d_skip``
-    ones."""
+    ones.  Each value is made whole in float32 on ``generator``'s device
+    and handed to ``sink(p, value)`` (default: copied into ``p``)."""
     for name, p in params.items():
-        w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        w = torch.empty(p.shape, dtype=torch.float32,
+                        device=generator.device)
         if name == "dt_bias":
             w.uniform_(1e-3, 1e-1, generator=generator)
             w = torch.log(torch.expm1(w))
         elif name == "a_log":
             n = torch.arange(1, p.shape[1] + 1, dtype=torch.float32,
-                             device=p.device)
+                             device=w.device)
             w = torch.log(n).expand(p.shape)
         elif name == "d_skip":
             w.fill_(1.0)
         else:
             w.normal_(0.0, fan_in_std(tuple(p.shape)), generator=generator)
-        p.copy_(w)
+        sink(p, w)
 
 
 def mamba_ssm(params: dict, x: torch.Tensor, dt_rank: int, d_state: int,

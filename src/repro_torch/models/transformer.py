@@ -68,8 +68,8 @@ from . import attention as attn_lib
 from . import moe as moe_lib
 from . import recurrent as rec_lib
 from . import spmd
-from .common import (embed_scaled, fan_in_std, gelu, layer_norm, rms_norm,
-                     torch_dtype, unembed, vocab_cross_entropy)
+from .common import (copy_into, embed_scaled, fan_in_std, gelu, layer_norm,
+                     rms_norm, torch_dtype, unembed, vocab_cross_entropy)
 from .ffn import glu_ffn, mlp_ffn
 from .model_config import ArchConfig
 
@@ -148,14 +148,16 @@ def _norm(cfg: ArchConfig, x: torch.Tensor, scale: torch.Tensor,
 
 
 @torch.no_grad()
-def _init_norm(scale: torch.Tensor, bias: torch.Tensor | None) -> None:
-    """The JAX init: an RMSNorm scale at zero (its gain is 1 + scale), a
+def _init_norm(put, scale: torch.Tensor, bias: torch.Tensor | None,
+               device) -> None:
+    """The JAX init, each value made whole in float32 on ``device`` and
+    handed to ``put``: an RMSNorm scale at zero (its gain is 1 + scale), a
     LayerNorm's scale at one and its bias at zero."""
     if bias is None:
-        scale.zero_()
+        put(scale, torch.zeros(scale.shape, device=device))
     else:
-        scale.fill_(1.0)
-        bias.zero_()
+        put(scale, torch.ones(scale.shape, device=device))
+        put(bias, torch.zeros(bias.shape, device=device))
 
 
 class _Block(nn.Module):
@@ -527,7 +529,7 @@ def _fill_cache(cache: attn_lib.KVCache, k: torch.Tensor, v: torch.Tensor,
     return cache._replace(length=new_len.to(torch.int32))
 
 
-def _init_tree(tree: nn.ParameterDict, normal) -> None:
+def _init_tree(tree: nn.ParameterDict, normal, zero) -> None:
     """A block part's leaves as the JAX package draws them: the matrices
     (``w*``) and an MoE's ``router`` normal with std 1/sqrt(shape[0]) — an
     (E, D, F) expert bank draws 1/sqrt(E), as the reference's
@@ -535,11 +537,11 @@ def _init_tree(tree: nn.ParameterDict, normal) -> None:
     alike."""
     for name, p in tree.items():
         if isinstance(p, nn.ParameterDict):
-            _init_tree(p, normal)
+            _init_tree(p, normal, zero)
         elif name.startswith("w") or name == "router":
             normal(p, fan_in_std(tuple(p.shape)))
         else:
-            p.zero_()
+            zero(p)
 
 
 class Model(nn.Module):
@@ -599,16 +601,25 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------- init
     @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "Model":
+    def init(self, generator: torch.Generator, sink=copy_into) -> "Model":
         """Random weights with the JAX package's distributions (normal,
         std 1/sqrt(fan_in), the embedding and ``lm_head`` 1/sqrt(d_model);
         RMSNorm scales 0, LayerNorm scales 1, biases 0; the RG-LRU's
         ``init_rglru_block``, Mamba's ``init_mamba_block``), drawn from
-        ``generator`` — which lives on the model's device."""
+        ``generator``.  Every parameter is drawn whole, in float32, on the
+        generator's device, in one fixed order, and handed to ``sink(p,
+        value)`` once; the default copies it into ``p``.  A model built on
+        ``meta`` is filled by a sink that keeps each rank's part
+        (``launch.shardings.build_distributed_model``)."""
+        dev = generator.device
+
         def normal(p: torch.Tensor, std: float) -> None:
-            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            w = torch.empty(p.shape, dtype=torch.float32, device=dev)
             w.normal_(0.0, std, generator=generator)
-            p.copy_(w)
+            sink(p, w)
+
+        def zero(p: torch.Tensor) -> None:
+            sink(p, torch.zeros(p.shape, device=dev))
 
         normal(self.embed, 1.0 / self.cfg.d_model ** 0.5)
         if self.lm_head is not None:
@@ -616,22 +627,23 @@ class Model(nn.Module):
         if self.mm_proj is not None:
             for p in self.mm_proj.values():
                 normal(p, fan_in_std(tuple(p.shape)))
-        _init_norm(self.final_norm, self.final_norm_bias)
+        _init_norm(sink, self.final_norm, self.final_norm_bias, dev)
         if self.enc_norm is not None:
-            _init_norm(self.enc_norm, self.enc_norm_bias)
+            _init_norm(sink, self.enc_norm, self.enc_norm_bias, dev)
         for blk in [*self.layers, *self.encoder]:
             for norm in blk.NORMS:
-                _init_norm(getattr(blk, norm), getattr(blk, norm + "_bias"))
+                _init_norm(sink, getattr(blk, norm),
+                           getattr(blk, norm + "_bias"), dev)
             if isinstance(blk, SsmBlock):
-                rec_lib.init_mamba_block(blk.ssm, generator)
+                rec_lib.init_mamba_block(blk.ssm, generator, sink)
                 trees = ()
             elif isinstance(blk, RecBlock):
-                rec_lib.init_rglru_block(blk.rec, generator)
+                rec_lib.init_rglru_block(blk.rec, generator, sink)
                 trees = (blk.ffn,)
             else:
                 trees = [getattr(blk, part) for part in blk.PARTS]
             for tree in trees:
-                _init_tree(tree, normal)
+                _init_tree(tree, normal, zero)
         return self
 
     # -------------------------------------------------------------- backbone

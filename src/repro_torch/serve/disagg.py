@@ -148,7 +148,8 @@ class DisaggEngine:
     arguments still win, as in ``ServeEngine``.  ``program_memory`` goes to
     both role engines (``ServeEngine``); ``prefill_model`` to the prefill
     role and ``decode_model`` to the decode role, as the reference wires
-    them; ``param_strategy`` (the weights' layout on a role mesh) to both.
+    them; ``param_strategy`` (the weights' layout on a role mesh) and
+    ``layout_cfg`` (the config deciding it) to both.
     """
 
     def __init__(self, model: Model, *, prefill_mesh=None, decode_mesh=None,
@@ -167,7 +168,7 @@ class DisaggEngine:
                  policy: PlacementPlan | None = None,
                  tracer: Tracer | None = None,
                  program_memory: bool = False,
-                 param_strategy: str = "tp"):
+                 param_strategy: str = "tp", layout_cfg=None):
         if (prefill_mesh is None) != (decode_mesh is None):
             raise ValueError("prefill_mesh and decode_mesh must be both set "
                              "(disjoint submeshes) or both None")
@@ -191,7 +192,7 @@ class DisaggEngine:
                       kv_block_size=kv_block_size, kv_blocks=kv_blocks,
                       policy=policy, tracer=self.tracer,
                       program_memory=program_memory,
-                      param_strategy=param_strategy)
+                      param_strategy=param_strategy, layout_cfg=layout_cfg)
         self.prefill = self.decode = None
         if "prefill" in here:
             self.prefill = ServeEngine(

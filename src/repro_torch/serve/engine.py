@@ -64,7 +64,8 @@ Serving is optionally sharded (``mesh=``, a ``launch.mesh.make_serve_mesh``
 ``DeviceMesh`` with (data, model) axes), SPMD as the reference's: every rank
 runs this host logic on the same requests, and only the tensors are
 DTensors.  The parameters are distributed by ``launch.shardings.
-param_specs`` (``param_strategy``), the slot states placed by
+param_specs`` (``param_strategy``), or come laid out so (a model built
+shard by shard on each rank), the slot states placed by
 ``serve_state_specs`` (slots, and a paged pool's blocks, over ``data``
 where they split evenly; heads and widths over ``model`` where they do),
 and each call's host inputs (tokens, positions, masks, block tables) are
@@ -357,7 +358,8 @@ class ServeEngine:
                  program_memory: bool = False,
                  prefill_model: Model | None = None,
                  decode_model: Model | None = None,
-                 mesh=None, param_strategy: str = "tp"):
+                 mesh=None, param_strategy: str = "tp",
+                 layout_cfg=None):
         """``min_bucket``: the smallest prompt bucket of the default ladder.
         ``max_prefill_per_step``: queued requests admitted per tick.
         ``max_prefill_batch``: rows of one batched prefill (capped at
@@ -405,10 +407,16 @@ class ServeEngine:
         make_serve_mesh``) to serve over, SPMD (see the module's
         docstring); the engine then serves copies of ``model`` and its
         phase models whose parameters are DTensors, ``model`` itself keeps
-        its tensors.  ``param_strategy``: the weights' layout on it — "tp"
+        its tensors — or ``model`` as it is where its parameters are
+        already DTensors on ``mesh`` in that layout
+        (``launch.shardings.build_distributed_model``; another layout
+        raises).  ``param_strategy``: the weights' layout on it — "tp"
         (the Mensa cluster templates), "dp" (replicated blocks) or "auto"
         (each block family by its cluster's ``sharding_axis`` in the
-        plan); see ``launch.shardings.param_specs``."""
+        plan); see ``launch.shardings.param_specs``.  ``layout_cfg``: the
+        config whose flags decide that layout (default ``model.cfg``; the
+        full config of a cut model, whose size turns on the 2-D split of
+        the dense weights)."""
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role {role!r} not in "
                              f"('both', 'prefill', 'decode')")
@@ -462,10 +470,14 @@ class ServeEngine:
                                 prefill_chunk=self.prefill_chunk,
                                 backend=self.device.type)
         self.policy = policy
-        if mesh is not None:
+        # a model built shard by shard (``build_distributed_model``) is
+        # laid out already; any other layout raises
+        if mesh is not None and not shard_lib.laid_out(
+                model, mesh, param_strategy, plan=policy,
+                layout_cfg=layout_cfg):
             model, prefill_model, decode_model = shard_lib.distribute_models(
                 [model, prefill_model, decode_model], mesh, param_strategy,
-                plan=policy)
+                plan=policy, layout_cfg=layout_cfg)
         self.model = model
         self.prefill_model = prefill_model
         self.decode_model = decode_model

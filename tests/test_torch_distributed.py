@@ -44,7 +44,8 @@ FAMILIES = ("qwen3-0.6b", "recurrentgemma-2b", "falcon-mamba-7b")
 #: grows past what keeps the JAX and the port's tokens equal
 #: (tests/test_torch_model.py)
 GAINS = {"qwen3-0.6b": 3.0, "recurrentgemma-2b": 1.0,
-         "falcon-mamba-7b": 2.0, "smollm-135m": 3.0}
+         "falcon-mamba-7b": 2.0, "smollm-135m": 3.0,
+         "phi3.5-moe-42b-a6.6b": 3.0, "llama4-scout-17b-a16e": 3.0}
 
 
 # ------------------------------------------------------------------ ranks
@@ -164,7 +165,8 @@ def jax_run(model, trace, *, pair: bool = False, **kw) -> tuple:
     cfg = model.cfg
     jcfg = jax_reduced(cfg.name).replace(
         num_layers=cfg.num_layers, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, compute_dtype="float32")
+        num_kv_heads=cfg.num_kv_heads, moe_capacity=cfg.moe_capacity,
+        compute_dtype="float32")
     params = jax.tree.map(jnp.asarray, to_jax_params(model))
     eng = (JaxDisagg if pair else JaxEngine)(jax_build(jcfg), params, **kw)
     return eng, tokens(eng.run(trace(JaxRequest, cfg.vocab_size)))

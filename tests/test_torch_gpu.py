@@ -1449,3 +1449,29 @@ def test_context_parallel_states_on_one_rank_mesh_match_meshless(card_mesh,
     assert n_mesh == n_want
     assert max((a - b).abs().max().item()
                for a, b in zip(l_mesh, l_want)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_sharded_build_equals_build_model_on_card(card_mesh):
+    """Full-width phi3.5-moe cut to 2 layers built shard by shard on
+    ``make_serve_mesh()`` (``launch.shardings.build_distributed_model``,
+    every parameter drawn whole on the card and its part kept): each
+    parameter is ``build_model``'s on the card bit for bit, in its dtype,
+    and ``ServeEngine`` takes the model as it is."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("phi3.5-moe-42b-a6.6b").replace(num_layers=2)
+    built = sh.build_distributed_model(cfg, card_mesh, seed=0)
+    want = dict(build_model(cfg, device="cuda", seed=0).named_parameters())
+    assert built.device.type == "cuda"
+    for name, p in built.named_parameters():
+        local, ref = p.to_local(), want[name].detach()
+        assert local.dtype == ref.dtype and local.shape == ref.shape, name
+        assert local.is_cuda and local.is_contiguous(), name
+        ints = {4: torch.int32, 2: torch.int16}[ref.element_size()]
+        assert torch.equal(local.view(ints), ref.view(ints)), name
+    engine = ServeEngine(built, slots=2, max_len=64, kv_block_size=16,
+                         mesh=card_mesh)
+    assert engine.model is built
