@@ -96,7 +96,21 @@ Phases, one line or block of output each; any failure exits non-zero:
    warmed program registered; ``decode`` invocations = decode steps, the
    ``prefill[...]`` ones summing to the prefill calls, ``chunk`` = chunks,
    ``copy`` = copied blocks, ``export`` / ``import`` = handoffs; every
-   nonzero share in (0, 1.05].  qwen3-0.6b serves (both runs) with
+   nonzero share in (0, 1.05].  Every meshless serve and pair runs its
+   programs as CUDA graphs captured at warmup (``ServeEngine``'s
+   ``cuda_graphs``, the default): every program of the engine's table must
+   be a graph and none may be compiled after warmup, and a ``[graphs]``
+   line gives the graphs, their capture seconds, the pool's bytes and the
+   decode ticks' median.  qwen3-0.6b, recurrentgemma-2b, falcon-mamba-7b
+   and the phi3.5-moe cut then serve the same requests once more with
+   ``cuda_graphs=False``, outside the paths' launch totals: every token
+   (greedy and sampled) and the launches must be the graphed run's, and a
+   ``[graphs]`` line sets the two decode medians side by side; qwen3's
+   decode window is profiled on both routes (the card's idle share), and
+   falcon-mamba's graphed: each profiled window must show the card running
+   every port kernel as often as its launch counter moved
+   (``PROFILED_KERNELS``).
+   qwen3-0.6b serves (all runs) with
    ``program_memory=True``: its largest temp (the allocator's watermark
    around each warmup call) must be above 0, printed beside
    ``torch.cuda.max_memory_allocated()``:
@@ -164,11 +178,12 @@ Phases, one line or block of output each; any failure exits non-zero:
    layer, one scan a recurrent layer a call; the dense decode attention
    is plain PyTorch, as the reference's), the decode step's median
    printed beside the meshless one's (``[cp]`` lines); b. full-width
-   seamless-m4t-medium (12 + 12 layers, vocab 256,206), bf16: ``encode``
-   of 512 source frames, ``prefill(memory=)`` of 2 x 64 tokens and 16
-   greedy ``decode_step(memory=)`` calls, every call's logits held to the
-   same model's no-grad ``forward`` over the same tokens (teacher-forced)
-   within ``tests/test_models_smoke.py``'s 5e-2, the prefill's flash
+   seamless-m4t-medium (12 + 12 layers, vocab 256,206), in bf16 and once
+   in float32: ``encode`` of 512 source frames, ``prefill(memory=)`` of
+   2 x 64 tokens and 16 greedy ``decode_step(memory=)`` calls, every
+   call's logits held to the same model's no-grad ``forward`` over the
+   same tokens (teacher-forced) within ``tests/test_models_smoke.py``'s
+   5e-2, the prefill's flash
    launches 12 non-causal (the encoder) and 12 causal (the decoder); then
    a 2 + 2-layer float32 cut, encode, prefill and 4 decode steps, CPU
    against card within the parity tolerance; c. on n >= 2 cards the three
@@ -2016,10 +2031,14 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
     ``summary()``; fails unless the plan is the card's, the launches are
     ``SERVE_LAUNCHES[what]``, and, for paged attention layers, the engine's
     own counts agree with them: one flash launch a layer and prefill call,
-    one paged launch a layer and decode step; and unless the engine was
-    built through ``phase_profiles(get_config(arch))`` with no runtime-safe
-    override, so that its phase models are its model.  ``label`` follows
-    ``what`` on the printed lines.  A run without a mesh is kept in
+    one paged launch a layer and decode step; unless the engine was built
+    through ``phase_profiles(get_config(arch))`` with no runtime-safe
+    override, so that its phase models are its model; unless no program
+    was compiled after warmup; and, without a mesh and with
+    ``cuda_graphs`` (the default), unless every program of its table is a
+    CUDA graph, whose count, capture seconds and pool bytes a ``[graphs]``
+    line gives beside the decode ticks' median.  ``label`` follows
+    ``what`` on the printed lines.  A graphed run without a mesh is kept in
     ``SERVED`` with its requests' factory for phase 6b."""
     import torch
     from repro_torch.configs import get_config
@@ -2031,14 +2050,18 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
     engine.warmup()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
+    compiled = (engine.stats.prefill_compiles, engine.stats.decode_compiles)
     reqs = make_requests()
+    ticks = record_decode_ticks(engine)
     reset_counts()
     drive(engine, reqs)
     counts = read_counts()
     plan, s = engine.policy, engine.stats.summary()
+    graphed = "mesh" not in engine_kw and engine_kw.get("cuda_graphs", True)
     run = dict(reqs=reqs, counts=counts, plan=plan, s=s,
-               tbt_ms=tbt_ms(engine.stats))
-    if "mesh" not in engine_kw:
+               tbt_ms=tbt_ms(engine.stats), decode_ms=ticks,
+               graphs=engine.graph_report(), programs=len(engine._table))
+    if graphed:
         SERVED[what] = dict(run, cfg=cfg, engine_kw=engine_kw,
                             make_requests=make_requests, drive=drive)
     name = what + label
@@ -2068,6 +2091,14 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
                     for ph, d in pl["drift"].get("phases", {}).items()))
     say(f"[serve] {name} summary {json.dumps(s)}")
     programs_report(name, s, engine, card)
+    g = run["graphs"]
+    if graphed:
+        say(f"[graphs] {name} on {card}: {g['graphs']} CUDA graphs of "
+            f"{run['programs']} programs, captured (first call and capture) "
+            f"in {g['capture_s']:.3f} s, one pool of {g['pool_bytes']} bytes "
+            f"({g['pool_bytes'] / 2 ** 20:.1f} MiB); decode step median "
+            f"{median(ticks):.3f} ms over {len(ticks)} steps (min "
+            f"{min(ticks):.3f}, max {max(ticks):.3f})")
     want = SERVE_LAUNCHES[what]
     paged = cfg.layer_kinds.count("attn") if "kv" in s else 0
     check_all(f"serve {name}", {
@@ -2081,11 +2112,64 @@ def serve_auto(what: str, cfg, model, card: str, engine_kw: dict,
             and plan.backend == "cuda"
             and all(p.kernel == "cuda" for p in plan.policies),
         "the placement drift is reported": bool(pl["drift"]),
+        "no program compiled after warmup":
+            (s["prefill_compiles"], s["decode_compiles"]) == compiled,
+        "every program a CUDA graph, or none without them":
+            g["graphs"] == (run["programs"] if graphed else 0),
         **profile_checks(name, cfg.name, calls, [engine]),
     })
     del engine
     release()
     return run
+
+
+def record_decode_ticks(engine) -> list:
+    """The duration of each decode tick ``engine`` times from now on, in
+    ms (the ``decode`` program's observations)."""
+    ticks = []
+    observe = engine.programs.observe
+
+    def recorded(name, dur, **kw):
+        if name == "decode":
+            ticks.append(1e3 * dur)
+        return observe(name, dur, **kw)
+
+    engine.programs.observe = recorded
+    return ticks
+
+
+#: the meshless paths phase 6 serves again with ``cuda_graphs=False``:
+#: their tokens and launches must be the graphed run's
+EAGER_ARCHS = ("qwen3-0.6b", "recurrentgemma-2b", "falcon-mamba-7b",
+               "phi3.5-moe-42b-a6.6b")
+
+
+def serve_eager(what: str, cfg, model, card: str, engine_kw: dict,
+                make_requests, drive, run: dict) -> None:
+    """``run``'s requests again through ``serve_auto`` with
+    ``cuda_graphs=False``, outside the paths' launch totals: fails unless
+    every request's tokens (greedy and sampled) and the launches are the
+    graphed run's; prints the two runs' decode step medians on a
+    ``[graphs]`` line."""
+    eager = serve_auto(what, cfg, model, card,
+                       dict(engine_kw, cuda_graphs=False), make_requests,
+                       drive, label=" eager")
+    got = [r.generated for r in run["reqs"]]
+    want = [r.generated for r in eager["reqs"]]
+    g, e = median(run["decode_ms"]), median(eager["decode_ms"])
+    say(f"[graphs] {what} graphed against eager on {card}: decode step "
+        f"median {g:.3f} ms graphed, {e:.3f} ms eager ({e / g:.2f}x) over "
+        f"{len(run['decode_ms'])} and {len(eager['decode_ms'])} steps; "
+        f"tokens/s {run['s']['tokens_per_s']:.1f} and "
+        f"{eager['s']['tokens_per_s']:.1f}; TTFT p50 "
+        f"{run['s']['ttft_ms']['p50']:.2f} and "
+        f"{eager['s']['ttft_ms']['p50']:.2f} ms; first divergent token "
+        f"{first_divergence(got, want)}")
+    check_all(f"graphs {what}", {
+        "the graphed run's tokens are the eager run's": got == want,
+        "the graphed run's launches are the eager run's":
+            run["counts"] == eager["counts"],
+    })
 
 
 def tbt_ms(stats) -> dict:
@@ -2301,12 +2385,17 @@ def phase_serve(seed: int, card: str, arch: str = "qwen3-0.6b",
     else:
         run = serve_auto(arch, cfg, model, card, kw, make_requests, drive)
         counts = run["counts"]
+    if arch in EAGER_ARCHS:
+        serve_eager(arch, cfg, model, card, kw, make_requests, drive, run)
     s = run["s"]
     if arch == MEMORY_ARCH:
         program_memory_line(arch, s, card)
+    if arch == PROFILED_ARCH:
+        for graphs in (True, False):
+            decode_profile(arch, cfg, model, card, cuda_graphs=graphs)
     if cfg.ffn_kind == "moe":
         moe_serve_line(arch, cfg, s, kw["slots"], card)
-        moe_decode_profile(arch, cfg, model, card)
+        decode_profile(arch, cfg, model, card)
     say(f"[serve] {arch} prefix hits {s['kv']['prefix_hits']} "
         f"({s['kv']['prefix_tokens_reused']} tokens, "
         f"{s['kv']['blocks_copied']} COW), blocks peak "
@@ -2369,16 +2458,44 @@ def moe_serve_line(arch: str, cfg, s: dict, slots: int, card: str) -> None:
         f"a fault")
 
 
-#: the profiled MoE decode window: ticks, once every slot decodes
+#: the profiled decode window: ticks, once every slot decodes
 PROFILED_TICKS = 8
+#: the dense path whose decode window is profiled on both routes (the MoE
+#: paths' on the graphed one)
+PROFILED_ARCH = "qwen3-0.6b"
 
 
-def moe_decode_profile(arch: str, cfg, model, card: str) -> None:
+#: the device functions each launch counter stands for, by the counter's
+#: name in ``launch_counters``: one launch counted is one launch of each
+#: group here (a paged call is its split and its combine kernel)
+PROFILED_KERNELS = {
+    "flash": (("flash_tc_kernel", "flash_f32_kernel"),),
+    "paged": (("paged_split_kernel",), ("paged_combine_kernel",)),
+    "rglru": (("rglru_ring_kernel", "rglru_scan_kernel"),),
+    "ssm": (("ssm_ring_kernel", "ssm_direct_kernel"),),
+}
+
+
+def profiled_launches(kernels: list[dict]) -> dict:
+    """The profiler's device launches of each group of ``PROFILED_KERNELS``
+    (its names matched in the kernels' device names)."""
+    return {f"{name} {'/'.join(group)}": sum(
+        k["launches"] for k in kernels if any(g in k["name"] for g in group))
+        for name, groups in PROFILED_KERNELS.items() for group in groups}
+
+
+def decode_profile(arch: str, cfg, model, card: str,
+                   cuda_graphs: bool = True,
+                   kv_block_size: int | None = 16) -> None:
     """``PROFILED_TICKS`` decode ticks of 4 busy slots under
     ``torch.profiler`` (``obs.profile_trace``, into a temporary
-    directory), after the measured serve and outside its launch count: the
-    wall time a tick, the card's busy share, and the kernels that took
-    most of the card's time."""
+    directory), on the graphed or the eager route, after the measured
+    serve and outside its launch count: the wall time a tick, the card's
+    busy share, and the kernels that took most of the card's time.  Fails
+    unless the card ran each port kernel as many times in the window as
+    its launch counter moved (``PROFILED_KERNELS``): on the graphed route
+    the counters add what each capture counted, so only the profiler sees
+    whether the kernels were nodes of the replayed graphs."""
     import tempfile
     import numpy as np
     import torch
@@ -2387,8 +2504,9 @@ def moe_decode_profile(arch: str, cfg, model, card: str) -> None:
     from repro_torch.serve.engine import Request
     from repro_torch.configs import get_config
     engine = build_engine(cfg, model, policy="auto", slots=4, max_len=1024,
-                          kv_block_size=16, max_bucket=256,
-                          plan_cfg=get_config(cfg.name))
+                          kv_block_size=kv_block_size, max_bucket=256,
+                          plan_cfg=get_config(cfg.name),
+                          cuda_graphs=cuda_graphs)
     rng = np.random.RandomState(1)
     reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size,
                                               24).tolist(),
@@ -2398,15 +2516,29 @@ def moe_decode_profile(arch: str, cfg, model, card: str) -> None:
     while not all(r.generated for r in reqs):     # all admitted, decoding
         engine.step()
     torch.cuda.synchronize()
+    before = read_counts()
     with tempfile.TemporaryDirectory() as tmp, \
-            profile_trace(tmp, device=torch.device("cuda")) as prof:
+            profile_trace(tmp, device=torch.device("cuda"), top=None) as prof:
         for _ in range(PROFILED_TICKS):
             engine.step()
+    after = read_counts()
     if prof["device_busy_ms"] is None:
         fail(f"{arch}: the profiler saw no device time")
     top = prof["top_kernels"][:5]
     busy = prof["device_busy_ms"]
-    say(f"[serve] {arch} MoE decode profiled on {card}: {PROFILED_TICKS} "
+    route = "graphed" if cuda_graphs else "eager"
+    seen = profiled_launches(prof["top_kernels"])
+    counted = {key: after[key.split()[0]] - before[key.split()[0]]
+               for key in seen}
+    say(f"[serve] {arch} decode profiled, {route}: the card's launches of "
+        f"the port's kernels in the window {seen}, the counters' "
+        f"{counted}")
+    check_all(f"{arch} decode profile ({route})", {
+        "a port kernel ran in the window": any(seen.values()),
+        **{f"the card ran {key} as often as its counter moved":
+           seen[key] == counted[key] for key in seen}})
+    say(f"[serve] {arch} decode profiled, {route}, on {card}: "
+        f"{PROFILED_TICKS} "
         f"ticks of 4 slots, {prof['wall_ms'] / PROFILED_TICKS:.2f} ms a "
         f"tick, the card busy {busy / PROFILED_TICKS:.2f} ms a tick (idle "
         f"{100 * prof['device_idle_share']:.2f}%), "
@@ -2452,9 +2584,11 @@ def phase_serve_recurrent(seed: int, card: str):
                             temperature=0.8, top_k=50, top_p=0.9, seed=seed))
         return reqs
 
-    run, counts = serve_pair("recurrentgemma-2b", cfg, model, card,
-                             dict(slots=4, max_len=4096, max_bucket=256),
+    kw = dict(slots=4, max_len=4096, max_bucket=256)
+    run, counts = serve_pair("recurrentgemma-2b", cfg, model, card, kw,
                              make_requests, run_all)
+    serve_eager("recurrentgemma-2b", cfg, model, card, kw, make_requests,
+                run_all, run)
     s = run["s"]
     serve_checks("recurrentgemma-2b", cfg, run, new, {
         "prefill_chunks >= 9": s["prefill_chunks"] >= 9,
@@ -2493,9 +2627,12 @@ def phase_serve_mamba(seed: int, card: str):
                             temperature=0.8, top_k=50, top_p=0.9, seed=seed))
         return reqs
 
-    run, counts = serve_pair("falcon-mamba-7b", cfg, model, card,
-                             dict(slots=4, max_len=4096, max_bucket=256),
+    kw = dict(slots=4, max_len=4096, max_bucket=256)
+    run, counts = serve_pair("falcon-mamba-7b", cfg, model, card, kw,
                              make_requests, run_all)
+    serve_eager("falcon-mamba-7b", cfg, model, card, kw, make_requests,
+                run_all, run)
+    decode_profile("falcon-mamba-7b", cfg, model, card, kv_block_size=None)
     s = run["s"]
     serve_checks("falcon-mamba-7b", cfg, run, new, {
         "prefill_chunks >= 4": s["prefill_chunks"] >= 4,
@@ -3021,33 +3158,22 @@ def phase_cp_serve(seed: int, card: str) -> dict:
     return total
 
 
-def phase_cp_encdec(seed: int, card: str) -> dict:
-    """6d (b): full-width seamless-m4t-medium (12 + 12 layers, vocab
-    256,206), bf16, weights from the seed: ``encode`` of
-    ``ENCDEC_FRAMES`` source frames, a ``prefill(memory=)`` of
-    ``ENCDEC_PROMPT`` tokens and ``ENCDEC_STEPS`` greedy
-    ``decode_step(memory=)`` calls, the launch counters set to 0 just
-    before; the prefill's and every step's logits held to the same
-    model's no-grad ``forward`` over the same tokens (teacher-forced)
-    within ``ENCDEC_TOL`` (absolute plus relative, as
+def encdec_against_forward(seed: int, cfg, card: str, src, prompt) -> dict:
+    """Full-width seamless-m4t-medium in ``cfg.compute_dtype``: ``encode``
+    of the source frames ``src``, a ``prefill(memory=)`` of ``prompt``
+    and ``ENCDEC_STEPS`` greedy ``decode_step(memory=)`` calls, the launch
+    counters set to 0 just before; the prefill's and every step's logits
+    held to the same model's no-grad ``forward`` over the same tokens
+    (teacher-forced) within ``ENCDEC_TOL`` (absolute plus relative, as
     ``tests/test_models_smoke.py``); the prefill launches flash once an
     encoder layer, non-causal, and once a decoder layer, causal (the
     cross-attention takes ``flash_attention_xla``; a decode step launches
-    nothing).  Then a 2 + 2-layer float32 cut, CPU against card: encode,
-    prefill and 4 decode steps, logits within ``LOGIT_TOL``.  Returns the
-    full-width run's launches."""
+    nothing).  Returns the run's launches."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import attention as attn_lib
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import Model
-    cfg = get_config(ENCDEC)
     model = build_model(cfg, device="cuda", seed=seed)
-    gen = torch.Generator().manual_seed(seed)
-    b = 2
-    src = torch.randn((b, ENCDEC_FRAMES, cfg.d_model), generator=gen).cuda()
-    prompt = torch.randint(1, cfg.vocab_size, (b, ENCDEC_PROMPT),
-                           generator=gen, dtype=torch.int32).cuda()
+    b = prompt.shape[0]
     causal = []
     flash = attn_lib.flash_attention
 
@@ -3092,7 +3218,8 @@ def phase_cp_encdec(seed: int, card: str) -> dict:
     raw = max((g - want[:, i]).abs().max().item() for i, g in enumerate(got))
     scale = want.abs().max().item()
     say(f"[cp] {ENCDEC} full width ({cfg.enc_layers} + {cfg.num_layers} "
-        f"layers, vocab {cfg.vocab_size}), bf16, on {card}: encode of "
+        f"layers, vocab {cfg.vocab_size}), {cfg.compute_dtype}, on {card}: "
+        f"encode of "
         f"{ENCDEC_FRAMES} frames and prefill of {b} x {ENCDEC_PROMPT} tokens "
         f"{prefill_ms:.2f} ms, {ENCDEC_STEPS} decode steps median "
         f"{median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
@@ -3102,7 +3229,7 @@ def phase_cp_encdec(seed: int, card: str) -> dict:
         f"{len(calls)}: {calls.count(False)} non-causal, "
         f"{calls.count(True)} causal; launches "
         f"{ {k: v for k, v in counts.items() if v} }")
-    check_all(f"{ENCDEC} serve", {
+    check_all(f"{ENCDEC} serve {cfg.compute_dtype}", {
         "finite logits": all(bool(torch.isfinite(g).all()) for g in got),
         "decode logits within the teacher-forced forward's tolerance":
             worst <= ENCDEC_TOL,
@@ -3116,6 +3243,30 @@ def phase_cp_encdec(seed: int, card: str) -> dict:
     })
     del model, states, memory, full
     release()
+    return counts
+
+
+def phase_cp_encdec(seed: int, card: str) -> dict:
+    """6d (b): full-width seamless-m4t-medium (12 + 12 layers, vocab
+    256,206), weights from the seed, against its teacher-forced forward
+    (``encdec_against_forward``) in bf16, as it serves, and once in
+    float32, which tells the bf16 routes' share of the gap from the decode
+    path's.  Then a 2 + 2-layer float32 cut, CPU against card: encode,
+    prefill and 4 decode steps, logits within ``LOGIT_TOL``.  Returns the
+    bf16 run's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Model
+    cfg = get_config(ENCDEC)
+    gen = torch.Generator().manual_seed(seed)
+    b = 2
+    src = torch.randn((b, ENCDEC_FRAMES, cfg.d_model), generator=gen).cuda()
+    prompt = torch.randint(1, cfg.vocab_size, (b, ENCDEC_PROMPT),
+                           generator=gen, dtype=torch.int32).cuda()
+    counts = encdec_against_forward(seed, cfg, card, src, prompt)
+    encdec_against_forward(seed, cfg.replace(compute_dtype="float32"), card,
+                           src, prompt)
     cut = cfg.replace(num_layers=2, enc_layers=2, compute_dtype="float32")
     cpu = build_model(cut, device="cpu", seed=seed)
     gpu = Model(cut, device="cuda")

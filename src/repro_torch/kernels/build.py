@@ -34,6 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+#: every kernel's launch counter, in the order the wrappers made them (a
+#: CUDA graph of the serving engine adds what its capture counted at each
+#: replay: ``serve/graphs.py``)
+COUNTERS: list["LaunchCounter"] = []
+
 
 class LaunchCounter:
     """Launches of one kernel, counted by its wrapper at the launch."""
@@ -41,6 +46,7 @@ class LaunchCounter:
 
     def __init__(self):
         self.n = 0
+        COUNTERS.append(self)
 
     def reset(self) -> None:
         self.n = 0

@@ -135,7 +135,8 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
                  prefix_cache: bool = True, device: str = "cuda",
                  seed: int = 0, plan_cfg=None, profiles=None, policy="auto",
                  program_memory: bool = False, mesh=None,
-                 param_strategy: str = "tp") -> ServeEngine:
+                 param_strategy: str = "tp",
+                 cuda_graphs: bool = True) -> ServeEngine:
     """An engine for ``cfg`` over ``model`` (default: a model with random
     weights from ``seed`` on ``device``).  ``max_bucket`` caps the prefill
     buckets below max_len so longer prompts run the chunked path;
@@ -166,7 +167,8 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
     its plan raises, as the reference's does); on a mesh ``plan_cfg`` also
     decides the weights' layout (``ServeEngine``'s ``layout_cfg``: a cut
     of a >20B arch splits its dense weights over ``data`` as the full
-    config does)."""
+    config does).  ``cuda_graphs``: ``ServeEngine``'s (False: every
+    program eagerly on the card; the CLI has no flag for it)."""
     backend = (model.device if model is not None
                else torch.device(device)).type
     plan = _resolve_policy(cfg, policy, backend, slots=slots,
@@ -198,7 +200,8 @@ def build_engine(cfg, model=None, *, slots: int = 4, max_len: int = 256,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
         prefix_cache=prefix_cache, policy=plan,
         program_memory=program_memory, mesh=mesh,
-        param_strategy=param_strategy, layout_cfg=plan_cfg, **phases)
+        param_strategy=param_strategy, layout_cfg=plan_cfg,
+        cuda_graphs=cuda_graphs, **phases)
 
 
 def build_disagg_engine(cfg, model=None, *, prefill_slots: int = 4,

@@ -171,8 +171,7 @@ def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     under ``mask`` (B,C,L) -> (B,C,KVH*G,hd) float32."""
     b, c, kvh, g, hd = qg.shape
     s = torch.einsum("bqnGd,bknd->bnGqk", qg, k.float())
-    s = torch.where(mask[:, None, None], s,
-                    torch.tensor(NEG_INF, device=qg.device))
+    s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bnGqk,bknd->bnGqd", p, v.float())
     return out.permute(0, 3, 1, 2, 4).reshape(b, c, kvh * g, hd)

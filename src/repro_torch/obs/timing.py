@@ -68,13 +68,15 @@ def _busy_us(spans: list[tuple[float, float]]) -> float:
 
 
 @contextmanager
-def profile_trace(profile_dir, *, device: torch.device, top: int = 25):
+def profile_trace(profile_dir, *, device: torch.device,
+                  top: int | None = 25):
     """Run the body under ``torch.profiler`` when ``profile_dir`` is truthy
     (yielding None otherwise).  Writes ``trace.json`` (Chrome trace),
     ``ops.txt`` (ops by self device time) and ``summary.json`` into the
     directory, and fills the yielded dict with the summary: the section's
     wall ms, the card's busy ms (the union of its kernels' intervals) and
-    idle share, and the ``top`` kernels by total device time.  On the CPU
+    idle share, and the ``top`` kernels by total device time (None: every
+    kernel, each with its name and launches).  On the CPU
     the card's numbers are None: nothing ran there."""
     if not profile_dir:
         yield None

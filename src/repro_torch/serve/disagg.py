@@ -428,8 +428,7 @@ class DisaggEngine:
 
     def recompiles_since(self, warm: dict) -> int:
         """Growth of either role's compiled programs since a ``summary()``
-        taken right after warmup — the zero-recompile gate.  The port runs
-        eagerly, so both counts stay 0 until its steps become CUDA graphs."""
+        taken right after warmup — the zero-recompile gate."""
         cur = self.summary()
         rec = 0
         for role in ROLES:

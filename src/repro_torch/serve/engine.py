@@ -12,17 +12,31 @@ resuming at ``offset``; a partial-block prefix hit clones one block
 (copy-on-write); every tick ends with one lockstep decode step whose
 ``active`` mask freezes dead and mid-prefill slots bit for bit.
 
-Where the JAX engine compiles programs that return a new state tree, the
-port runs the model eagerly; each eager section keeps the name of the JAX
-program it stands for (``ProgramRegistry``, below).  The state design is
-the JAX engine's: a batched prefill runs on fresh batch-N states (paged
-layers adopt the live pool, whose writes from padding rows drop through
-all-sentinel table rows) and only the real rows are spliced into their
-slots; a chunk runs on a batch-1 copy of its slot's states and is spliced
-back.  Decode updates the slot pool in place; rows frozen by ``active``
-keep every bit.  A fresh prefill state starts at zero, and a chunk at
-offset 0 zeroes the carried recurrent state, so a recycled slot never sees
-its last request.
+Where the JAX engine compiles one program for each shape of its inventory
+(``jax.jit``, the pool state donated), the port keeps a program table
+(``serve/graphs.py``): an entry for each (program name, the call's
+shapes), prepared by the call that first meets it — ``warmup()`` meets
+them all.  On a card with no mesh an entry is a CUDA graph, captured once
+over static input buffers and replayed at every later call, all of an
+engine's graphs in one memory pool; on the CPU, on a mesh, and with
+``cuda_graphs=False`` (the counterpart of ``jax.disable_jit``) it is the
+eager call.  ``prefill_compiles`` counts the entries of prefill, chunk,
+copy and export, ``decode_compiles`` those of decode and import, as the
+reference's jit caches count them.  Every program writes the engine's
+state tensors in place and never rebinds them: a state leaf that a model
+call returns anew is copied back as the program's last step, and
+``warmup()`` zeroes the states in place.  Sampling stays outside the
+programs: its per-row generators are seeded on the host, and its count of
+nonfinite rows and its token list are the tick's one sync.
+
+The state design is the JAX engine's: a batched prefill runs on fresh
+batch-N states (zeroed inside the program; paged layers adopt the live
+pool, whose writes from padding rows drop through all-sentinel table
+rows) and only the real rows are spliced into their slots; a chunk runs
+on a batch-1 copy of its slot's states and is spliced back.  Decode
+updates the slot pool in place; rows frozen by ``active`` keep every bit.
+A fresh prefill state starts at zero, and a chunk at offset 0 zeroes the
+carried recurrent state, so a recycled slot never sees its last request.
 
 Every engine carries a placement plan (``serve/placement.py``): the
 placement oracle's (``policy=``), whose bucket ladder and prefill chunk it
@@ -43,9 +57,10 @@ histograms, tokens per tick, prefill padding waste, memory gauges) go to
 
 Every program of the warmed inventory — ``prefill[{nb}x{b}]``, ``chunk``,
 ``copy``, ``decode``, and ``export``/``import`` on role engines — registers
-in ``self.programs`` (``obs/programs.ProgramRegistry``) right before its
-warmup call, with an analytic count of its FLOPs and bytes at that shape
-(``program_memory=True`` adds the call's memory); each timed section then
+in ``self.programs`` (``obs/programs.ProgramRegistry``) right before the
+warmup call that prepares its table entry, with an analytic count of its
+FLOPs and bytes at that shape (``program_memory=True`` adds the call's
+memory); each timed section then
 feeds its duration back under that name.  ``summary()`` reports the
 ``programs`` section (live FLOP/s, bytes/s and shares of the H100's
 roofline) and, under a plan with clusters, ``placement.drift.clusters``.
@@ -97,6 +112,7 @@ from ..obs import MetricsRegistry, ProgramRegistry, Timed, Tracer, \
     drift_report, plan_predictions, program_cost
 from ..obs.programs import measure_call
 from . import sharded
+from .graphs import EagerProgram, GraphProgram, shapes
 from .kvpool import PagedKVManager
 from .placement import PlacementPlan, fixed_plan
 from .sampling import sample_tokens
@@ -139,6 +155,9 @@ NOT_PORTED_STATS: dict[str, str] = {}
 PROGRAM_PHASES = {"prefill": "prefill", "chunk": "prefill", "copy": "kv",
                   "decode": "decode", "export": "handoff",
                   "import": "handoff"}
+#: the program kinds ``decode_compiles`` counts; every other kind counts in
+#: ``prefill_compiles`` (the reference's ``_sync_compile_stats``)
+DECODE_PROGRAMS = ("decode", "import")
 
 #: tracer track of the queue-level request events; slot ``i`` is on
 #: ``1 + i``, engine-wide spans (decode ticks, warmup, block copies) on
@@ -173,9 +192,7 @@ class EngineStats:
     ticks: int = 0
     bucket_counts: dict = field(default_factory=dict)
     batch_counts: dict = field(default_factory=dict)   # rows per prefill call
-    # the port runs its programs eagerly: nothing is compiled or captured,
-    # so both stay 0 until the decode and prefill steps become CUDA graphs
-    # (ROADMAP A2)
+    # entries of the engine's program table (CUDA graphs on a card)
     prefill_compiles: int = 0
     decode_compiles: int = 0
     wall_time_s: float = 0.0
@@ -359,7 +376,7 @@ class ServeEngine:
                  prefill_model: Model | None = None,
                  decode_model: Model | None = None,
                  mesh=None, param_strategy: str = "tp",
-                 layout_cfg=None):
+                 layout_cfg=None, cuda_graphs: bool = True):
         """``min_bucket``: the smallest prompt bucket of the default ladder.
         ``max_prefill_per_step``: queued requests admitted per tick.
         ``max_prefill_batch``: rows of one batched prefill (capped at
@@ -416,7 +433,14 @@ class ServeEngine:
         plan); see ``launch.shardings.param_specs``.  ``layout_cfg``: the
         config whose flags decide that layout (default ``model.cfg``; the
         full config of a cut model, whose size turns on the 2-D split of
-        the dense weights)."""
+        the dense weights).
+
+        ``cuda_graphs``: on a card and with no mesh, each program of the
+        inventory runs as a CUDA graph captured at its first call (see the
+        module's docstring); False runs each as its eager call, the
+        counterpart of ``jax.disable_jit``, which the card's tests and
+        ``chip_smoke.py`` hold the graphs to.  The CPU and a mesh always
+        run the eager calls."""
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role {role!r} not in "
                              f"('both', 'prefill', 'decode')")
@@ -513,6 +537,14 @@ class ServeEngine:
             self._state_kw = dict(kv_block_size=kv_block_size,
                                   kv_blocks=kv_blocks)
         self.states = self._init_states()
+        # the program table: (name, input shapes) -> entry (serve/graphs.py)
+        self._table: dict[tuple, EagerProgram | GraphProgram] = {}
+        self._graphed = cuda_graphs and mesh is None \
+            and self.device.type == "cuda"
+        # one memory pool for all of the engine's graphs (a new one only
+        # after a refused capture) and one capture stream
+        self._graph_pools: list = []
+        self._graph_stream = None
         self.requests: list[Request | None] = [None] * slots
         self.positions = np.zeros(slots, np.int32)
         self.samp_temp = np.zeros(slots, np.float32)
@@ -551,8 +583,105 @@ class ServeEngine:
     def _slot_track(self, slot: int) -> int:
         return self.track_base + 1 + slot
 
+    # -------------------------------------------------------- program table
+    def _program(self, name: str, body, *host, fresh: bool = False):
+        """Program ``name`` on the host inputs ``host`` (numpy arrays, device
+        tensors, or trees of them; None where the program takes none)
+        through its table entry, keyed by (``name``, the inputs' shapes).
+        A call whose key has no entry prepares one first — the JAX
+        engine's compile: a CUDA graph of ``body`` on a card without a
+        mesh, else its eager call.  ``body`` computes only from the tensors
+        it is given (a graph replays what it did at the capture); on a
+        mesh it takes the host inputs as they are.  ``fresh``: a graph's
+        outputs are returned as copies (a suitcase outlives the next
+        replay)."""
+        key = (name, shapes(host))
+        entry = self._table.get(key)
+        if entry is None:
+            if self._graphed and self._capturable(name):
+                if not self._graph_pools:
+                    self._graph_pools.append(torch.cuda.graph_pool_handle())
+                    self._graph_stream = torch.cuda.Stream(self.device)
+                try:
+                    entry = GraphProgram(body, host, device=self.device,
+                                         pool=self._graph_pools[-1],
+                                         stream=self._graph_stream)
+                except Exception:
+                    # a refused capture leaves its pool marked as recording
+                    # (torch's allocator): later captures take a new pool
+                    self._graph_pools.append(torch.cuda.graph_pool_handle())
+                    raise
+            else:
+                entry = self._eager_entry()
+            self._table[key] = entry
+        return entry(body, host, fresh)
+
+    def _capturable(self, name: str) -> bool:
+        """Whether program ``name`` can be one CUDA graph: not where its
+        model takes the MoE's ``ragged`` route, whose group sizes cross to
+        the host (``models/moe.py``).  No serving profile picks that route
+        (``core/executor.py``); a model given it keeps the program eager on
+        the card, as declared here, never as a fallback."""
+        kind = name.split("[")[0]
+        model = {"prefill": self.prefill_model, "chunk": self.prefill_model,
+                 "decode": self.decode_model}.get(kind)
+        return model is None or model.cfg.ffn_kind != "moe" \
+            or model.cfg.moe_impl != "ragged"
+
+    def _body(self, kind: str):
+        """Program ``kind``'s body: ``_{kind}_program``, which takes device
+        tensors (and which a graph captures), or on a mesh ``_{kind}_mesh``,
+        the eager DTensor route, which takes the host inputs."""
+        return getattr(self, f"_{kind}_"
+                       + ("mesh" if self.mesh is not None else "program"))
+
+    def _eager_entry(self) -> EagerProgram:
+        """A program's eager call: on a mesh its body takes the host
+        inputs, else their device copies."""
+        return EagerProgram(self._device_input if self.mesh is None
+                            else None)
+
+    def _sync_compile_stats(self) -> None:
+        """The table's entries as the reference's jit caches count them."""
+        kinds = [name.split("[")[0] for name, _ in self._table]
+        decode = sum(k in DECODE_PROGRAMS for k in kinds)
+        self.stats.prefill_compiles = len(kinds) - decode
+        self.stats.decode_compiles = decode
+
+    def graph_report(self) -> dict:
+        """The engine's CUDA graphs: how many, the seconds their first
+        calls and captures took, and the bytes of their memory pool (the
+        caching allocator's segments of that pool; None without a
+        graph)."""
+        entries = [e for e in self._table.values()
+                   if isinstance(e, GraphProgram)]
+        pool = None
+        if self._graph_pools:
+            pools = {tuple(p) for p in self._graph_pools}
+            pool = sum(seg["total_size"]
+                       for seg in torch.cuda.memory_snapshot()
+                       if tuple(seg.get("segment_pool_id", ())) in pools)
+        return {"graphs": len(entries),
+                "capture_s": sum(e.capture_s for e in entries),
+                "pool_bytes": pool}
+
+    def _zero_states(self) -> None:
+        """Every state tensor zeroed in place: the tensors a graph holds
+        stay the engine's."""
+        for st in self.states:
+            for a in (st.kv if st.kv is not None else st.rec.values()):
+                a.zero_()
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)      # a copy, never a view
+
+    def _device_input(self, a):
+        """An eager program's input: a host array copied to the device, a
+        device tensor as it is."""
+        return self._tensor(a) if isinstance(a, np.ndarray) else a
+
+    def _host_rows(self, a: np.ndarray | None) -> torch.Tensor | None:
+        return None if a is None else self._rows(a)
 
     def _rows(self, a: np.ndarray) -> torch.Tensor:
         """A batch-major host input of a model call: on a mesh a DTensor
@@ -609,6 +738,7 @@ class ServeEngine:
             self.kv.reset_stats()
         self.programs.reset_observed()
         self._init_kv_stats()
+        self._sync_compile_stats()
         self._sync_kv_stats()
 
     def _sync_kv_stats(self) -> None:
@@ -749,27 +879,33 @@ class ServeEngine:
         self._sync_kv_stats()
         return admitted
 
-    def _copy_blocks(self, src: int, dst: int) -> None:
-        """Clone physical block ``src`` into ``dst`` in every layer's pool —
-        the copy-on-write step of a partial-block prefix hit."""
+    def _copy_program(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """The ``copy`` program: clone physical block ``src`` (1,) into
+        ``dst`` (1,) in every layer's pool — the copy-on-write step of a
+        partial-block prefix hit."""
         for st in self.states:
             if isinstance(st.kv, PagedKVCache):
                 for pool in (st.kv.k, st.kv.v):
-                    if spmd.is_dtensor(pool):
-                        sharded.copy_block(pool, src, dst)
-                    else:
-                        pool[dst] = pool[src]
+                    pool.index_copy_(0, dst, pool.index_select(0, src))
+
+    def _copy_mesh(self, src: np.ndarray, dst: np.ndarray) -> None:
+        for st in self.states:
+            if isinstance(st.kv, PagedKVCache):
+                for pool in (st.kv.k, st.kv.v):
+                    sharded.copy_block(pool, int(src[0]), int(dst[0]))
 
     def _run_copy(self, src: int, dst: int) -> None:
         with self._timed("kv_copy") as tm:
-            self._copy_blocks(src, dst)
+            self._program("copy", self._body("copy"),
+                          np.asarray([src], np.int64),
+                          np.asarray([dst], np.int64))
             tm.sync()
         self.programs.observe("copy", tm.dur, phase="kv", program="_copy")
         self.tracer.span("kv_copy", self._trk_engine, tm.t0, tm.t1,
                          (("src", src), ("dst", dst)))
 
     def _tables_for(self, slot_ids: list[int],
-                    rows: int) -> torch.Tensor | None:
+                    rows: int) -> np.ndarray | None:
         """(rows, blocks_per_slot) block-table rows for the given slots;
         rows beyond ``slot_ids`` are all-sentinel, so their writes drop.
         None without a paged pool."""
@@ -779,18 +915,23 @@ class ServeEngine:
                      np.int32)
         for i, s in enumerate(slot_ids):
             bt[i] = self.kv.table[s]
-        return self._rows(bt)
+        return bt
 
     # ------------------------------------------------- fresh prefill states
     def _fresh_states(self, n: int) -> list[BlockState]:
         """Zeroed batch-``n`` states for a prefill group; paged layers adopt
         the live pool (global blocks) with zero lengths
-        (``repro.serve.engine._adopt_pool_kv``)."""
+        (``repro.serve.engine._adopt_pool_kv``).  Inside a graph these are
+        buffers of its pool that each replay zeroes first."""
         out = []
         for i, st in enumerate(self.states):
             if isinstance(st.kv, PagedKVCache):
-                out.append(BlockState(kv=PagedKVCache(
-                    st.kv.k, st.kv.v, self._rows(np.zeros((n,), np.int32)))))
+                length = torch.zeros((n,), dtype=torch.int32,
+                                     device=self.device) \
+                    if self.mesh is None \
+                    else self._rows(np.zeros((n,), np.int32))
+                out.append(BlockState(kv=PagedKVCache(st.kv.k, st.kv.v,
+                                                      length)))
             else:
                 out.append(self.prefill_model.init_block_state(
                     i, n, self.max_len))
@@ -802,6 +943,24 @@ class ServeEngine:
                 for st, sp in zip(out, specs)]
 
     # -------------------------------------------------------------- prefill
+    def _prefill_program(self, toks, lens, slot_ids, keep, table):
+        """The ``prefill[{nb}x{b}]`` program: the padded (nb, b) prefill
+        on fresh states, each kept row spliced into its slot
+        (``slot_ids``: nb distinct slots); returns the logits (nb, 1, V)."""
+        logits, rows = self.prefill_model.prefill(
+            toks, self._fresh_states(toks.shape[0]), length=lens,
+            block_table=table)
+        _splice_rows(self.states, rows, slot_ids, keep)
+        return logits
+
+    def _prefill_mesh(self, toks, lens, slot_ids, keep, table):
+        logits, rows = self.prefill_model.prefill(
+            self._rows(toks), self._fresh_states(toks.shape[0]),
+            length=self._rows(lens), block_table=self._host_rows(table))
+        if keep.any():
+            _splice_states(self.states, rows, slot_ids[keep].tolist())
+        return self._full(logits)
+
     def _prefill_group(self, bucket: int, members: list) -> None:
         n = len(members)
         nb = bucket_for(n, self.batch_buckets)
@@ -811,14 +970,16 @@ class ServeEngine:
             toks[i, :len(req.prompt)] = req.prompt
             lens[i] = len(req.prompt)
         slots_real = [slot for slot, _ in members]
+        # padding rows name slots outside the group, which the splice
+        # rewrites with their own bits: the nb slots of a splice are distinct
+        others = [s for s in range(self.slots) if s not in slots_real]
+        slot_ids = np.asarray(slots_real + others[:nb - n], np.int64)
+        keep = np.arange(nb) < n
         with self._timed("prefill") as tm:
-            logits, rows = self.prefill_model.prefill(
-                self._rows(toks), self._fresh_states(nb),
-                length=self._rows(lens),
-                block_table=self._tables_for(slots_real, nb))
-            _splice_states(self.states, rows, slots_real)
-            first = self._sample(self._full(logits)[:n, 0], slots_real,
-                                 lens[:n])
+            logits = self._program(
+                f"prefill[{nb}x{bucket}]", self._body("prefill"), toks, lens,
+                slot_ids, keep, self._tables_for(slots_real, nb))
+            first = self._sample(logits[:n, 0], slots_real, lens[:n])
             tm.sync()
         now = tm.t1
         st = self.stats
@@ -850,6 +1011,25 @@ class ServeEngine:
             elif self.role == "prefill":
                 self._stage_ready(slot, now)
 
+    def _chunk_program(self, toks, lens, offs, slot, keep, table):
+        """The ``chunk`` program: the (1, C) chunk resumed at ``offs`` on a
+        batch-1 copy of slot ``slot`` (1,), spliced back where ``keep``;
+        returns the logits (1, 1, V)."""
+        logits, row = self.prefill_model.prefill(
+            toks, _gather_rows(self.states, slot), length=lens, offset=offs,
+            block_table=table)
+        _splice_rows(self.states, row, slot, keep)
+        return logits
+
+    def _chunk_mesh(self, toks, lens, offs, slot, keep, table):
+        logits, row = self.prefill_model.prefill(
+            self._rows(toks), _gather_slot(self.states, int(slot[0])),
+            length=self._rows(lens), offset=self._rows(offs),
+            block_table=self._host_rows(table))
+        if keep[0]:
+            _splice_states(self.states, row, [int(slot[0])])
+        return self._full(logits)
+
     def _advance_chunk(self, slot: int) -> None:
         req = self.requests[slot]
         off = self._prefilling[slot]
@@ -859,16 +1039,14 @@ class ServeEngine:
         toks = np.zeros((1, c), np.int64)
         toks[0, :n] = piece
         with self._timed("prefill_chunk") as tm:
-            logits, rows = self.prefill_model.prefill(
-                self._rows(toks), _gather_slot(self.states, slot),
-                length=self._rows(np.asarray([n], np.int32)),
-                offset=self._rows(np.asarray([off], np.int32)),
-                block_table=self._tables_for([slot], 1))
-            _splice_states(self.states, rows, [slot])
+            logits = self._program(
+                "chunk", self._body("chunk"), toks, np.asarray([n], np.int32),
+                np.asarray([off], np.int32), np.asarray([slot], np.int64),
+                np.ones((1,), bool), self._tables_for([slot], 1))
             done = off + n >= len(req.prompt)
             # only the final chunk's sampled token is used
-            tok = self._sample(self._full(logits)[:, -1], [slot],
-                               [off + n])[0] if done else None
+            tok = self._sample(logits[:, -1], [slot], [off + n])[0] \
+                if done else None
             tm.sync()
         st = self.stats
         st.prefill_chunks += 1
@@ -916,57 +1094,107 @@ class ServeEngine:
         self.stats.tokens_generated += len(req.generated)
 
     # --------------------------------------------------------------- handoff
-    def _export_slot(self, slot: int,
-                     table_row: list[int] | None) -> list[BlockState]:
-        """Pack slot ``slot`` into a self-contained suitcase
-        (``repro.serve.engine._export_slot``): its batch-1 state row and, for
-        each paged layer, copies of the blocks its ``table_row`` names,
-        clipped to the pool (a sentinel entry copies some block, whose
-        contents the import drops).  The suitcase's shape depends on
-        blocks-per-slot only, so it travels between pools of any size; it
-        holds no view of this pool, which may hand the blocks to another
-        prompt while the suitcase waits."""
-        row = _gather_slot(self.states, slot)
-        if self.kv is None:
+    def _export_program(self, slot, idx) -> list[BlockState]:
+        """The ``export`` program: slot ``slot`` (1,) packed into a
+        self-contained suitcase (``repro.serve.engine._export_slot``): its
+        batch-1 state row and, for each paged layer, copies of the blocks
+        ``idx`` names (its table row clipped to the pool: a sentinel entry
+        copies some block, whose contents the import drops).  The
+        suitcase's shape depends on blocks-per-slot only, so it travels
+        between pools of any size; it holds no view of this pool, which may
+        hand the blocks to another prompt while the suitcase waits."""
+        row = _gather_rows(self.states, slot)
+        if idx is None:
             return row
-        if self.mesh is not None:
-            return [BlockState(kv=PagedKVCache(
-                sharded.read_blocks(st.kv.k, table_row),
-                sharded.read_blocks(st.kv.v, table_row), st.kv.length))
-                if isinstance(st.kv, PagedKVCache) else st for st in row]
-        idx = self._tensor(np.clip(np.asarray(table_row, np.int64), 0,
-                                   self.kv.pool.num_blocks - 1))
         return [BlockState(kv=PagedKVCache(st.kv.k.index_select(0, idx),
                                            st.kv.v.index_select(0, idx),
                                            st.kv.length))
                 if isinstance(st.kv, PagedKVCache) else st for st in row]
 
-    def _import_slot(self, suitcase: list[BlockState], slot: int,
-                     table_row: list[int] | None) -> None:
-        """Unpack a visiting suitcase into slot ``slot``
-        (``repro.serve.engine._import_slot``), IN PLACE: its blocks go to
-        the pool rows ``table_row`` maps, then its batch-1 row is spliced.
-        A sentinel entry (>= the pool's size) is skipped, where the
-        reference drops the write (``mode="drop"``), so the suitcase's
-        padded tail changes no pool row."""
-        if self.kv is not None and self.mesh is not None:
+    def _export_mesh(self, slot, table_row) -> list[BlockState]:
+        row = _gather_slot(self.states, int(slot[0]))
+        if table_row is None:
+            return row
+        ids = table_row.tolist()
+        return [BlockState(kv=PagedKVCache(
+            sharded.read_blocks(st.kv.k, ids),
+            sharded.read_blocks(st.kv.v, ids), st.kv.length))
+            if isinstance(st.kv, PagedKVCache) else st for st in row]
+
+    def _export_call(self, slot: int, table_row: list[int] | None):
+        """(body, host inputs) of the export program for ``slot``."""
+        trow = None if table_row is None else np.asarray(table_row, np.int64)
+        if self.mesh is not None:
+            return self._export_mesh, (np.asarray([slot], np.int64), trow)
+        if trow is not None:
+            trow = np.clip(trow, 0, self.kv.pool.num_blocks - 1)
+        return self._export_program, (np.asarray([slot], np.int64), trow)
+
+    def _export_slot(self, slot: int,
+                     table_row: list[int] | None) -> list[BlockState]:
+        """Slot ``slot``'s suitcase through ``table_row``, made eagerly
+        outside the program table (the decode role's own warm suitcase, as
+        the reference makes it)."""
+        body, host = self._export_call(slot, table_row)
+        return self._eager_entry()(body, host)
+
+    def _import_program(self, suitcase, slot, src, dst, blocks, keep):
+        """The ``import`` program: a visiting suitcase unpacked into slot
+        ``slot`` (1,) (``repro.serve.engine._import_slot``), IN PLACE — its
+        blocks ``src`` into the pool rows ``dst`` where ``blocks``, then
+        its batch-1 row spliced where ``keep``.  ``_import_call`` aims
+        every sentinel entry at the first kept one's pair (or, with none,
+        every entry at block 0, rewritten with its own bits), so duplicate
+        writes carry identical bits and the suitcase's padded tail changes
+        no pool row, where the reference drops the write
+        (``mode="drop"``)."""
+        if src is not None:
             for st, new in zip(self.states, suitcase):
                 if isinstance(st.kv, PagedKVCache):
-                    sharded.write_blocks(st.kv.k, table_row, new.kv.k)
-                    sharded.write_blocks(st.kv.v, table_row, new.kv.v)
-        elif self.kv is not None:
-            keep = [i for i, b in enumerate(table_row)
-                    if b < self.kv.pool.num_blocks]
-            if keep:
-                src = self._tensor(np.asarray(keep, np.int64))
-                dst = self._tensor(np.asarray(table_row, np.int64)[keep])
-                for st, new in zip(self.states, suitcase):
-                    if isinstance(st.kv, PagedKVCache):
-                        for pool, blocks in ((st.kv.k, new.kv.k),
-                                             (st.kv.v, new.kv.v)):
-                            pool.index_copy_(0, dst,
-                                             blocks.index_select(0, src))
-        _splice_states(self.states, suitcase, [slot])
+                    for pool, got in ((st.kv.k, new.kv.k),
+                                      (st.kv.v, new.kv.v)):
+                        mask = blocks.view(-1, *[1] * (pool.dim() - 1))
+                        pool.index_copy_(0, dst, torch.where(
+                            mask, got.index_select(0, src).to(pool.dtype),
+                            pool.index_select(0, dst)))
+        _splice_rows(self.states, suitcase, slot, keep)
+
+    def _import_mesh(self, suitcase, slot, table_row):
+        if table_row is not None:
+            ids = table_row.tolist()
+            for st, new in zip(self.states, suitcase):
+                if isinstance(st.kv, PagedKVCache):
+                    sharded.write_blocks(st.kv.k, ids, new.kv.k)
+                    sharded.write_blocks(st.kv.v, ids, new.kv.v)
+        _splice_states(self.states, suitcase, [int(slot[0])])
+
+    def _import_call(self, suitcase, slot: int,
+                     table_row: list[int] | None):
+        """(body, host inputs) of the import program into ``slot``."""
+        one = np.asarray([slot], np.int64)
+        if self.mesh is not None:
+            trow = None if table_row is None \
+                else np.asarray(table_row, np.int64)
+            return self._import_mesh, (suitcase, one, trow)
+        src = dst = blocks = None
+        if self.kv is not None:
+            trow = np.asarray(table_row, np.int64)
+            kept = np.flatnonzero(trow < self.kv.pool.num_blocks)
+            first = kept[0] if kept.size else 0
+            src = np.where(trow < self.kv.pool.num_blocks,
+                           np.arange(trow.size), first)
+            dst = np.where(trow < self.kv.pool.num_blocks, trow,
+                           trow[first] if kept.size else 0)
+            blocks = np.asarray([kept.size > 0])
+        return self._import_program, (suitcase, one, src, dst, blocks,
+                                      np.ones((1,), bool))
+
+    def _import_slot(self, suitcase: list[BlockState], slot: int,
+                     table_row: list[int] | None) -> None:
+        """Unpack ``suitcase`` into slot ``slot`` through ``table_row``,
+        eagerly, outside the program table."""
+        body, host = self._import_call(suitcase, slot, table_row)
+        self._eager_entry()(body, host)
 
     def _stage_ready(self, slot: int, now: float) -> None:
         """Prefill role: the slot's prompt is prefilled and its first token
@@ -981,8 +1209,9 @@ class ServeEngine:
         """Prefill role: the suitcase of a ready slot."""
         req = self.requests[slot]
         trow = list(self.kv.table[slot]) if self.kv is not None else None
+        body, host = self._export_call(slot, trow)
         with self._timed("handoff_export") as tm:
-            out = self._export_slot(slot, trow)
+            out = self._program("export", body, *host, fresh=True)
             tm.sync()
         st = self.stats
         st.handoffs += 1
@@ -1028,8 +1257,9 @@ class ServeEngine:
             self.stats.handoff_stalls += 1
             return None
         trow = list(self.kv.table[slot]) if self.kv is not None else None
+        body, host = self._import_call(suitcase, slot, trow)
         with self._timed("handoff_import") as tm:
-            self._import_slot(suitcase, slot, trow)
+            self._program("import", body, *host)
             tm.sync()
         st = self.stats
         st.handoffs += 1
@@ -1051,20 +1281,21 @@ class ServeEngine:
         return slot
 
     # ---------------------------------------------------------------- warmup
-    def _warm_table(self, rows: int) -> torch.Tensor | None:
+    def _warm_table(self, rows: int) -> np.ndarray | None:
         """All-sentinel block tables: warmup calls drop every paged write."""
         if self.kv is None:
             return None
-        return self._rows(np.full((rows, self.kv.blocks_per_slot),
-                                  self.kv.sentinel, np.int32))
+        return np.full((rows, self.kv.blocks_per_slot), self.kv.sentinel,
+                       np.int32)
 
-    def _warm_program(self, name: str, geometry: dict, fn, *args,
-                      **kwargs):
+    def _warm_program(self, name: str, geometry: dict, body, *host,
+                      fresh: bool = False):
         """Register program ``name`` with the static cost of its kind (the
         name up to ``[``) at ``geometry``, under the reference's phase and
-        ``program`` string, then make its warmup call ``fn(*args,
-        **kwargs)`` — measured with ``program_memory`` — and return what
-        the call returns."""
+        ``program`` string, then make its warmup call through the program
+        table (``_program(name, body, *host)``, which prepares its entry)
+        — measured with ``program_memory`` — and return what the call
+        returns."""
         kind = name.split("[")[0]
         if self.kv is not None:
             geometry = dict(geometry, kv_block_size=self.kv.block_size)
@@ -1083,8 +1314,9 @@ class ServeEngine:
                                **geometry),
             phase=PROGRAM_PHASES[kind], program="_" + kind)
         if not self._program_memory:
-            return fn(*args, **kwargs)
-        out, e.memory = measure_call(fn, args, kwargs,
+            return self._program(name, body, *host, fresh=fresh)
+        out, e.memory = measure_call(self._program, (name, body, *host),
+                                     dict(fresh=fresh),
                                      params=self.model.parameters())
         return out
 
@@ -1102,44 +1334,43 @@ class ServeEngine:
         if self._queue or self._prefilling \
                 or any(r is not None for r in self.requests):
             raise RuntimeError("warmup() requires an idle engine")
-        zeros = lambda rows: self._rows(               # noqa: E731
-            np.zeros((rows,), np.int32))
-        tokens = lambda rows, n: self._rows(           # noqa: E731
-            np.zeros((rows, n), np.int64))
-        ones = lambda rows: self._rows(                # noqa: E731
-            np.ones((rows,), np.int32))
+        zeros = lambda rows, dt=np.int32: np.zeros(   # noqa: E731
+            (rows,), dt)
+        tokens = lambda rows, n: np.zeros(             # noqa: E731
+            (rows, n), np.int64)
+        ones = lambda rows: np.ones((rows,), np.int32)  # noqa: E731
         warm = self._warm_program
         with self._timed("warmup") as tm:
             if self.role != "decode":
                 for b in self.buckets:
                     for nb in self.batch_buckets:
                         warm(f"prefill[{nb}x{b}]", dict(batch=nb, seq=b),
-                             self.prefill_model.prefill, tokens(nb, b),
-                             self._fresh_states(nb), length=ones(nb),
-                             block_table=self._warm_table(nb))
+                             self._body("prefill"), tokens(nb, b),
+                             ones(nb), np.arange(nb, dtype=np.int64),
+                             zeros(nb, bool), self._warm_table(nb))
                 if self.max_len - 1 > self.buckets[-1] \
                         or (self.kv is not None and self.kv.prefix_enabled):
                     warm("chunk", dict(seq=self.prefill_chunk),
-                         self.prefill_model.prefill,
-                         tokens(1, self.prefill_chunk),
-                         _gather_slot(self.states, 0), length=ones(1),
-                         offset=zeros(1), block_table=self._warm_table(1))
+                         self._body("chunk"), tokens(1, self.prefill_chunk),
+                         ones(1), zeros(1), zeros(1, np.int64),
+                         zeros(1, bool), self._warm_table(1))
                 if self.kv is not None:
-                    warm("copy", {}, self._copy_blocks, 0, 0)
+                    warm("copy", {}, self._body("copy"), zeros(1, np.int64),
+                         zeros(1, np.int64))
             if self.role != "prefill":
-                warm("decode", dict(batch=self.slots),
-                     self.decode_model.decode_step, tokens(self.slots, 1),
-                     self.states, zeros(self.slots),
-                     active=self._rows(np.zeros((self.slots,), bool)),
-                     block_table=self._warm_table(self.slots))
+                warm("decode", dict(batch=self.slots), self._body("decode"),
+                     tokens(self.slots, 1), zeros(self.slots),
+                     zeros(self.slots, bool),
+                     self._host_rows(self._warm_table(self.slots)))
             exported = self._warm_handoff(suitcase)
-            self.states = self._init_states()
+            self._zero_states()
             tm.sync()
         self.tracer.span("warmup", self._trk_engine, tm.t0, tm.t1)
         if self.kv is not None:
             # the pool was just re-zeroed: drop every prefix that described it
             self.kv.clear()
         self.positions[:] = 0
+        self._sync_compile_stats()
         tmp = self.programs.temp_bytes_peak()
         if tmp:
             self.stats.metrics.gauge("program_temp_bytes_peak",
@@ -1157,30 +1388,47 @@ class ServeEngine:
         idle states; ``DisaggEngine`` passes the prefill role's warm export
         when the roles are on ranks of their own) into slot 0 through an
         all-sentinel row, so every block write drops.  ``warmup``
-        re-initializes the states right after."""
+        zeroes the states right after."""
         if self.role == "both":
             return None
         trow = [self.kv.sentinel] * self.kv.blocks_per_slot \
             if self.kv is not None else None
         if self.role == "prefill":
-            return self._warm_program("export", {}, self._export_slot, 0,
-                                      trow)
+            body, host = self._export_call(0, trow)
+            return self._warm_program("export", {}, body, *host, fresh=True)
         if suitcase is None:
             suitcase = self.stage_in(self._export_slot(0, trow))
-        self._warm_program("import", {}, self._import_slot, suitcase, 0,
-                           trow)
+        body, host = self._import_call(suitcase, 0, trow)
+        self._warm_program("import", {}, body, *host)
         return None
 
     # ---------------------------------------------------------------- decode
     def _decode_table(self) -> torch.Tensor | None:
-        """The device copy of the full block table, rebuilt only when
-        admission, extension or retirement changed it (None when dense)."""
+        """The device copy of the full block table (a DTensor on a mesh),
+        rebuilt only when admission, extension or retirement changed it
+        (None when dense).  A graph copies it into its own buffer on the
+        card at each replay."""
         if self.kv is None:
             return None
         if self._bt_cache is None or self._bt_version != self.kv.version:
             self._bt_cache = self._rows(np.asarray(self.kv.table, np.int32))
             self._bt_version = self.kv.version
         return self._bt_cache
+
+    def _decode_program(self, toks, positions, active, table):
+        """The ``decode`` program: one lockstep step over the slot pool,
+        every state leaf the model returns anew copied back into the
+        engine's; returns the logits (slots, 1, V)."""
+        logits, states = self.decode_model.decode_step(
+            toks, self.states, positions, active=active, block_table=table)
+        _write_back(self.states, states)
+        return logits
+
+    def _decode_mesh(self, toks, positions, active, table):
+        logits, self.states = self.decode_model.decode_step(
+            self._rows(toks), self.states, self._rows(positions),
+            active=self._rows(active), block_table=table)
+        return self._full(logits)
 
     def step(self) -> None:
         """One engine tick: advance each in-flight chunked prefill by one
@@ -1220,6 +1468,7 @@ class ServeEngine:
         self.stats.ticks += 1
         self.stats.occupancy_sum += len(busy) / self.slots
         if not active:
+            self._sync_compile_stats()
             self._sync_kv_stats()
             self.stats.kv_occupancy_sum += self._kv_occupancy()
             now = self.tracer.now()
@@ -1234,12 +1483,12 @@ class ServeEngine:
             toks[i, 0] = req.generated[-1] if req.generated \
                 else req.prompt[-1]
         with self._timed("decode") as tm:
-            logits, self.states = self.decode_model.decode_step(
-                self._rows(toks), self.states, self._rows(self.positions),
-                active=self._rows(mask), block_table=self._decode_table())
+            logits = self._program(
+                "decode", self._body("decode"), toks, self.positions, mask,
+                self._decode_table())
             rows = self._tensor(np.asarray(active, np.int64))
-            nxt = self._sample(self._full(logits)[:, 0].index_select(0, rows),
-                               active, self.positions[active] + 1)
+            nxt = self._sample(logits[:, 0].index_select(0, rows), active,
+                               self.positions[active] + 1)
             tm.sync()
         now = tm.t1
         m = self.stats.metrics
@@ -1260,6 +1509,7 @@ class ServeEngine:
                     or tok == req.eos_id
                     or self.positions[i] >= self.max_len - 1):
                 self._finish(i, now)
+        self._sync_compile_stats()
         self._sync_kv_stats()
         self.stats.kv_occupancy_sum += self._kv_occupancy()
         end = self.tracer.now()
@@ -1311,6 +1561,60 @@ class ServeEngine:
 
 
 # --------------------------------------------------------- state pool surgery
+def _state_pairs(st: BlockState, row: BlockState) -> list:
+    """(pooled leaf, row leaf) of one layer, a paged layer's length only:
+    its blocks are the pool's own."""
+    if isinstance(st.kv, PagedKVCache):
+        return [(st.kv.length, row.kv.length)]
+    if st.kv is not None:
+        return list(zip(st.kv, row.kv))
+    return [(a, row.rec[k]) for k, a in st.rec.items()]
+
+
+def _gather_rows(states: list[BlockState],
+                 idx: torch.Tensor) -> list[BlockState]:
+    """Copies of the rows ``idx`` (a device tensor) of the pooled states;
+    paged layers keep the global pool and copy only the rows' lengths."""
+    out = []
+    for st in states:
+        if isinstance(st.kv, PagedKVCache):
+            out.append(BlockState(kv=st.kv._replace(
+                length=st.kv.length.index_select(0, idx))))
+        elif st.kv is not None:
+            out.append(BlockState(kv=KVCache(*(a.index_select(0, idx)
+                                               for a in st.kv))))
+        else:
+            out.append(BlockState(rec={k: a.index_select(0, idx)
+                                       for k, a in st.rec.items()}))
+    return out
+
+
+def _splice_rows(states: list[BlockState], rows: list[BlockState],
+                 idx: torch.Tensor, keep: torch.Tensor) -> None:
+    """Write row ``i`` of the batch-N ``rows`` into slot ``idx[i]`` (N
+    distinct slots, a device tensor) of the pooled ``states`` where
+    ``keep[i]``, IN PLACE; every other listed slot is rewritten with its
+    own bits, so the call needs no count of the kept rows on the host."""
+    for st, row in zip(states, rows):
+        for dst, src in _state_pairs(st, row):
+            mask = keep.view(-1, *[1] * (dst.dim() - 1))
+            dst.index_copy_(0, idx, torch.where(
+                mask, src.to(dst.dtype), dst.index_select(0, idx)))
+
+
+def _write_back(states: list[BlockState], new: list[BlockState]) -> None:
+    """Copy every leaf of ``new`` that a model call made anew into the
+    engine's tensor it replaces, IN PLACE (leaves written in place are the
+    same tensors)."""
+    for st, row in zip(states, new):
+        if isinstance(st.kv, PagedKVCache):
+            pairs = zip(st.kv, row.kv)
+        else:
+            pairs = _state_pairs(st, row)
+        for dst, src in pairs:
+            if src is not dst:
+                dst.copy_(src)
+
 def _state_byte_stats(states: list[BlockState]) -> tuple[int, int]:
     """(paged pool K/V bytes, per-slot state bytes) of the state list, as
     the reference counts them: a paged layer's K and V (its lengths are not

@@ -1475,3 +1475,122 @@ def test_sharded_build_equals_build_model_on_card(card_mesh):
     engine = ServeEngine(built, slots=2, max_len=64, kv_block_size=16,
                          mesh=card_mesh)
     assert engine.model is built
+
+
+# ------------------------------------------------------------- CUDA graphs
+def _state_leaves(engine) -> list:
+    return [a for st in engine.states
+            for a in (st.kv if st.kv is not None
+                      else [st.rec[k] for k in sorted(st.rec)])]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}
+    return t.view(ints[t.element_size()]) if t.dtype != torch.bool else t
+
+
+#: the archs and dtypes the graphed engine is held to the eager one in:
+#: each family in float32, and the paged one in bf16 too (cuBLAS's bf16
+#: GEMMs under capture; phase 6 of ``chip_smoke.py`` serves all three in
+#: bf16 at full width, tokens and launches against the eager run's)
+GRAPH_CASES = [(arch, kv, "float32") for arch, kv in DISAGG_ARCHS] \
+    + [("qwen3-0.6b", 8, "bfloat16")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kv_block_size,dtype", GRAPH_CASES)
+def test_graphs_equal_the_eager_route_bit_for_bit_on_card(cuda, dtype, arch,
+                                                          kv_block_size):
+    """Reduced qwen3 (paged, a prefix hit and a copied block),
+    recurrentgemma and falcon-mamba (dense): one engine on CUDA graphs and
+    one with ``cuda_graphs=False`` over the same model tick in lockstep
+    through the disaggregated gate's trace (bucketed prefills, a chunked
+    prompt, a sampled request).  After every tick the two engines' states
+    and pools hold the same bits and the same tokens have come out; a slot
+    with no request keeps every bit of its row through the tick; each
+    tick's launches, counted by replay on the graphed engine, are the
+    eager engine's; and both count the same compiled programs."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg, model = _lively_model(arch, dtype, cuda)
+    kw = dict(max_len=128, buckets=(16, 32), prefill_chunk=32,
+              kv_block_size=kv_block_size,
+              kv_blocks=None if kv_block_size is None else 64)
+    graphed = ServeEngine(model, slots=4, **kw)
+    eager = ServeEngine(model, slots=4, cuda_graphs=False, **kw)
+    for eng in (graphed, eager):
+        eng.warmup()
+    report = graphed.graph_report()
+    assert report["graphs"] == len(graphed._table) > 0
+    assert report["pool_bytes"] > 0 and eager.graph_report()["graphs"] == 0
+    traces = [_disagg_trace(cfg.vocab_size) for _ in range(2)]
+    for eng, reqs in zip((graphed, eager), traces):
+        for r in reqs[:4]:
+            eng.submit(r)
+    frozen, late = 0, [False, False]
+    for tick in range(200):
+        for k, (eng, reqs) in enumerate(zip((graphed, eager), traces)):
+            # the prefix sharers one after the other: the second hits the
+            # first's published tokens mid-block and clones that block
+            if tick == 3:
+                eng.submit(reqs[4])
+            if reqs[4].done and not late[k]:
+                eng.submit(reqs[5])
+                late[k] = True
+        moved = []
+        for eng in (graphed, eager):
+            idle = [i for i, r in enumerate(eng.requests) if r is None
+                    and not eng._queue]
+            rows = [[a[i].clone() for a in _state_leaves(eng)
+                     if a.shape[0] == eng.slots] for i in idle]
+            before = [c.n for c in (fa.launches, pa.launches, pr.launches,
+                                    pr.decode_launches, ps.launches,
+                                    ps.decode_launches)]
+            eng.step()
+            moved.append([c.n - b for c, b in zip(
+                (fa.launches, pa.launches, pr.launches, pr.decode_launches,
+                 ps.launches, ps.decode_launches), before)])
+            for i, row in zip(idle, rows):
+                if eng.requests[i] is None:
+                    now = [a[i] for a in _state_leaves(eng)
+                           if a.shape[0] == eng.slots]
+                    assert all(torch.equal(_bits(x), _bits(y))
+                               for x, y in zip(row, now)), (tick, i)
+                    frozen += 1
+        assert moved[0] == moved[1], tick
+        for a, b in zip(_state_leaves(graphed), _state_leaves(eager)):
+            assert torch.equal(_bits(a), _bits(b)), tick
+        assert [r.generated for r in traces[0]] \
+            == [r.generated for r in traces[1]], tick
+        if all(r.done for t in traces for r in t):
+            break
+    assert all(r.done for t in traces for r in t) and frozen > 0
+    assert len({tuple(r.generated) for r in traces[0]}) > 1
+    s, e = graphed.stats.summary(), eager.stats.summary()
+    assert s["prefill_chunks"] >= 1
+    if kv_block_size is not None:
+        assert s["kv"]["blocks_copied"] >= 1
+    assert (s["prefill_compiles"], s["decode_compiles"]) \
+        == (e["prefill_compiles"], e["decode_compiles"])
+    assert graphed.graph_report()["graphs"] == report["graphs"]
+
+
+@pytest.mark.gpu
+def test_capture_that_meets_a_host_sync_raises_on_card(cuda):
+    """A program whose body reads a value on the host cannot be one graph:
+    its capture raises, and no entry falls back to the eager call."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = reduced_config("qwen3-0.6b").replace(compute_dtype="float32")
+    engine = ServeEngine(build_model(cfg, device=cuda, seed=0), slots=2,
+                         max_len=64)
+    with pytest.raises(RuntimeError):
+        engine._program("probe", lambda x: (x * 2).sum().item(),
+                        np.ones((4,), np.float32))
+    assert not engine._table
+    torch.cuda.synchronize()
+    engine.warmup()                   # the card serves on after the refusal
+    assert engine.graph_report()["graphs"] == len(engine._table) > 0
+    with pytest.raises(RuntimeError):          # and refuses it again
+        engine._program("probe", lambda x: (x * 2).sum().item(),
+                        np.ones((4,), np.float32))

@@ -184,7 +184,10 @@ def _check_schema(models, paged, policy):
     for name in ("ttft_s", "decode_tick_s", "decode_tbt_s"):
         assert g["histograms"][name]["count"] \
             == w["histograms"][name]["count"] > 0
-    assert got["prefill_compiles"] == got["decode_compiles"] == 0
+    # served without warmup: each program counts the first time it is met,
+    # as the JAX engine's jit caches count it
+    for key in ("prefill_compiles", "decode_compiles"):
+        assert got[key] == want[key] > 0, key
 
 
 def test_ttft_p50_is_the_reference_statistic():

@@ -492,7 +492,7 @@ def test_bytes_equal_the_tensors_each_program_moves(warmed):
                 == _kv_state_bytes(name, engine), name
             io = 0
             if kind in ("prefill", "chunk", "decode"):
-                io = args[0].nbytes + out[0].nbytes
+                io = args[0].nbytes + out.nbytes      # tokens, logits
             assert terms["io"] == io, name
             e = engine.programs.entry(name)
             assert e.bytes_accessed == sum(terms[k] for k in (
@@ -529,8 +529,8 @@ def test_engine_divides_by_the_h100_at_its_compute_dtype():
 
 def test_program_memory_on_the_cpu_has_no_watermark():
     """``program_memory=True`` measures each warmup call's argument bytes
-    (at least the parameters) and output bytes (a prefill's logits and its
-    new recurrent rows; a block copy writes in place); the CPU has no
+    (at least the parameters) and output bytes (each program's logits: it
+    writes the engine's states in place); the CPU has no
     allocator watermark, so temp and peak are omitted and so is the
     gauge."""
     cfg = reduced_config("recurrentgemma-2b").replace(
